@@ -1,0 +1,580 @@
+"""T5Gemma encoder-decoder with PM-RoPE cross-attention, in PyTorch.
+
+Counterpart of ``t5gemma_tts_tpu/models/t5gemma.py``. Parameters are nested
+dicts of tensors with the JAX tree's key names and its stacked ``[L, ...]``
+layer axis (kernels [in, out]); layers run as a Python loop over that axis.
+RMSNorm computes in f32 with a (1 + w) scale, attention logits are f32 with
+a tanh soft cap, embeddings are scaled by sqrt(hidden) in the compute dtype.
+
+Two decode caches:
+
+- the dense cache (:func:`init_cache` + :func:`decoder_forward`), which
+  ``kv_cache="auto"`` takes on the CPU or when prompt + generation exceed
+  the sliding window;
+- the paged cache (:class:`PagedDecoderCache`, :func:`paged_prefill`,
+  :func:`paged_decode_step`), whose attention reads go through
+  ``ops/fused_attn.batch_paged_attention``: on the card the hand-written
+  CUDA kernel, twice per layer.
+
+Unlike the JAX package, the caches are updated in place (the step writes
+one token per layer into preallocated buffers instead of returning copies).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ModuleDims
+from ..ops import fused_attn
+from ..ops import rope as rope_ops
+from ..ops.paged_attn import identity_page_indices
+
+PyTree = Any
+PAGE_SIZE = 128
+
+
+# ---------------------------------------------------------------------------
+# primitive blocks
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """T5Gemma RMSNorm: f32 compute, (1 + w) scale, cast back."""
+    xf = x.float()
+    normed = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (normed * (1.0 + weight.float())).to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """GeGLU: act(x @ gate) * (x @ up) @ down (one gate_up matmul when the
+    params are fused for decode)."""
+    if "gate_up" in p:
+        g, u = (x @ p["gate_up"]).chunk(2, dim=-1)
+        h = gelu_tanh(g) * u
+    else:
+        h = gelu_tanh(x @ p["gate"]) * (x @ p["up"])
+    return h @ p["down"]
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    b, t, _ = x.shape
+    return x.reshape(b, t, n_heads, head_dim).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d)
+
+
+def _embed_scale(x: torch.Tensor, dims: ModuleDims) -> torch.Tensor:
+    """x * sqrt(hidden), the scale rounded to x's dtype first."""
+    s = torch.tensor(math.sqrt(dims.hidden_size), dtype=x.dtype).item()
+    return x * s
+
+
+def gqa_attention(q, k, v, bias, scale: float, softcap: Optional[float]):
+    """Grouped-query attention with f32 logits and softmax.
+    q [B,H,Tq,hd], k/v [B,Hkv,Tk,hd], bias [B,1,Tq,Tk] -> [B,H,Tq,hd]."""
+    b, h, tq, hd = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, tq, hd)
+    logits = torch.einsum("bkgth,bksh->bkgts", qg.float(), k.float()) * scale
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    logits = logits + bias[:, :, None].float()
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bksh->bkgth", weights, v)
+    return out.reshape(b, h, tq, hd)
+
+
+def _qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor, dims: ModuleDims):
+    """q/k/v projections; one fused matmul when the params carry "qkv"."""
+    if "qkv" in p:
+        qh = dims.num_heads * dims.head_dim
+        kh = dims.num_kv_heads * dims.head_dim
+        qkv = x @ p["qkv"]
+        q = _split_heads(qkv[..., :qh], dims.num_heads, dims.head_dim)
+        k = _split_heads(qkv[..., qh:qh + kh], dims.num_kv_heads, dims.head_dim)
+        v = _split_heads(qkv[..., qh + kh:], dims.num_kv_heads, dims.head_dim)
+    else:
+        q = _split_heads(x @ p["q"], dims.num_heads, dims.head_dim)
+        k = _split_heads(x @ p["k"], dims.num_kv_heads, dims.head_dim)
+        v = _split_heads(x @ p["v"], dims.num_kv_heads, dims.head_dim)
+    return q, k, v
+
+
+def self_attention(p, x, cos, sin, bias, dims: ModuleDims) -> torch.Tensor:
+    """Self-attention with RoPE over this call's own keys."""
+    q, k, v = _qkv_proj(p, x, dims)
+    q = rope_ops.apply_rope(q, cos, sin)
+    k = rope_ops.apply_rope(k, cos, sin)
+    out = gqa_attention(q, k, v, bias, dims.q_scale, dims.attn_logit_softcap)
+    return _merge_heads(out) @ p["o"]
+
+
+def cross_attention(p, x, kv_cache, bias, dims: ModuleDims,
+                    q_cos=None, q_sin=None) -> torch.Tensor:
+    """PM-RoPE cross-attention over precomputed encoder K/V; the query gets
+    rotary with progress positions when q_cos/q_sin are given."""
+    q = _split_heads(x @ p["q"], dims.num_heads, dims.head_dim)
+    if q_cos is not None:
+        q = rope_ops.apply_rope(q, q_cos, q_sin)
+    k, v = kv_cache
+    out = gqa_attention(q, k.to(x.dtype), v.to(x.dtype), bias, dims.q_scale,
+                        dims.attn_logit_softcap)
+    return _merge_heads(out) @ p["o"]
+
+
+def cross_kv(p, memory, dims: ModuleDims, k_cos=None, k_sin=None):
+    """Encoder memory -> cross K/V [B, Hkv, Tenc, hd]; keys get PM rotary."""
+    k = _split_heads(memory @ p["k"], dims.num_kv_heads, dims.head_dim)
+    v = _split_heads(memory @ p["v"], dims.num_kv_heads, dims.head_dim)
+    if k_cos is not None:
+        k = rope_ops.apply_rope(k, k_cos, k_sin)
+    return k, v
+
+
+def layer_params(tree: PyTree, li: int) -> PyTree:
+    """Layer ``li`` of a stacked [L, ...] parameter tree (views)."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, li) for k, v in tree.items()}
+    return tree[li]
+
+
+# ---------------------------------------------------------------------------
+# parameter init (seeded, on the target device)
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen: torch.Generator, shape, dtype, device, std=0.02):
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(std).to(dtype)
+
+
+def init_stack(gen: torch.Generator, dims: ModuleDims, *, is_decoder: bool,
+               with_embed: bool, dtype=torch.bfloat16, device=None,
+               cross_hidden: Optional[int] = None) -> PyTree:
+    """Random-init parameters for one stack, layer-stacked along axis 0."""
+    d, f = dims.hidden_size, dims.intermediate_size
+    qh = dims.num_heads * dims.head_dim
+    kh = dims.num_kv_heads * dims.head_dim
+    ch = cross_hidden or d
+    n = dims.num_layers
+
+    def lin(*shape):
+        return _normal(gen, (n, *shape), dtype, device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    layers: Dict[str, Any] = {
+        "pre_self_attn_norm": zeros(n, d),
+        "post_self_attn_norm": zeros(n, d),
+        "pre_ff_norm": zeros(n, d),
+        "post_ff_norm": zeros(n, d),
+        "self_attn": {"q": lin(d, qh), "k": lin(d, kh), "v": lin(d, kh),
+                      "o": lin(qh, d)},
+        "mlp": {"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)},
+    }
+    if is_decoder:
+        layers["pre_cross_attn_norm"] = zeros(n, d)
+        layers["post_cross_attn_norm"] = zeros(n, d)
+        layers["cross_attn"] = {"q": lin(d, qh), "k": lin(ch, kh),
+                                "v": lin(ch, kh), "o": lin(qh, d)}
+    params: Dict[str, Any] = {"layers": layers, "final_norm": zeros(d)}
+    if with_embed:
+        params["embed"] = _normal(gen, (dims.vocab_size, d), dtype, device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+
+def encoder_forward(params: PyTree, dims: ModuleDims, *, input_ids=None,
+                    inputs_embeds=None, full_bias, sliding_bias,
+                    position_ids) -> torch.Tensor:
+    """Bidirectional encoder; returns the last hidden state [B, T, D]."""
+    if inputs_embeds is None:
+        inputs_embeds = F.embedding(input_ids.long(), params["embed"])
+    h = _embed_scale(inputs_embeds, dims)
+    cos, sin = rope_ops.rope_cos_sin(position_ids, dims.head_dim,
+                                     dims.rope_theta)
+    eps = dims.rms_norm_eps
+    for li, sliding in enumerate(dims.sliding_flags):
+        lp = layer_params(params["layers"], li)
+        bias = sliding_bias if sliding else full_bias
+        a = self_attention(lp["self_attn"],
+                           rms_norm(h, lp["pre_self_attn_norm"], eps),
+                           cos, sin, bias, dims)
+        h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
+        m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
+        h = h + rms_norm(m, lp["post_ff_norm"], eps)
+    return rms_norm(h, params["final_norm"], eps)
+
+
+# ---------------------------------------------------------------------------
+# decoder, dense cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DecoderCache:
+    """Preallocated dense KV cache: self_* [L, B, Hkv, Tmax, hd]; cross_*
+    [L, B, Hkv, Tenc, hd] computed once at prefill."""
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+
+
+def init_cache(dims: ModuleDims, batch: int, max_len: int, enc_len: int,
+               dtype=torch.bfloat16, device=None) -> DecoderCache:
+    shape_self = (dims.num_layers, batch, dims.num_kv_heads, max_len,
+                  dims.head_dim)
+    shape_cross = (dims.num_layers, batch, dims.num_kv_heads, enc_len,
+                   dims.head_dim)
+    z = lambda s: torch.zeros(s, dtype=dtype, device=device)  # noqa: E731
+    return DecoderCache(z(shape_self), z(shape_self), z(shape_cross),
+                        z(shape_cross))
+
+
+def build_cross_kv(params: PyTree, dims: ModuleDims, memory: torch.Tensor,
+                   pm_encoder_positions: Optional[torch.Tensor]):
+    """All layers' cross K/V from encoder memory -> [L, B, Hkv, Tenc, hd]."""
+    if pm_encoder_positions is not None:
+        k_cos, k_sin = rope_ops.rope_cos_sin(pm_encoder_positions,
+                                             dims.head_dim, dims.rope_theta)
+    else:
+        k_cos = k_sin = None
+    cp = params["layers"]["cross_attn"]
+    ks, vs = zip(*(cross_kv(layer_params(cp, li), memory, dims, k_cos, k_sin)
+                   for li in range(dims.num_layers)))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _rope_tables(position_ids, pm_decoder_positions, dims: ModuleDims):
+    cos, sin = rope_ops.rope_cos_sin(position_ids, dims.head_dim,
+                                     dims.rope_theta)
+    if pm_decoder_positions is not None:
+        q_cos, q_sin = rope_ops.rope_cos_sin(pm_decoder_positions,
+                                             dims.head_dim, dims.rope_theta)
+    else:
+        q_cos = q_sin = None
+    return cos, sin, q_cos, q_sin
+
+
+def _cross_and_mlp(h, lp, xk, xv, cross_bias, dims, q_cos, q_sin):
+    eps = dims.rms_norm_eps
+    a = cross_attention(lp["cross_attn"],
+                        rms_norm(h, lp["pre_cross_attn_norm"], eps),
+                        (xk, xv), cross_bias, dims, q_cos, q_sin)
+    h = h + rms_norm(a, lp["post_cross_attn_norm"], eps)
+    m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
+    return h + rms_norm(m, lp["post_ff_norm"], eps)
+
+
+def decoder_forward(params: PyTree, dims: ModuleDims, *, inputs_embeds,
+                    self_full_bias, self_sliding_bias, cross_bias,
+                    position_ids, pm_decoder_positions, cross_k, cross_v,
+                    cache: Optional[DecoderCache] = None,
+                    cache_pos: Optional[torch.Tensor] = None):
+    """Decoder stack. Without ``cache``: full-sequence forward. With
+    ``cache``: prefill (``cache_pos`` None, writes the first T slots) or one
+    step (``cache_pos`` [B], each row writes its own slot), attending over
+    the whole cache; the cache is updated in place and returned."""
+    h = _embed_scale(inputs_embeds, dims)
+    cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
+                                          dims)
+    eps = dims.rms_norm_eps
+    rows = torch.arange(h.shape[0], device=h.device)
+    for li, sliding in enumerate(dims.sliding_flags):
+        lp = layer_params(params["layers"], li)
+        bias = self_sliding_bias if sliding else self_full_bias
+        hn = rms_norm(h, lp["pre_self_attn_norm"], eps)
+        q, k, v = _qkv_proj(lp["self_attn"], hn, dims)
+        q = rope_ops.apply_rope(q, cos, sin)
+        k = rope_ops.apply_rope(k, cos, sin)
+        if cache is not None:
+            ck, cv = cache.self_k[li], cache.self_v[li]
+            if cache_pos is None:
+                t = k.shape[2]
+                ck[:, :, :t] = k.to(ck.dtype)
+                cv[:, :, :t] = v.to(cv.dtype)
+            else:
+                ck[rows, :, cache_pos] = k[:, :, 0].to(ck.dtype)
+                cv[rows, :, cache_pos] = v[:, :, 0].to(cv.dtype)
+            k, v = ck.to(h.dtype), cv.to(h.dtype)
+        out = gqa_attention(q, k, v, bias, dims.q_scale,
+                            dims.attn_logit_softcap)
+        a = _merge_heads(out) @ lp["self_attn"]["o"]
+        h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
+        h = _cross_and_mlp(h, lp, cross_k[li], cross_v[li], cross_bias, dims,
+                           q_cos, q_sin)
+    h = rms_norm(h, params["final_norm"], eps)
+    if cache is not None:
+        cache.cross_k, cache.cross_v = cross_k, cross_v
+    return h, cache
+
+
+# ---------------------------------------------------------------------------
+# decoder, paged cache
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PagedDecoderCache:
+    """Decode KV cache for the paged-attention step.
+
+    Three slabs, each folding all layers into one tensor so per-layer reads
+    address pages through per-layer page indices (never a slice copy):
+
+      prompt_k/v [Hkv, L*B, Wp, hd]: prompt, written once at prefill;
+      gen_k/v    [Hkv, L*B, Tg, hd]: generated tokens, STEP-indexed (a row's
+                 step-s token lives at slot s);
+      cross_k/v  [Hkv, L*B, Tx, hd]: encoder K/V, written at prefill.
+
+    ``pending_k/v`` [L, B, Hkv, hd] (bf16) hold the newest token's K/V; the
+    next step flushes them into slot max(step - 1, 0) of gen_k/v before it
+    reads the cache. With int8 pages each slab has a per-token f32 scale
+    plane [Hkv, L*B, T]. ``page_indices`` holds each region's [L, B, pages]
+    page table into the slab's [Hkv, L*B*T/128, 128, hd] view.
+    """
+
+    prompt_k: torch.Tensor
+    prompt_v: torch.Tensor
+    gen_k: torch.Tensor
+    gen_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    pending_k: torch.Tensor
+    pending_v: torch.Tensor
+    page_indices: Dict[str, torch.Tensor]
+    prompt_k_scale: Optional[torch.Tensor] = None
+    prompt_v_scale: Optional[torch.Tensor] = None
+    gen_k_scale: Optional[torch.Tensor] = None
+    gen_v_scale: Optional[torch.Tensor] = None
+    cross_k_scale: Optional[torch.Tensor] = None
+    cross_v_scale: Optional[torch.Tensor] = None
+
+
+def _pad_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def init_paged_cache(dims: ModuleDims, batch: int, prompt_len: int,
+                     gen_len: int, enc_len: int, *,
+                     store_dtype=torch.bfloat16,
+                     device=None) -> PagedDecoderCache:
+    """Allocate the paged cache (region lengths padded to page multiples)."""
+    total = _pad_to(prompt_len, PAGE_SIZE) + _pad_to(gen_len, PAGE_SIZE)
+    if total > dims.sliding_window:
+        raise ValueError(
+            f"paged KV cache supports prompt+gen <= sliding_window "
+            f"({dims.sliding_window}); got {total}. Use the dense cache.")
+    wp = _pad_to(prompt_len, PAGE_SIZE)
+    tg = _pad_to(gen_len, PAGE_SIZE)
+    tx = _pad_to(enc_len, PAGE_SIZE)
+    l, hkv, hd = dims.num_layers, dims.num_kv_heads, dims.head_dim
+    lb = l * batch
+    quant = store_dtype == torch.int8
+
+    def slab(t):
+        return torch.zeros((hkv, lb, t, hd), dtype=store_dtype, device=device)
+
+    def scale(t):
+        if not quant:
+            return None
+        return torch.zeros((hkv, lb, t), dtype=torch.float32, device=device)
+
+    def table(t):
+        pps = t // PAGE_SIZE
+        ident = identity_page_indices(batch, pps, device)
+        layer = torch.arange(l, dtype=torch.int32, device=device)
+        return ident[None] + layer[:, None, None] * (batch * pps)
+
+    pending = (l, batch, hkv, hd)
+    return PagedDecoderCache(
+        prompt_k=slab(wp), prompt_v=slab(wp), gen_k=slab(tg), gen_v=slab(tg),
+        cross_k=slab(tx), cross_v=slab(tx),
+        pending_k=torch.zeros(pending, dtype=torch.bfloat16, device=device),
+        pending_v=torch.zeros(pending, dtype=torch.bfloat16, device=device),
+        page_indices={"prompt": table(wp), "gen": table(tg),
+                      "cross": table(tx)},
+        prompt_k_scale=scale(wp), prompt_v_scale=scale(wp),
+        gen_k_scale=scale(tg), gen_v_scale=scale(tg),
+        cross_k_scale=scale(tx), cross_v_scale=scale(tx),
+    )
+
+
+def _pages_view(buf: torch.Tensor) -> torch.Tensor:
+    """[Hkv, L*B, T, hd] -> [Hkv, L*B*(T/ps), ps, hd] (a view)."""
+    hkv, lb, t, hd = buf.shape
+    return buf.view(hkv, lb * (t // PAGE_SIZE), PAGE_SIZE, hd)
+
+
+def _scale_pages_view(buf: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """[Hkv, L*B, T] -> [Hkv, L*B*(T/ps), ps] (a view)."""
+    if buf is None:
+        return None
+    hkv, lb, t = buf.shape
+    return buf.view(hkv, lb * (t // PAGE_SIZE), PAGE_SIZE)
+
+
+def _write_region(buf, kv, li, scale_buf):
+    """Write [B, Hkv, W, hd] K or V (prompt or encoder) of layer ``li``
+    into its slab rows; int8 slabs also get the per-token scales."""
+    b, _, w, _ = kv.shape
+    rows = slice(li * b, (li + 1) * b)
+    if scale_buf is not None:
+        qv, sc = fused_attn.quantize_kv(kv.to(torch.bfloat16))
+        buf[:, rows, :w] = qv.transpose(0, 1)
+        scale_buf[:, rows, :w] = sc.transpose(0, 1)
+    else:
+        buf[:, rows, :w] = kv.transpose(0, 1).to(buf.dtype)
+
+
+def paged_prefill(params: PyTree, dims: ModuleDims, *, inputs_embeds,
+                  self_full_bias, self_sliding_bias, cross_bias, position_ids,
+                  pm_decoder_positions, cross_k, cross_v,
+                  cache: PagedDecoderCache):
+    """Prompt prefill for the paged path: attention over this call's own
+    [W, W] block (nothing beyond the prompt exists yet); the fresh K/V and
+    the encoder K/V land in the cache slabs (in place)."""
+    h = _embed_scale(inputs_embeds, dims)
+    cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
+                                          dims)
+    eps = dims.rms_norm_eps
+    for li, sliding in enumerate(dims.sliding_flags):
+        lp = layer_params(params["layers"], li)
+        bias = self_sliding_bias if sliding else self_full_bias
+        hn = rms_norm(h, lp["pre_self_attn_norm"], eps)
+        q, k, v = _qkv_proj(lp["self_attn"], hn, dims)
+        q = rope_ops.apply_rope(q, cos, sin)
+        k = rope_ops.apply_rope(k, cos, sin)
+        _write_region(cache.prompt_k, k, li, cache.prompt_k_scale)
+        _write_region(cache.prompt_v, v, li, cache.prompt_v_scale)
+        out = gqa_attention(q, k, v, bias, dims.q_scale,
+                            dims.attn_logit_softcap)
+        a = _merge_heads(out) @ lp["self_attn"]["o"]
+        h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
+        h = _cross_and_mlp(h, lp, cross_k[li], cross_v[li], cross_bias, dims,
+                           q_cos, q_sin)
+        _write_region(cache.cross_k, cross_k[li], li, cache.cross_k_scale)
+        _write_region(cache.cross_v, cross_v[li], li, cache.cross_v_scale)
+    return rms_norm(h, params["final_norm"], eps), cache
+
+
+def _flush_pending(buf, pending, scale_buf, slot: int):
+    """Write the pending [L, B, Hkv, hd] block into gen slot ``slot``."""
+    hkv, lb, _, hd = buf.shape
+    if scale_buf is not None:
+        pending, sc = fused_attn.quantize_kv(pending)
+        scale_buf[:, :, slot] = sc.permute(2, 0, 1).reshape(hkv, lb)
+    buf[:, :, slot] = pending.permute(2, 0, 1, 3).reshape(hkv, lb, hd).to(
+        buf.dtype)
+
+
+def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
+                      position_ids, pm_decoder_positions,
+                      cache: PagedDecoderCache, step: int, prompt_lengths,
+                      enc_lengths):
+    """One decode step over the paged cache.
+
+    Flushes the previous step's pending K/V into gen slot max(step - 1, 0)
+    (on the first step slot 0 gets zeros, invisible at gen length 0), then
+    runs the layers: self-attention over the prompt pages, the ``step``
+    generated tokens and the in-flight token (unrounded), and
+    cross-attention over the encoder pages, each one
+    ``batch_paged_attention`` call. The new token's K/V become the pending
+    block (bf16). ``prompt_lengths``/``enc_lengths`` are int32 [B]."""
+    b = inputs_embeds.shape[0]
+    h = _embed_scale(inputs_embeds, dims)
+    cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
+                                          dims)
+    slot = max(step - 1, 0)
+    _flush_pending(cache.gen_k, cache.pending_k, cache.gen_k_scale, slot)
+    _flush_pending(cache.gen_v, cache.pending_v, cache.gen_v_scale, slot)
+    gen_lengths = torch.full((b,), step, dtype=torch.int32, device=h.device)
+
+    prompt_kp, prompt_vp = _pages_view(cache.prompt_k), _pages_view(cache.prompt_v)
+    gen_kp, gen_vp = _pages_view(cache.gen_k), _pages_view(cache.gen_v)
+    cross_kp, cross_vp = _pages_view(cache.cross_k), _pages_view(cache.cross_v)
+    prompt_s = (_scale_pages_view(cache.prompt_k_scale),
+                _scale_pages_view(cache.prompt_v_scale))
+    gen_s = (_scale_pages_view(cache.gen_k_scale),
+             _scale_pages_view(cache.gen_v_scale))
+    cross_s = (_scale_pages_view(cache.cross_k_scale),
+               _scale_pages_view(cache.cross_v_scale))
+    tables = cache.page_indices
+    cap = dims.attn_logit_softcap
+    eps = dims.rms_norm_eps
+    k_new, v_new = [], []
+    for li in range(dims.num_layers):
+        lp = layer_params(params["layers"], li)
+        hn = rms_norm(h, lp["pre_self_attn_norm"], eps)
+        q, k, v = _qkv_proj(lp["self_attn"], hn, dims)
+        q = rope_ops.apply_rope(q, cos, sin)
+        k = rope_ops.apply_rope(k, cos, sin)
+        qv = q[:, :, 0].float() * dims.q_scale
+        attn = fused_attn.batch_paged_attention(
+            qv, k[:, :, 0], v[:, :, 0], prompt_kp, prompt_vp, gen_kp, gen_vp,
+            prompt_lengths, gen_lengths, tables["prompt"][li],
+            tables["gen"][li], *prompt_s, *gen_s,
+            attn_logits_soft_cap=cap, include_current=True).to(h.dtype)
+        a = attn.reshape(b, 1, -1) @ lp["self_attn"]["o"]
+        h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
+
+        hn = rms_norm(h, lp["pre_cross_attn_norm"], eps)
+        cq = _split_heads(hn @ lp["cross_attn"]["q"], dims.num_heads,
+                          dims.head_dim)
+        if q_cos is not None:
+            cq = rope_ops.apply_rope(cq, q_cos, q_sin)
+        cqv = cq[:, :, 0].float() * dims.q_scale
+        cattn = fused_attn.batch_paged_attention(
+            cqv, None, None, cross_kp, cross_vp, None, None, enc_lengths,
+            None, tables["cross"][li], None, *cross_s, None, None,
+            attn_logits_soft_cap=cap).to(h.dtype)
+        a = cattn.reshape(b, 1, -1) @ lp["cross_attn"]["o"]
+        h = h + rms_norm(a, lp["post_cross_attn_norm"], eps)
+
+        m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
+        h = h + rms_norm(m, lp["post_ff_norm"], eps)
+        k_new.append(k[:, :, 0])
+        v_new.append(v[:, :, 0])
+    h = rms_norm(h, params["final_norm"], eps)
+    cache.pending_k = torch.stack(k_new).to(torch.bfloat16)
+    cache.pending_v = torch.stack(v_new).to(torch.bfloat16)
+    return h, cache
+
+
+def fuse_for_decode(params: PyTree) -> PyTree:
+    """Concatenate q/k/v -> qkv and gate/up -> gate_up in both stacks (fewer
+    matmuls per decoder layer). Returns a new tree; inference only."""
+    def fuse_stack(stack):
+        stack = dict(stack)
+        layers = dict(stack["layers"])
+        sa = dict(layers["self_attn"])
+        sa["qkv"] = torch.cat([sa.pop("q"), sa.pop("k"), sa.pop("v")], dim=-1)
+        layers["self_attn"] = sa
+        m = dict(layers["mlp"])
+        m["gate_up"] = torch.cat([m.pop("gate"), m.pop("up")], dim=-1)
+        layers["mlp"] = m
+        stack["layers"] = layers
+        return stack
+
+    out = dict(params)
+    out["encoder"] = fuse_stack(params["encoder"])
+    out["decoder"] = fuse_stack(params["decoder"])
+    return out

@@ -1,0 +1,52 @@
+"""Import hygiene of the port: in a fresh interpreter, importing every module
+of ``t5gemma_tts_tpu_torch`` and ``chip_smoke.py`` (as a module, without
+running it) loads neither ``jax`` nor anything of ``t5gemma_tts_tpu``. The
+entry points run on ``cuda`` by default and raise, rather than run on the
+CPU, when there is no card."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, importlib.util, pkgutil, sys
+import torch
+torch.cuda.is_available = lambda: False        # a machine with no card
+import t5gemma_tts_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "t5gemma_tts_tpu"))
+assert not bad, bad
+assert len(names) >= 20, names
+
+from t5gemma_tts_tpu_torch.config import tiny_voice_config
+from t5gemma_tts_tpu_torch.inference import cli
+from t5gemma_tts_tpu_torch.inference.pipeline import TTSPipeline
+from t5gemma_tts_tpu_torch.models import voice
+refused = 0
+for call in (lambda: TTSPipeline({}, tiny_voice_config(), list),
+             lambda: voice.init_params(0, tiny_voice_config()),
+             lambda: cli.main(["--random_codec"])):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+        refused += 1
+assert refused == 3
+print("CLEAN", len(names))
+"""
+
+
+def test_port_imports_no_jax_and_defaults_to_cuda():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("PYTHONSTARTUP", None)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "CLEAN" in out.stdout
