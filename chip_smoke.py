@@ -10,12 +10,14 @@ Phases, in order; any failure exits non-zero before the result line:
 2. kernel: each kernel against its plain PyTorch version on the card at the
    2b-2b shapes, with its error, time, plain time, bound and library time:
    the paged attention (bf16 and int8 pages, self and cross forms, a small
-   odd shape), the W8A8 product (the head, qkv, gate_up and down at M = 4
-   and a prefill shape; int32 part exact) and the int8 decode layer
-   (B = 4, bf16 and int8 pages);
+   odd shape), the int8 decode layer (B = 4) and the int4 decode layer
+   (B = 1 and 4), each with bf16 and int8 pages; the W8A8 and W4A8
+   products are held here too, but at each quantized main path's own
+   shapes and weights, right after that path's run (4b, 4c);
 3. reference: a tiny f32 model decoded greedily on the card (kernels) and on
    the CPU (plain versions) must give the same tokens and waveforms, with
-   bf16 weights and paged pages, and with int8 weights and int8 pages;
+   bf16 weights and paged pages, with int8 weights and int8 pages, and with
+   int4 weights and int8 pages;
 4. main path, bf16: TTSPipeline at the full width of the 2b-2b preset
    (seeded random bf16 weights, the full-width XCodec2 decoder) synthesizes
    four requests with the paged cache; the attention kernel's launch count
@@ -28,9 +30,24 @@ Phases, in order; any failure exits non-zero before the result line:
 4b. main path, int8 serving: TTSPipeline(int8=True) at full 2b-2b width and
    depth, int8 pages, the same four requests; decode_stack must run once
    per decode step, the attention kernel of phase 4 never, W8A8 at least
-   twice per step (the head); then its profile (phase 5) and its step
-   timing (phase 6): one decode_stack call at the main path's cache shapes
-   and the step's two head products, each against its plain version.
+   twice per step (the head); then every W8A8 product of the run against
+   its plain version (phase 2: the head's w1 and w2 at M = 4, the six
+   layer products of the prefill at M = 4 x 65 and cross K/V at M = 4 x
+   text width, the rows taken from the run's plan; int32 part exact), its
+   profile (phase 5) and its step timing (phase 6): one decode_stack call
+   at the main path's cache shapes and the step's two head products, each
+   against its plain version;
+4c. main path, int4 batch-1 latency: TTSPipeline(int4=True) at full 2b-2b
+   width and depth, int8 pages, one 4.0 s request at batch 1; decode_stack
+   must run once per decode step, the attention kernel never, W4A8 at least
+   once per step (the head's w2); the same request through the int8
+   pipeline of phase 4b in the same call (and its step timing at these
+   batch-1 shapes); then every product of the int4 run against its plain
+   version (phase 2: W4A8 at the head's w2, M = 1, and at the six layer
+   products of the prefill, M = 65; W8A8 at the head's w1 and cross K/V),
+   the int4 profile (phase 5) and step timing (phase 6): one int4
+   decode_stack call at the main path's cache shapes and the head's two
+   products (w1 W8A8, w2 W4A8).
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -285,7 +302,7 @@ def main_path_step_timing(card: str, prompt_len: int, gen_len: int,
 
 
 # ---------------------------------------------------------------------------
-# phase 2: the W8A8 product and the int8 decode layer
+# phase 2: the quantized products and the decode layers
 # ---------------------------------------------------------------------------
 
 
@@ -296,21 +313,33 @@ def ulp_diff(got, want) -> int:
     return int((a - b).abs().max())
 
 
-def w8a8_cost(m, k, n, x_bytes, out_bytes) -> tuple:
-    """Bytes the product must move (x, the int8 weights and their scales,
-    the output) and its integer operations."""
-    return (m * k * x_bytes + n * k + n * 4 + m * n * out_bytes,
+def w8a8_cost(m, k, n, x_bytes, out_bytes, w_bytes=1.0) -> tuple:
+    """Bytes the product must move (x, the weights -- ``w_bytes`` a level,
+    0.5 for int4 -- and their scales, the output) and its integer
+    operations."""
+    return (m * k * x_bytes + int(n * k * w_bytes) + n * 4 + m * n * out_bytes,
             2 * m * k * n)
 
 
+def product_fns(w):
+    """(kernel wrapper, plain version, bytes a weight level) of a weight."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    if isinstance(w, quant.Int4Weight):
+        return quant.w4a8_matmul, quant.w4a8_matmul_plain, 0.5
+    return quant.w8a8_matmul, quant.w8a8_matmul_plain, 1.0
+
+
 def int_mm_call(x, w):
-    """A library yardstick for one W8A8 product (timing only):
+    """A library yardstick for one quantized product (timing only):
     torch._int_mm on M and N padded to its rules (M > 16, multiples of 8),
-    then the rescale, on activations quantized beforehand."""
+    then the rescale, on activations quantized beforehand; int4 weights are
+    unpacked to int8 levels beforehand, so it reads twice their bytes."""
     from t5gemma_tts_tpu_torch.ops import quant
 
     m, k = x.shape
-    n = w.values.shape[0]
+    levels = quant.weight_levels(w)
+    n = levels.shape[0]
     mp, np_ = max(32, -(-m // 8) * 8), -(-n // 8) * 8
     x8, sx = quant.quantize_act(x)
     x8p = torch.zeros((mp, k), dtype=torch.int8, device=x.device)
@@ -318,69 +347,90 @@ def int_mm_call(x, w):
     sxp = torch.ones((mp, 1), device=x.device)
     sxp[:m] = sx
     wp = torch.zeros((np_, k), dtype=torch.int8, device=x.device)
-    wp[:n] = w.values
+    wp[:n] = levels
     swp = torch.zeros((np_,), device=x.device)
     swp[:n] = w.scale
     wt = wp.t()
     return lambda: (torch._int_mm(x8p, wt).float() * sxp) * swp
 
 
-def phase_w8a8(card: str, cfg, iters: int) -> float:
-    """The W8A8 kernel against its plain version at the decode shapes
-    (M = 4) of the head, qkv, gate_up and down, and a prefill shape."""
+def run_products(run: dict) -> list:
+    """The quantized products a main-path run sent to the product kernels,
+    as (name, M, weight), on the run's own weights (layer 0 of a stack):
+    the head's w1 and w2 at M = B (every decode step), the decoder's six
+    layer products in the prefill at M = B x (prompt width + 1), and cross
+    K/V at M = B x text width; M comes from the run's plan."""
+    from t5gemma_tts_tpu_torch.models.t5gemma import layer_params
+
+    params = run["pipe"].params
+    lay = layer_params(params["decoder"]["layers"], 0)
+    b, rows = run["batch"], run["prefill_rows"]
+    out = [("head w1", b, params["head"]["w1"]),
+           ("head w2", b, params["head"]["w2"])]
+    for blk, names in (("self_attn", ("qkv", "o")), ("cross_attn", ("q", "o")),
+                       ("mlp", ("gate_up", "down"))):
+        out += [(f"prefill {blk}.{nm}", rows, lay[blk][nm]) for nm in names]
+    out += [(f"cross_attn.{nm} (cross K/V)", run["cross_rows"],
+             lay["cross_attn"][nm]) for nm in ("k", "v")]
+    return out
+
+
+def phase_products(card: str, run: dict, iters: int) -> dict:
+    """Every quantized product of a main-path run (:func:`run_products`)
+    against its plain version, on the kernel its weight format takes
+    (W8A8 or W4A8): int32 part exact, f32 output within 1 ULP, bf16
+    output equal. Returns the largest f32 error by kernel."""
     from t5gemma_tts_tpu_torch.ops import quant
 
-    dims = cfg.backbone.decoder
-    d, f = dims.hidden_size, dims.intermediate_size
-    nqkv = (dims.num_heads + 2 * dims.num_kv_heads) * dims.head_dim
-    va = cfg.audio_embedding_vocab
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    worst = 0.0
-    for name, m, k, n in (("head w1", 4, d, d), ("head w2", 4, d, va),
-                          ("qkv", 4, d, nqkv), ("gate_up", 4, d, 2 * f),
-                          ("down", 4, f, d), ("prefill qkv", 260, d, nqkv)):
-        w = quant.quantize_weight(
-            (torch.randn((k, n), generator=gen, device=dev) * 0.02)
-            .to(torch.bfloat16))
+    worst = {}
+    for name, m, w in run_products(run):
+        product, plain, w_bytes = product_fns(w)
+        tag = "w4a8" if isinstance(w, quant.Int4Weight) else "w8a8"
+        n = w.n
+        k = w.packed.shape[-1] * 2 if tag == "w4a8" else w.values.shape[-1]
         # the int32 part alone: integer rows holding 127 (scale 1) against
         # unit channel scales give f32(acc) on both sides
         xi = torch.randint(-127, 128, (m, k), generator=gen, device=dev)
         xi[:, 0] = 127
-        unit = quant.QuantWeight(w.values, torch.ones_like(w.scale), w.n)
-        got = quant.w8a8_matmul(xi.float(), unit)
-        want = quant.w8a8_matmul_plain(xi.float(), unit)
+        unit = w._replace(scale=torch.ones_like(w.scale))
+        got = product(xi.float(), unit)
+        want = plain(xi.float(), unit)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"W8A8 {name}: int32 part differs")
+            raise AssertionError(f"{tag} {run['tag']} {name} M={m}: int32 "
+                                 f"part differs")
         x = torch.randn((m, k), generator=gen, device=dev) * 2.0
         x8, sx = quant.quantize_act(x)
         w8, wsx = quant.quantize_act_plain(x)
         if not (torch.equal(x8, w8) and torch.equal(sx, wsx)):
-            raise AssertionError(f"W8A8 {name}: activation levels differ")
-        got = quant.w8a8_matmul(x, w, torch.float32)
-        want = quant.w8a8_matmul_plain(x, w, torch.float32)
+            raise AssertionError(f"{tag} {name}: activation levels differ")
+        got = product(x, w, torch.float32)
+        want = plain(x, w, torch.float32)
         ulps = ulp_diff(got, want)
         err = float((got - want).abs().max())
-        gb = quant.w8a8_matmul(x.to(torch.bfloat16), w)
-        wb = quant.w8a8_matmul_plain(x.to(torch.bfloat16), w)
+        gb = product(x.to(torch.bfloat16), w)
+        wb = plain(x.to(torch.bfloat16), w)
         if ulps > 1 or not torch.equal(gb, wb):
-            raise AssertionError(f"W8A8 {name}: {ulps} f32 ULP from the "
+            raise AssertionError(f"{tag} {name}: {ulps} f32 ULP from the "
                                  f"plain version (tol 1), bf16 equal: "
                                  f"{torch.equal(gb, wb)}")
-        worst = max(worst, err)
-        call = lambda: quant.w8a8_matmul(x, w, torch.float32)  # noqa: E731
+        worst[tag] = max(worst.get(tag, 0.0), err)
+        call = lambda: product(x, w, torch.float32)  # noqa: E731
         k_ms, eager_ms = graph_ms(call, iters), cuda_ms(call, iters)
-        p_ms = cuda_ms(lambda: quant.w8a8_matmul_plain(x, w, torch.float32),
-                       iters)
+        p_ms = cuda_ms(lambda: plain(x, w, torch.float32), iters)
         lib_ms = graph_ms(int_mm_call(x, w), iters)
-        b_ms, by = bound_ms(*w8a8_cost(m, k, n, 4, 4), PEAK_INT8_OPS)
-        print(f"[kernel] w8a8 {name} [{m}x{k}]x[{k}x{n}]: int32 part exact, "
+        b_ms, by = bound_ms(*w8a8_cost(m, k, n, 4, 4, w_bytes), PEAK_INT8_OPS)
+        lib_note = ("torch._int_mm on the unpacked int8 levels + rescale, "
+                    "twice the weight bytes" if tag == "w4a8"
+                    else "torch._int_mm + rescale")
+        print(f"[kernel] {tag} {run['tag']} {name} [{m}x{k}]x[{k}x{n}]: "
+              f"int32 part exact, "
               f"max {ulps} f32 ULP (tol 1), max_abs_err={err:.3e}, bf16 "
               f"equal; kernel_ms={k_ms:.4f} (graph; eager call "
               f"{eager_ms:.4f}) plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} "
-              f"({by}) library_ms={lib_ms:.4f} (torch._int_mm + rescale, "
-              f"graph) [{card}]")
+              f"({by}) library_ms={lib_ms:.4f} ({lib_note}, graph) [{card}]")
     return worst
 
 
@@ -425,9 +475,10 @@ def decode_layer_inputs(dims, b, quant, prompt, gen_lens, enc_lens, gen_slab,
     return args
 
 
-def random_int8_layers(dims, n_layers, device, seed):
-    """Seeded W8A8 decoder layers at ``dims``' widths (quantized on the card
-    from random bf16 weights), norms random."""
+def random_quant_layers(dims, n_layers, device, seed, int4=False):
+    """Seeded W8A8 (or, with ``int4``, int4) decoder layers at ``dims``'
+    widths, quantized on the card from random bf16 weights; norms
+    random."""
     from t5gemma_tts_tpu_torch.ops import megakernel as mk
     from t5gemma_tts_tpu_torch.ops import quant
 
@@ -435,13 +486,16 @@ def random_int8_layers(dims, n_layers, device, seed):
     d, f = dims.hidden_size, dims.intermediate_size
     ho = dims.num_heads * dims.head_dim
     nkv = dims.num_kv_heads * dims.head_dim
+    quantize = (quant.quantize_weight_int4_lanes if int4
+                else quant.quantize_weight)
+    cls = quant.Int4Weight if int4 else quant.QuantWeight
 
     def w(k, n):
-        parts = [quant.quantize_weight(
-            (torch.randn((k, n), generator=g, device=device) * 0.02)
-            .to(torch.bfloat16)) for _ in range(n_layers)]
-        return quant.QuantWeight(torch.stack([p.values for p in parts]),
-                                 torch.stack([p.scale for p in parts]), n)
+        parts = [quantize((torch.randn((k, n), generator=g, device=device)
+                           * 0.02).to(torch.bfloat16))
+                 for _ in range(n_layers)]
+        return cls(torch.stack([p[0] for p in parts]),
+                   torch.stack([p.scale for p in parts]), n)
 
     layers = {n: torch.randn((n_layers, d), generator=g, device=device) * 0.1
               for n in mk._NORMS}
@@ -451,15 +505,15 @@ def random_int8_layers(dims, n_layers, device, seed):
     return layers
 
 
-def decode_layer_bytes(dims, args) -> int:
-    """Bytes one layer must move: its int8 weights and f32 scales and norms,
-    the valid K/V (and scales) of this call's lengths, h in and out, the
-    rope tables and the new k/v."""
+def decode_layer_bytes(dims, args, w_bytes=1.0) -> int:
+    """Bytes one layer must move: its weights (``w_bytes`` a level, 0.5 for
+    int4) and f32 scales and norms, the valid K/V (and scales) of this
+    call's lengths, h in and out, the rope tables and the new k/v."""
     d, f = dims.hidden_size, dims.intermediate_size
     ho = dims.num_heads * dims.head_dim
     nkv = dims.num_kv_heads * dims.head_dim
     nk = ((ho + 2 * nkv, d), (d, ho), (ho, d), (d, ho), (2 * f, d), (d, f))
-    weights = sum(n * k + 4 * n for n, k in nk) + 6 * d * 4
+    weights = sum(int(n * k * w_bytes) + 4 * n for n, k in nk) + 6 * d * 4
     b = args["h"].shape[0]
     elem = args["prompt_k"].element_size()
     quant = args["kv_scales"] is not None
@@ -470,9 +524,11 @@ def decode_layer_bytes(dims, args) -> int:
             + 4 * b * dims.head_dim * 4 + 2 * b * nkv * 4 + 3 * b * 4)
 
 
-def phase_decode_layer(card: str, cfg, iters: int) -> float:
-    """The int8 decode layer against its plain version at 2b-2b width,
-    B = 4, bf16 and int8 pages (a two-layer stack, layer 1)."""
+def phase_decode_layer(card: str, cfg, iters: int,
+                       int4: bool = False) -> float:
+    """The int8 (``int4``: int4) decode layer against its plain version at
+    2b-2b width, bf16 and int8 pages (a two-layer stack, layer 1): B = 4
+    (int4: B = 1 and 4)."""
     import dataclasses
 
     from t5gemma_tts_tpu_torch.ops import megakernel as mk
@@ -480,53 +536,101 @@ def phase_decode_layer(card: str, cfg, iters: int) -> float:
     dev = torch.device("cuda")
     dims = dataclasses.replace(cfg.backbone.decoder, num_layers=2,
                                layer_types=())
-    layers = random_int8_layers(dims, 2, dev, seed=4)
+    layers = random_quant_layers(dims, 2, dev, seed=4 + int4, int4=int4)
+    weights = "int4" if int4 else "int8"
+    shapes = [(4, [0, 5, 129, 300], [1, 29, 44, 130])]
+    if int4:
+        shapes.insert(0, (1, [129], [44]))
     worst = 0.0
-    for quant in (False, True):
-        tag = "i8" if quant else "bf16"
-        args = decode_layer_inputs(dims, 4, quant, prompt=37,
-                                   gen_lens=[0, 5, 129, 300],
-                                   enc_lens=[1, 29, 44, 130], gen_slab=384,
-                                   device=dev, seed=5 + quant)
-        got = mk.decode_layer(layers, dims, li=1, **args)
-        want = mk.decode_layer_plain(layers, dims, li=1, **args)
-        torch.cuda.synchronize()
-        errs = [rel_fro(g, w) for g, w in zip(got, want)]
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        if (errs[0] > REL_FRO_TOL_H or errs[1] > REL_FRO_TOL_KV
-                or errs[2] > REL_FRO_TOL_KV):
-            raise AssertionError(f"decode layer {tag}: relative error "
-                                 f"{errs} (h, k, v) exceeds "
-                                 f"{REL_FRO_TOL_H}/{REL_FRO_TOL_KV}")
-        worst = max(worst, err)
-        k_ms = graph_ms(lambda: mk.decode_layer(layers, dims, li=1, **args),
-                        iters)
-        p_ms = cuda_ms(lambda: mk.decode_layer_plain(layers, dims, li=1,
-                                                     **args),
-                       max(iters // 4, 2))
-        b_ms, by = bound_ms(decode_layer_bytes(dims, args), 0)
-        print(f"[kernel] decode_layer 2b-2b B=4 {tag} pages (prompt 37, gen "
-              f"0/5/129/300, enc 1/29/44/130): relative error h/k/v "
-              f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol "
-              f"{REL_FRO_TOL_H:g}/{REL_FRO_TOL_KV:g}/{REL_FRO_TOL_KV:g}), "
-              f"max_abs_err={err:.3e}; kernel_ms={k_ms:.4f} (graph)"
-              f" plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({by}) "
-              f"library_ms=none (no PyTorch call computes a layer) [{card}]")
+    for b, gen_lens, enc_lens in shapes:
+        for quant in (False, True):
+            tag = "i8" if quant else "bf16"
+            args = decode_layer_inputs(dims, b, quant, prompt=37,
+                                       gen_lens=gen_lens, enc_lens=enc_lens,
+                                       gen_slab=384, device=dev,
+                                       seed=5 + quant + 10 * (b != 4))
+            got = mk.decode_layer(layers, dims, li=1, **args)
+            want = mk.decode_layer_plain(layers, dims, li=1, **args)
+            torch.cuda.synchronize()
+            errs = [rel_fro(g, w) for g, w in zip(got, want)]
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            if (errs[0] > REL_FRO_TOL_H or errs[1] > REL_FRO_TOL_KV
+                    or errs[2] > REL_FRO_TOL_KV):
+                raise AssertionError(
+                    f"{weights} decode layer B={b} {tag}: relative error "
+                    f"{errs} (h, k, v) exceeds "
+                    f"{REL_FRO_TOL_H}/{REL_FRO_TOL_KV}")
+            worst = max(worst, err)
+            k_ms = graph_ms(lambda: mk.decode_layer(layers, dims, li=1,
+                                                    **args), iters)
+            p_ms = cuda_ms(lambda: mk.decode_layer_plain(layers, dims, li=1,
+                                                         **args),
+                           max(iters // 4, 2))
+            b_ms, by = bound_ms(decode_layer_bytes(
+                dims, args, 0.5 if int4 else 1.0), 0)
+            lens = "/".join(str(n) for n in gen_lens)
+            elens = "/".join(str(n) for n in enc_lens)
+            print(f"[kernel] decode_layer {weights} 2b-2b B={b} {tag} pages "
+                  f"(prompt 37, gen {lens}, enc {elens}): relative error "
+                  f"h/k/v {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol "
+                  f"{REL_FRO_TOL_H:g}/{REL_FRO_TOL_KV:g}/{REL_FRO_TOL_KV:g})"
+                  f", max_abs_err={err:.3e}; kernel_ms={k_ms:.4f} (graph)"
+                  f" plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({by}) "
+                  f"library_ms=none (no PyTorch call computes a layer) "
+                  f"[{card}]")
     return worst
 
 
-def int8_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
-                     iters: int) -> dict:
-    """One decode step's int8 work at the main path's cache shapes, on the
-    main path's own weights: the decode_stack call (26 layers, int8 pages)
-    and the step's two W8A8 head products (M = 4), each against its plain
-    version."""
+def product_timing(calls, card: str, label: str, iters: int) -> dict:
+    """The quantized products ``calls`` [(x, weight), ...] of one decode
+    step, each against its plain version; times are the mean per call."""
+    worst = 0.0
+    for x, w in calls:
+        product, plain, _ = product_fns(w)
+        got = product(x, w, torch.float32)
+        want = plain(x, w, torch.float32)
+        if ulp_diff(got, want) > 1:
+            raise AssertionError(f"{label}: above 1 f32 ULP")
+        worst = max(worst, float((got - want).abs().max()))
+
+    def run(which):
+        return lambda: [product_fns(w)[which](x, w) for x, w in calls]
+
+    lib = [int_mm_call(x.float(), w) for x, w in calls]
+    n = len(calls)
+    out = {"ms": graph_ms(run(0), iters) / n,
+           "eager_ms": cuda_ms(run(0), iters) / n,
+           "plain_ms": cuda_ms(run(1), iters) / n,
+           "library_ms": graph_ms(lambda: [f() for f in lib], iters) / n,
+           "max_abs_err": worst}
+    costs = [w8a8_cost(x.shape[0], x.shape[1], w.n, 2, 2, product_fns(w)[2])
+             for x, w in calls]
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        sum(c[0] for c in costs) / n, sum(c[1] for c in costs) / n,
+        PEAK_INT8_OPS)
+    print(f"[kernel] {label}: kernel_ms={out['ms']:.4f} (graph; eager call "
+          f"{out['eager_ms']:.4f}) plain_ms={out['plain_ms']:.4f} "
+          f"bound_ms={out['bound_ms']:.5f} ({out['bound_by']}) "
+          f"library_ms={out['library_ms']:.4f} max_abs_err={worst:.3e} "
+          f"[{card}]")
+    return out
+
+
+def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
+                      iters: int) -> dict:
+    """One decode step's quantized work at the main path's cache shapes, on
+    the main path's own weights: the decode_stack call (26 layers, int8
+    pages) and the step's two head products, each against its plain
+    version. Int8 weights: the two W8A8 head products as one mean; int4
+    weights: the head's w1 (W8A8) and w2 (W4A8) each on its own."""
     from t5gemma_tts_tpu_torch.ops import megakernel as mk
     from t5gemma_tts_tpu_torch.ops import quant
 
     cfg, dev = pipe.cfg, pipe.device
     dims = cfg.backbone.decoder
     layers = pipe.params["decoder"]["layers"]
+    int4 = isinstance(layers["mlp"]["down"], quant.Int4Weight)
+    weights = "int4" if int4 else "int8"
     b = len(enc_lens)
     args = decode_layer_inputs(dims, b, True, prompt=1,
                                gen_lens=[steps // 2] * b, enc_lens=enc_lens,
@@ -536,8 +640,9 @@ def int8_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
     torch.cuda.synchronize()
     errs = [rel_fro(g, w) for g, w in zip(got, want)]
     if max(errs) > REL_FRO_TOL_STACK:
-        raise AssertionError(f"decode_stack at main-path shapes: relative "
-                             f"error {errs} exceeds {REL_FRO_TOL_STACK}")
+        raise AssertionError(f"{weights} decode_stack at main-path shapes: "
+                             f"relative error {errs} exceeds "
+                             f"{REL_FRO_TOL_STACK}")
     stack = {"max_abs_err": max(float((g - w).abs().max())
                                 for g, w in zip(got, want)),
              "ms": graph_ms(lambda: mk.decode_stack(layers, dims, **args),
@@ -548,9 +653,10 @@ def int8_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
                  layers, dims, **args), 2),
              "library_ms": None}
     stack["bound_ms"], stack["bound_by"] = bound_ms(
-        dims.num_layers * decode_layer_bytes(dims, args), 0)
-    print(f"[kernel] decode_stack main-path step (B={b}, prompt 1, gen "
-          f"{steps // 2}, enc {list(enc_lens)}, int8 pages, 26 layers): "
+        dims.num_layers * decode_layer_bytes(dims, args,
+                                             0.5 if int4 else 1.0), 0)
+    print(f"[kernel] decode_stack {weights} main-path step (B={b}, prompt 1, "
+          f"gen {steps // 2}, enc {list(enc_lens)}, int8 pages, 26 layers): "
           f"relative error h/k/v {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
           f"(tol {REL_FRO_TOL_STACK:g}), max_abs_err="
           f"{stack['max_abs_err']:.3e}, "
@@ -564,36 +670,18 @@ def int8_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
         torch.bfloat16)
     x2 = torch.randn((b, head["w1"].n), generator=g, device=dev).to(
         torch.bfloat16)
-    calls = ((x1, head["w1"]), (x2, head["w2"]))
-    worst = 0.0
-    for x, w in calls:
-        got = quant.w8a8_matmul(x, w, torch.float32)
-        want = quant.w8a8_matmul_plain(x, w, torch.float32)
-        if ulp_diff(got, want) > 1:
-            raise AssertionError("W8A8 head product: above 1 f32 ULP")
-        worst = max(worst, float((got - want).abs().max()))
-
-    def both(fn):
-        return lambda: [fn(x, w) for x, w in calls]
-
-    lib = [int_mm_call(x.float(), w) for x, w in calls]
-    head_ms = {
-        "ms": graph_ms(both(quant.w8a8_matmul), iters) / 2,
-        "eager_ms": cuda_ms(both(quant.w8a8_matmul), iters) / 2,
-        "plain_ms": cuda_ms(both(quant.w8a8_matmul_plain), iters) / 2,
-        "library_ms": graph_ms(lambda: [f() for f in lib], iters) / 2,
-        "max_abs_err": worst}
-    nbytes = sum(w8a8_cost(b, x.shape[1], w.n, 2, 2)[0] for x, w in calls)
-    ops = sum(w8a8_cost(b, x.shape[1], w.n, 2, 2)[1] for x, w in calls)
-    head_ms["bound_ms"], head_ms["bound_by"] = bound_ms(nbytes / 2, ops / 2,
-                                                        PEAK_INT8_OPS)
-    print(f"[kernel] w8a8 main-path step (head w1 and w2, M={b}, bf16; mean "
-          f"of the step's 2 launches): kernel_ms={head_ms['ms']:.4f} (graph; "
-          f"eager call {head_ms['eager_ms']:.4f}) "
-          f"plain_ms={head_ms['plain_ms']:.4f} "
-          f"bound_ms={head_ms['bound_ms']:.5f} ({head_ms['bound_by']}) "
-          f"library_ms={head_ms['library_ms']:.4f} [{card}]")
-    return {"decode_stack": stack, "w8a8": head_ms}
+    if not int4:
+        return {"decode_stack": stack, "w8a8": product_timing(
+            [(x1, head["w1"]), (x2, head["w2"])], card,
+            f"w8a8 main-path step (head w1 and w2, M={b}, bf16; mean of the "
+            f"step's 2 launches)", iters)}
+    return {"decode_stack": stack,
+            "w8a8": product_timing([(x1, head["w1"])], card,
+                                   f"w8a8 int4 main-path step (head w1, "
+                                   f"M={b}, bf16)", iters),
+            "w4a8": product_timing([(x2, head["w2"])], card,
+                                   f"w4a8 int4 main-path step (head w2, "
+                                   f"M={b}, bf16; int4 weights)", iters)}
 
 
 # ---------------------------------------------------------------------------
@@ -607,10 +695,11 @@ def char_tokenizer(vocab: int):
     return encode
 
 
-def build_pipeline(cfg, ccfg, device, seed, init_device=None, int8=False):
+def build_pipeline(cfg, ccfg, device, seed, init_device=None, int8=False,
+                   int4=False):
     """A pipeline on ``device`` with seeded random weights, made on
-    ``init_device`` (default: ``device``); ``int8`` quantizes its decode
-    weights on ``device``. The CPU's and the card's generators draw
+    ``init_device`` (default: ``device``); ``int8`` / ``int4`` quantize its
+    decode weights on ``device``. The CPU's and the card's generators draw
     different numbers from one seed, so two pipelines that must hold the
     same weights make them on one device."""
     from t5gemma_tts_tpu_torch.codec.audio_tokenizer import AudioTokenizer
@@ -623,10 +712,10 @@ def build_pipeline(cfg, ccfg, device, seed, init_device=None, int8=False):
     cparams = init_decoder_params(seed + 1, ccfg, device=init_device)
     return TTSPipeline(params, cfg, char_tokenizer(cfg.text_vocab_size),
                        AudioTokenizer(cparams, ccfg, device=device),
-                       device=device, int8=int8)
+                       device=device, int8=int8, int4=int4)
 
 
-def phase_reference(devices=("cpu", "cuda"), int8=False,
+def phase_reference(devices=("cpu", "cuda"), weights="f32",
                     kv_cache="paged") -> None:
     """Tiny f32 model: greedy paged decode on the card == on the CPU."""
     from t5gemma_tts_tpu_torch.codec.model import tiny_codec_config
@@ -647,7 +736,8 @@ def phase_reference(devices=("cpu", "cuda"), int8=False,
     out = {}
     for device in devices:
         pipe = build_pipeline(cfg, tiny_codec_config(), device, seed=0,
-                              init_device="cpu", int8=int8)
+                              init_device="cpu", int8=weights == "int8",
+                              int4=weights == "int4")
         out[device] = pipe.synthesize_batch(reqs, dcfg, seed=0, quiet=True)
     worst = 0.0
     for rc, rg in zip(out[devices[0]], out[devices[-1]]):
@@ -657,17 +747,26 @@ def phase_reference(devices=("cpu", "cuda"), int8=False,
         worst = max(worst, float(np.abs(rc.wav - rg.wav).max()))
     if worst > 1e-4:
         raise AssertionError(f"tiny wav differs from the CPU by {worst:.3e}")
-    weights = "int8" if int8 else "f32"
     print(f"[reference] tiny {weights}-weight greedy {kv_cache} decode: "
           f"tokens equal on card and CPU "
           f"({[len(r.gen_frames) for r in out[devices[-1]]]} frames), "
           f"wav max abs diff {worst:.3e} (tol 1e-4)")
 
 
-def phase_main_path(card: str, seed: int, int8: bool = False) -> dict:
-    """The four requests through TTSPipeline at 2b-2b: bf16 weights and
-    bf16 pages, or (``int8``) W8A8 weights and int8 pages. The launch
-    counts are set to 0 just before the run and read just after."""
+TEXTS = ("Hello world, this is a test of the port.",
+         "The quick brown fox jumps over the lazy dog.",
+         "Speech synthesis on one card.",
+         "Four requests decode in one batch.")
+DURATIONS = (2.0, 2.5, 3.0, 4.0)
+
+
+def phase_main_path(card: str, seed: int, weights: str = "bf16",
+                    batch: int = 4, pipe=None) -> dict:
+    """Requests through TTSPipeline at 2b-2b: the four requests, or with
+    ``batch=1`` the 4.0 s one alone; bf16 weights and bf16 pages, or W8A8
+    (``weights="int8"``) or int4 (``"int4"``) weights and int8 pages.
+    ``pipe`` reuses a pipeline built for the same weights. The launch counts
+    are set to 0 just before the run and read just after."""
     from t5gemma_tts_tpu_torch.codec.model import XCodec2Config
     from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
     from t5gemma_tts_tpu_torch.inference.pipeline import Request
@@ -677,27 +776,26 @@ def phase_main_path(card: str, seed: int, int8: bool = False) -> dict:
 
     cfg = VoiceConfig()                      # 2b-2b preset, bf16
     ccfg = XCodec2Config()                   # full-width decoder
-    kv_cache = "paged_i8" if int8 else "paged"
-    tag = "int8" if int8 else "bf16"
-    t0 = time.time()
-    pipe = build_pipeline(cfg, ccfg, "cuda", seed, int8=int8)
-    torch.cuda.synchronize()
-    n_params = sum(v.numel() for v in _leaves(pipe.params))
-    print(f"[main/{tag}] 2b-2b pipeline built on the card in "
-          f"{time.time() - t0:.3f}s ({n_params / 1e9:.2f} B parameters, "
-          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated)")
-    texts = ["Hello world, this is a test of the port.",
-             "The quick brown fox jumps over the lazy dog.",
-             "Speech synthesis on one card.",
-             "Four requests decode in one batch."]
+    kv_cache = "paged" if weights == "bf16" else "paged_i8"
+    tag = weights if batch == 4 else f"{weights} b{batch}"
+    if pipe is None:
+        t0 = time.time()
+        pipe = build_pipeline(cfg, ccfg, "cuda", seed,
+                              int8=weights == "int8", int4=weights == "int4")
+        torch.cuda.synchronize()
+        print(f"[main/{tag}] 2b-2b pipeline built on the card in "
+              f"{time.time() - t0:.3f}s ({n_params(pipe.params) / 1e9:.2f} B "
+              f"parameters, {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+              f"allocated)")
     reqs = [Request(target_text=t, target_duration=d, lang="en")
-            for t, d in zip(texts, (2.0, 2.5, 3.0, 4.0))]
+            for t, d in zip(TEXTS, DURATIONS)][-batch:]
     dcfg = DecodeConfig(kv_cache=kv_cache, seed=seed)
 
     counters = {"batch_paged_attention": fa.batch_paged_attention,
                 "decode_stack": mk.decode_stack,
                 "decode_layer": mk.decode_layer,
-                "w8a8_matmul": quant.w8a8_matmul}
+                "w8a8_matmul": quant.w8a8_matmul,
+                "w4a8_matmul": quant.w4a8_matmul}
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
@@ -709,14 +807,18 @@ def phase_main_path(card: str, seed: int, int8: bool = False) -> dict:
 
     steps = results[0].steps
     layers = cfg.backbone.decoder.num_layers
-    if int8:
-        ok = (launches["decode_stack"] == steps
-              and launches["batch_paged_attention"] == 0
-              and launches["decode_layer"] == 0
-              and launches["w8a8_matmul"] >= 2 * steps)
+    n = launches
+    if weights == "bf16":
+        ok = (n["batch_paged_attention"] == 2 * layers * steps
+              and n["decode_stack"] == n["w8a8_matmul"] == 0
+              and n["w4a8_matmul"] == 0)
     else:
-        ok = (launches["batch_paged_attention"] == 2 * layers * steps
-              and launches["decode_stack"] == launches["w8a8_matmul"] == 0)
+        ok = (n["decode_stack"] == steps and n["batch_paged_attention"] == 0
+              and n["decode_layer"] == 0)
+        if weights == "int8":        # the head's w1 and w2
+            ok = ok and n["w8a8_matmul"] >= 2 * steps and n["w4a8_matmul"] == 0
+        else:                        # the head's w1 (int8) and w2 (int4)
+            ok = ok and n["w8a8_matmul"] >= steps and n["w4a8_matmul"] >= steps
     if not ok:
         raise AssertionError(f"{tag} main path over {steps} steps: launches "
                              f"{launches}")
@@ -730,20 +832,24 @@ def phase_main_path(card: str, seed: int, int8: bool = False) -> dict:
                                  f"{len(r.gen_frames)} frames x {hop}")
         frames += len(r.gen_frames)
     audio_s = frames / cfg.encodec_sr
-    print(f"[main/{tag}] 4 requests ({kv_cache} cache): {steps} decode "
-          f"steps, {frames} frames, {frames / wall:.2f} tokens/s, RTF "
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[main/{tag}] {batch} request(s) ({kv_cache} cache): {steps} "
+          f"decode steps, {frames} frames, {frames / wall:.2f} tokens/s, RTF "
           f"{audio_s / wall:.3f}x (audio s per wall s, decode+vocode "
-          f"{wall:.2f}s), launches {launches}, peak "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated "
-          f"[{card}]")
+          f"{wall:.2f}s), {1e3 * wall / steps:.2f} ms per step, launches "
+          f"{launches}, peak {peak:.2f} GB allocated [{card}]")
     planned = [pipe.plan_request(r) for r in reqs]
-    return {"pipe": pipe, "launches": launches, "steps": steps,
+    tx, p_max, _ = pipe.widths(planned)
+    return {"pipe": pipe, "tag": tag, "batch": batch, "launches": launches,
+            "steps": steps, "tokens_per_s": frames / wall,
+            "rtf": audio_s / wall, "step_ms": 1e3 * wall / steps,
             "enc_lens": [len(p.text) for p in planned],
-            "gen_slab": max(pipe.frame_bucket(p) for p in planned)}
+            "gen_slab": max(pipe.frame_bucket(p) for p in planned),
+            "prefill_rows": batch * (p_max + 1), "cross_rows": batch * tx}
 
 
 def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
-                  kv_cache: str = "paged") -> None:
+                  kv_cache: str = "paged", weights: str = "bf16") -> None:
     """Device time by kernel over a prefill and ``steps`` decode steps of
     the main path's batch (torch.profiler), and the device's idle share of
     that wall time."""
@@ -791,8 +897,8 @@ def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     print(f"[profile] prefill + {steps} decode steps of the 2b-2b batch of "
-          f"{b} ({kv_cache} cache, {'int8' if kv_cache == 'paged_i8' else 'bf16'}"
-          f" weights): wall {wall_ms:.1f} ms (unprofiled), device busy "
+          f"{b} ({kv_cache} cache, {weights} weights): wall {wall_ms:.1f} ms "
+          f"(unprofiled), device busy "
           f"{busy_ms:.1f} ms (kernels), idle share "
           f"{1 - busy_ms / wall_ms:.3f} [{card}]")
     if not rows:
@@ -802,14 +908,18 @@ def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
               f"x{count:<6d} {key[:90]}")
 
 
-def _leaves(tree):
+def n_params(tree) -> int:
+    """Weights in a parameter tree, quantized ones counted by their
+    levels."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, tuple):            # a QuantWeight: its int8 levels
-        yield tree[0]
-    else:
-        yield tree
+        return sum(n_params(v) for v in tree.values())
+    if isinstance(tree, quant.Int4Weight):
+        return 2 * tree.packed.numel()
+    if isinstance(tree, quant.QuantWeight):
+        return tree.values.numel()
+    return tree.numel()
 
 
 def main(argv=None) -> int:
@@ -841,27 +951,64 @@ def main(argv=None) -> int:
 
     cfg = VoiceConfig()
     worst_attn = phase_kernel(card, args.iters)["max_abs_err"]
-    worst_w8a8 = phase_w8a8(card, cfg, args.iters)
     worst_layer = phase_decode_layer(card, cfg, args.iters)
+    worst_layer4 = phase_decode_layer(card, cfg, args.iters, int4=True)
     phase_reference()
-    phase_reference(int8=True, kv_cache="paged_i8")
+    phase_reference(weights="int8", kv_cache="paged_i8")
+    phase_reference(weights="int4", kv_cache="paged_i8")
+    step_iters = max(args.iters // 4, 2)
 
     main = phase_main_path(card, args.seed)
     phase_profile(main["pipe"], card, main["enc_lens"])
     timing = main_path_step_timing(
         card, prompt_len=1, gen_len=main["steps"] // 2,
         enc_lens=main["enc_lens"], gen_slab=main["gen_slab"],
-        iters=max(args.iters // 4, 2))
+        iters=step_iters)
     del main["pipe"]
     torch.cuda.empty_cache()
 
-    main8 = phase_main_path(card, args.seed, int8=True)
-    phase_profile(main8["pipe"], card, main8["enc_lens"], kv_cache="paged_i8")
-    timing8 = int8_step_timing(main8["pipe"], card, main8["steps"],
-                               main8["enc_lens"], main8["gen_slab"],
-                               iters=max(args.iters // 4, 2))
+    main8 = phase_main_path(card, args.seed, "int8")
+    worst8 = phase_products(card, main8, args.iters)
+    phase_profile(main8["pipe"], card, main8["enc_lens"], kv_cache="paged_i8",
+                  weights="int8")
+    timing8 = quant_step_timing(main8["pipe"], card, main8["steps"],
+                                main8["enc_lens"], main8["gen_slab"],
+                                iters=step_iters)
+
+    # 4c: int4 at batch 1, against int8 at batch 1 on the same request, in
+    # turns (int8, int4, int4, int8)
+    pipe8 = main8.pop("pipe")
+    runs8 = [phase_main_path(card, args.seed, "int8", 1, pipe=pipe8)]
+    main4 = phase_main_path(card, args.seed, "int4", 1)
+    pipe4 = main4.pop("pipe")
+    runs4 = [main4, phase_main_path(card, args.seed, "int4", 1, pipe=pipe4)]
+    runs8.append(phase_main_path(card, args.seed, "int8", 1, pipe=pipe8))
+    # the int8 decode_stack and head at the int4 run's batch-1 shapes, so
+    # that the two weight formats' layer times compare
+    quant_step_timing(pipe8, card, main4["steps"], main4["enc_lens"],
+                      main4["gen_slab"], iters=step_iters)
+    for r in runs8 + runs4:
+        r.pop("pipe", None)
+    del pipe8
+    torch.cuda.empty_cache()
+
+    def pair(key, fmt):
+        return " vs int8 ".join("/".join(fmt.format(r[key]) for r in rs)
+                                for rs in (runs4, runs8))
+
+    print(f"[main/int4 vs int8 b1] per-step ms int4 "
+          f"{pair('step_ms', '{:.2f}')}; tokens/s int4 "
+          f"{pair('tokens_per_s', '{:.2f}')}; RTF int4 "
+          f"{pair('rtf', '{:.3f}x')} [{card}]")
+    worst4 = phase_products(card, dict(main4, pipe=pipe4), args.iters)
+    phase_profile(pipe4, card, main4["enc_lens"], kv_cache="paged_i8",
+                  weights="int4")
+    timing4 = quant_step_timing(pipe4, card, main4["steps"],
+                                main4["enc_lens"], main4["gen_slab"],
+                                iters=step_iters)
 
     src = "t5gemma_tts_tpu_torch/csrc/"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="batch_paged_attention", route="cuda",
              source=src + "batch_paged_attention.cu",
@@ -875,17 +1022,29 @@ def main(argv=None) -> int:
              source=src + "w8a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:140",
              launches=main8["launches"]["w8a8_matmul"],
-             max_abs_err=max(worst_w8a8, timing8["w8a8"]["max_abs_err"]),
-             **{k: timing8["w8a8"][k] for k in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             max_abs_err=max(worst8["w8a8"], worst4["w8a8"],
+                             timing8["w8a8"]["max_abs_err"]),
+             **{k: timing8["w8a8"][k] for k in keys}),
         dict(name="decode_stack", route="cuda",
              source=src + "decode_layer.cu",
              replaces="t5gemma_tts_tpu/ops/megakernel.py:115",
              launches=main8["launches"]["decode_stack"],
              max_abs_err=max(worst_layer,
                              timing8["decode_stack"]["max_abs_err"]),
-             **{k: timing8["decode_stack"][k] for k in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             **{k: timing8["decode_stack"][k] for k in keys}),
+        dict(name="w4a8_matmul", route="cuda",
+             source=src + "w4a8_matmul.cu",
+             replaces="t5gemma_tts_tpu/ops/quant.py:656",
+             launches=main4["launches"]["w4a8_matmul"],
+             max_abs_err=max(worst4["w4a8"], timing4["w4a8"]["max_abs_err"]),
+             **{k: timing4["w4a8"][k] for k in keys}),
+        dict(name="decode_stack_int4", route="cuda",
+             source=src + "decode_layer.cu",
+             replaces="t5gemma_tts_tpu/ops/megakernel.py:115",
+             launches=main4["launches"]["decode_stack"],
+             max_abs_err=max(worst_layer4,
+                             timing4["decode_stack"]["max_abs_err"]),
+             **{k: timing4["decode_stack"][k] for k in keys}),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,12 @@
-// One int8-weight decoder layer (and the whole stack) for Hopper (sm_90a).
+// One int8- or int4-weight decoder layer (and the whole stack) for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel t5gemma_tts_tpu/ops/megakernel.py::_kernel
-// (reached through decode_layer and decode_stack) for W8A8 weights and
-// chain = 1. One C call runs a fixed sequence of hand-written kernels per
-// layer; t5g_decode_stack loops all layers, so a decode step is one host
-// call. Per layer (h [B, D] stays f32 across all layers):
+// (reached through decode_layer and decode_stack) for W8A8 weights and for
+// lanes4 int4 weights (its w4 variant), chain = 1. One C call runs a fixed
+// sequence of hand-written kernels per layer; t5g_decode_stack loops all
+// layers, so a decode step is one host call. Per layer (h [B, D] stays f32
+// across all layers):
 //
 //   1  x8, sx = quant(rms(h, n0))                 residual_norm_quant
 //   2  qkv = (f32(x8 @ Wqkv) * sx) * s            w8a8_gemv (w8a8.cuh)
@@ -22,6 +24,14 @@
 //   16 acc = sum_j f32(t8_j @ Wd_j) * st_j in tile order; d = acc * s_down
 //   17 h += rms(d, n5)
 //
+// The six products (steps 2, 6, 8, 12, 14, 16) read int8 levels [N, K] or,
+// with DecodeArgs::w4, packed int4 levels [N, K / 2] through the same GEMV
+// (w8a8.cuh, template parameter W4), which unpacks the nibbles in
+// registers; the integer sums are exact either way, so the int4 layer is
+// the int8 layer's arithmetic on other levels. The TPU variant's doubled
+// DMA chunk and its ones-matrix sum(x8) dot are Mosaic workarounds with no
+// counterpart here.
+//
 // Attention (slab_attention_kernel) follows the megakernel, not kernel 1:
 // q is rounded to bf16 for the page dots, p (int8 pages: p * v_scale) is
 // rounded to bf16 before the PV dot, int8 logits are multiplied by the k
@@ -31,8 +41,8 @@
 // identity slab layout: layer li, row b is slab row li * B + b.
 //
 // Bound: at decode batch sizes the layer is bound by its bytes: the int8
-// weights (87.3 MB per layer at 2b-2b), read once per step by the GEMVs
-// (see w8a8.cuh), plus the valid K/V bytes. Rounding and the rescales use
+// weights (87.3 MB per layer at 2b-2b, half that in int4), read once per
+// step by the GEMVs (see w8a8.cuh), plus the valid K/V bytes. Rounding and the rescales use
 // __fmul_rn / __fadd_rn (no fused multiply-add), so every elementwise
 // step gives the plain PyTorch version's bits; only sums differ in order.
 // A single persistent kernel per step is later work.
@@ -395,7 +405,8 @@ struct DecodeArgs {
   const int* plens;                // [B] prompt lengths
   const int* glens;                // [B] generated lengths
   const int* elens;                // [B] encoder lengths
-  const int8_t* w[6];              // qkv, o, cross q, cross o, gate_up, down: [L, N, K]
+  const int8_t* w[6];              // qkv, o, cross q, cross o, gate_up, down:
+                                   // [L, N, K] int8 or [L, N, K / 2] packed int4
   const float* ws[6];              // their scales [L, N]
   const float* norms[6];           // pre/post self, pre/post cross, pre/post ff: [L, D]
   const void* slab[6];             // prompt k/v, gen k/v, cross k/v: [Hkv, L*B, T, hd]
@@ -409,6 +420,7 @@ struct DecodeArgs {
   float* attn;                     // workspace [B, H * hd]
   float* dout;                     // workspace [B, D]
   int B, D, H, Hkv, hd, F, L, ftile, Tp, Tg, Tx, kv_quant;
+  int w4;                          // 1: int4 weights
   float eps, soft_cap, q_scale;
 };
 
@@ -429,9 +441,10 @@ cudaError_t norm_step(const DecodeArgs& a, const float* y, const float* w_post,
 
 cudaError_t gemv(const DecodeArgs& a, int which, int li, int N, int K, int ktile, float* out,
                  cudaStream_t s) {
-  GemvArgs p{a.x8, a.sx, a.w[which] + static_cast<int64_t>(li) * N * K,
+  const int64_t layer_bytes = static_cast<int64_t>(N) * (a.w4 ? K / 2 : K);
+  GemvArgs p{a.x8, a.sx, a.w[which] + li * layer_bytes,
              a.ws[which] + static_cast<int64_t>(li) * N, out, a.B, N, K, ktile};
-  return launch_gemv<float>(p, s);
+  return a.w4 ? launch_gemv<float, true>(p, s) : launch_gemv<float, false>(p, s);
 }
 
 cudaError_t attention(const DecodeArgs& a, int li, bool self, const float* k_cur,

@@ -1,33 +1,52 @@
-// W8A8 device code shared by w8a8_matmul.cu and decode_layer.cu (sm_90a).
+// W8A8 and W4A8 device code shared by w8a8_matmul.cu, w4a8_matmul.cu and
+// decode_layer.cu (sm_90a).
 //
-// Counterpart of the TPU kernel t5gemma_tts_tpu/ops/quant.py::_w8a8_kernel
-// and of the activation quantization ops/quant.py::_quantize_act:
+// Counterpart of the TPU kernels t5gemma_tts_tpu/ops/quant.py::_w8a8_kernel
+// and ::_w4a8_kernel and of the activation quantization
+// ops/quant.py::_quantize_act:
 //
 //   sx[m]  = max(absmax_k |x[m, k]|, 1e-8) / 127
 //   x8     = clip(rint(x / sx), -127, 127)          (rint: half to even)
-//   out[m, n] = (f32(sum_k x8[m, k] * w8[n, k]) * sx[m]) * sw[n]
+//   out[m, n] = (f32(sum_k x8[m, k] * w[n, k]) * sx[m]) * sw[n]
 //
-// The int32 sums are exact; the rescale multiplies are rounded one by one
-// (__fmul_rn, no fused multiply-add), so the kernel gives the plain
-// PyTorch version's bits. Weights are stored [N, K] (each output channel's
-// K weights contiguous).
+// where w holds int8 levels (W8A8) or int4 levels in -7..7 (W4A8). The
+// integer sums are exact; the rescale multiplies are rounded one by one
+// (__fmul_rn, no fused multiply-add), so the kernels give the plain
+// PyTorch versions' bits. Weights are stored channel-major: int8 [N, K],
+// int4 packed [N, K/2] (ops/quant.py::Int4Weight).
 //
 // The K-tiled form (ktile < K) computes, in tile order,
-//   acc = sum_j f32(sum_{k in tile j} x8[m, k] * w8[n, k]) * sx[m, j]
+//   acc = sum_j f32(sum_{k in tile j} x8[m, k] * w[n, k]) * sx[m, j]
 //   out[m, n] = acc * sw[n]
 // which is the megakernel's down product with per-tile activation scales
 // (ops/megakernel.py:894-906); with one tile it is the formula above.
 //
+// int4 unpacking. The TPU kernels never unpack nibbles: Mosaic legalizes
+// no int8 shift, so they take two int8 dots per tile and recover the lo/hi
+// halves with an AND mask and a -8 * sum(x8) correction (quant.py:549-579).
+// Hopper has shifts, so this unpacks in registers, and in the cheapest way
+// that stays exact: a 32-bit word of packed weights holds 8 levels of 8
+// consecutive K (low nibbles K 0..3, high nibbles K 4..7, one byte each);
+// (word << 4) & 0xF0F0F0F0 and word & 0xF0F0F0F0 are two int8x4 words whose
+// bytes are 16 q for K 0..3 and K 4..7 -- lined up with two consecutive
+// int8x4 activation words, with no sign extension, no x8 permutation and
+// no correction term. __dp4a then sums 16 q x8 exactly, and the int32 sum,
+// a multiple of 16, shifts right by 4 exactly (|sum| <= 16 * 7 * 127 K <
+// 2^31 for K <= 65536, checked by the wrapper). Signed nibbles were chosen
+// over offset-8 ones for that reason: offset-8 levels need sum(x8) per row
+// and K tile beside every dot.
+//
 // Bound: at decode batch sizes the product reads each weight byte once and
-// does 2 operations per byte and row, far below the int8 tensor rate, so
-// it is bound by the weight bytes over HBM bandwidth. The GEMV below gives
-// one warp to one output channel; its 32 lanes stream the channel's K
-// bytes with 16-byte loads (neighbouring lanes on neighbouring addresses)
-// and multiply them with __dp4a against up to kMaxRows activation rows at
-// once, so each weight byte is read from device memory once per group of
-// kMaxRows rows. Larger M (prefill) runs the same kernel over row groups
-// (blockIdx.y), re-reading the weights from L2. Tensor-core (wgmma s8) and
-// TMA versions are later work.
+// does 2 operations per level and row, far below the int8 tensor rate, so
+// it is bound by the weight bytes over HBM bandwidth (int4 halves them).
+// The GEMV below gives one warp to one output channel; its 32 lanes stream
+// the channel's weights 16 levels at a time (a 16-byte load of int8
+// levels, an 8-byte load of int4 ones; neighbouring lanes on neighbouring
+// addresses) and multiply them with __dp4a against up to kMaxRows
+// activation rows at once, so each weight byte is read from device memory
+// once per group of kMaxRows rows. Larger M (prefill) runs the same kernel
+// over row groups (blockIdx.y), re-reading the weights from L2.
+// Tensor-core (wgmma s8) and TMA versions are later work.
 
 #pragma once
 
@@ -102,13 +121,33 @@ quantize_rows_kernel(const InT* x, int64_t x_stride, int K, int8_t* x8, float* s
 struct GemvArgs {
   const int8_t* x8;   // [M, K], rows 16-byte aligned
   const float* sx;    // [M, K / ktile]
-  const int8_t* w;    // [N, K]
+  const int8_t* w;    // [N, K] int8 levels, or [N, K / 2] packed int4
   const float* sw;    // [N]
   void* out;          // [M, N] (row stride N), f32 or bf16
   int M, N, K, ktile;
 };
 
-template <int MR, typename OutT>
+// The 16 weights of chunk c (levels 16 c .. 16 c + 15) of one channel, as
+// four int8x4 words lined up with the chunk's four activation words; int4
+// levels come out as 16 q (see the header).
+template <bool W4>
+__device__ __forceinline__ void load_weights16(const int8_t* wrow, int c, int (&w)[4]) {
+  if constexpr (W4) {
+    const uint2 p = __ldg(reinterpret_cast<const uint2*>(wrow) + c);
+    w[0] = static_cast<int>((p.x << 4) & 0xF0F0F0F0u);
+    w[1] = static_cast<int>(p.x & 0xF0F0F0F0u);
+    w[2] = static_cast<int>((p.y << 4) & 0xF0F0F0F0u);
+    w[3] = static_cast<int>(p.y & 0xF0F0F0F0u);
+  } else {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(wrow) + c);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  }
+}
+
+template <int MR, typename OutT, bool W4>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 w8a8_gemv_kernel(const GemvArgs p) {
   const int warp = threadIdx.x >> 5;
@@ -118,8 +157,8 @@ w8a8_gemv_kernel(const GemvArgs p) {
   const int m0 = blockIdx.y * MR;
   const int rows = min(MR, p.M - m0);
   const int nt = p.K / p.ktile;
-  const int chunks = p.ktile / 16;          // 16-byte chunks per tile
-  const int4* wrow = reinterpret_cast<const int4*>(p.w + static_cast<int64_t>(n) * p.K);
+  const int chunks = p.ktile / 16;          // 16-level chunks per tile
+  const int8_t* wrow = p.w + static_cast<int64_t>(n) * (W4 ? p.K / 2 : p.K);
   float accf[MR];
 #pragma unroll
   for (int r = 0; r < MR; ++r) accf[r] = 0.f;
@@ -130,23 +169,25 @@ w8a8_gemv_kernel(const GemvArgs p) {
 #pragma unroll 4
     for (int c = lane; c < chunks; c += 32) {
       const int cc = j * chunks + c;
-      const int4 wv = __ldg(wrow + cc);
+      int wv[4];
+      load_weights16<W4>(wrow, cc, wv);
 #pragma unroll
       for (int r = 0; r < MR; ++r) {
         if (r < rows) {
           const int4 xv = __ldg(reinterpret_cast<const int4*>(
               p.x8 + static_cast<int64_t>(m0 + r) * p.K) + cc);
-          acc[r] = __dp4a(xv.x, wv.x, acc[r]);
-          acc[r] = __dp4a(xv.y, wv.y, acc[r]);
-          acc[r] = __dp4a(xv.z, wv.z, acc[r]);
-          acc[r] = __dp4a(xv.w, wv.w, acc[r]);
+          acc[r] = __dp4a(xv.x, wv[0], acc[r]);
+          acc[r] = __dp4a(xv.y, wv[1], acc[r]);
+          acc[r] = __dp4a(xv.z, wv[2], acc[r]);
+          acc[r] = __dp4a(xv.w, wv[3], acc[r]);
         }
       }
     }
 #pragma unroll
     for (int r = 0; r < MR; ++r) {
       if (r < rows) {
-        const int tot = __reduce_add_sync(0xffffffffu, acc[r]);
+        int tot = __reduce_add_sync(0xffffffffu, acc[r]);
+        if constexpr (W4) tot >>= 4;          // a sum of 16 q x8: exact
         const float sc = p.sx[static_cast<int64_t>(m0 + r) * nt + j];
         accf[r] = __fadd_rn(accf[r], __fmul_rn(__int2float_rn(tot), sc));
       }
@@ -161,24 +202,25 @@ w8a8_gemv_kernel(const GemvArgs p) {
   }
 }
 
-template <int MR, typename OutT>
+template <int MR, typename OutT, bool W4>
 static inline cudaError_t launch_gemv_rows(const GemvArgs& p, cudaStream_t s) {
   const dim3 grid((p.N + kGemvWarps - 1) / kGemvWarps, (p.M + MR - 1) / MR);
-  w8a8_gemv_kernel<MR, OutT><<<grid, kGemvWarps * 32, 0, s>>>(p);
+  w8a8_gemv_kernel<MR, OutT, W4><<<grid, kGemvWarps * 32, 0, s>>>(p);
   return cudaGetLastError();
 }
 
 // Picks the row-group size from M (the smallest power of two >= M, at most
-// kMaxRows).
-template <typename OutT>
+// kMaxRows). W4: int4 weights.
+template <typename OutT, bool W4 = false>
 static inline cudaError_t launch_gemv(const GemvArgs& p, cudaStream_t s) {
   if (p.K % 16 || p.ktile % 16 || p.ktile <= 0 || p.K % p.ktile) return cudaErrorInvalidValue;
+  if (W4 && p.K > 65536) return cudaErrorInvalidValue;
   if (p.M == 0 || p.N == 0) return cudaSuccess;
-  if (p.M <= 1) return launch_gemv_rows<1, OutT>(p, s);
-  if (p.M <= 2) return launch_gemv_rows<2, OutT>(p, s);
-  if (p.M <= 4) return launch_gemv_rows<4, OutT>(p, s);
-  if (p.M <= 8) return launch_gemv_rows<8, OutT>(p, s);
-  return launch_gemv_rows<kMaxRows, OutT>(p, s);
+  if (p.M <= 1) return launch_gemv_rows<1, OutT, W4>(p, s);
+  if (p.M <= 2) return launch_gemv_rows<2, OutT, W4>(p, s);
+  if (p.M <= 4) return launch_gemv_rows<4, OutT, W4>(p, s);
+  if (p.M <= 8) return launch_gemv_rows<8, OutT, W4>(p, s);
+  return launch_gemv_rows<kMaxRows, OutT, W4>(p, s);
 }
 
 template <typename InT>

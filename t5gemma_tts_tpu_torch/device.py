@@ -24,13 +24,13 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
 
 
 def tree_to(tree: Any, device: torch.device) -> Any:
-    """A nested dict of tensors (and ``QuantWeight`` leaves) moved to
-    ``device`` (leaves already there are kept, not copied)."""
-    from .ops.quant import QuantWeight
+    """A nested dict of tensors (and ``QuantWeight`` / ``Int4Weight``
+    leaves) moved to ``device`` (leaves already there are kept, not
+    copied)."""
+    from .ops.quant import Int4Weight, QuantWeight, map_weight
 
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, QuantWeight):
-        return tree._replace(values=tree.values.to(device),
-                             scale=tree.scale.to(device))
+    if isinstance(tree, (QuantWeight, Int4Weight)):
+        return map_weight(tree, lambda t: t.to(device))
     return tree.to(device)

@@ -5,11 +5,12 @@ Run: python -m t5gemma_tts_tpu_torch.inference.cli --model_dir <hf dir> \
         --target_text "..." [--device cuda|cpu] ...
 
 Runs on ``cuda`` unless ``--device cpu`` is given. ``--quantize int8``
-serves with W8A8 decode weights (the decode-layer and W8A8 kernels). Not
+serves with W8A8 decode weights (the decode-layer and W8A8 kernels);
+``--quantize int4`` is the batch-1 latency mode (int4 decode-layer and head
+weights: the decode-layer kernels' int4 variant and the W4A8 kernel). Not
 ported yet, and so refused with the ROADMAP entry that will bring them:
-``--quantize int4``, ``--kv_cache paged_f8``, ``--reference_speech`` (the
-codec encoder) and real XCodec2 weights (the codec converter;
-``--random_codec`` works).
+``--kv_cache paged_f8``, ``--reference_speech`` (the codec encoder) and
+real XCodec2 weights (the codec converter; ``--random_codec`` works).
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="local dir with XCodec2 model.safetensors")
     p.add_argument("--quantize", default="none",
                    choices=["none", "int8", "int4"],
-                   help="decode-weight quantization ('int4' is not ported)")
+                   help="decode-weight quantization (int4: batch-1 latency)")
     p.add_argument("--kv_cache", default="auto",
                    choices=["auto", "dense", "paged", "paged_f8", "paged_i8"],
                    help="decode KV-cache strategy (see DecodeConfig.kv_cache)")
@@ -67,10 +68,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    if args.quantize == "int4":
-        raise NotImplementedError(
-            "--quantize int4 is not ported yet (ROADMAP Queue 2 item 4: "
-            "W4A8 and the lanes4 megakernel)")
     if args.kv_cache == "paged_f8":
         raise NotImplementedError(
             "--kv_cache paged_f8 is not ported yet (ROADMAP Queue 2 item 5)")
@@ -115,7 +112,8 @@ def run_inference(args: argparse.Namespace) -> str:
     audio_tok = AudioTokenizer(init_decoder_params(0, ccfg, device), ccfg,
                                device)
     pipe = TTSPipeline(params, cfg, _text_tokenizer(hf_cfg), audio_tok,
-                       device=device, int8=args.quantize == "int8")
+                       device=device, int8=args.quantize == "int8",
+                       int4=args.quantize == "int4")
 
     lang = None if args.lang in {None, "", "none", "null"} else str(args.lang)
     target_text, lang_code = normalize_text_with_lang(args.target_text, lang)

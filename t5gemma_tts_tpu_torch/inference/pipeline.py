@@ -7,8 +7,11 @@ generation buffers are padded to the same buckets as the JAX package, so a
 request decodes over the same shapes. PyTorch compiles nothing, so there is
 no warm-shape routing and no padding rows. ``int8=True`` serves with W8A8
 decode weights (``ops/quant.quantize_params_for_decode``), whose paged decode
-steps run through the decode-layer kernels. Voice cloning (a reference
-recording) needs the codec encoder, which comes with a later slice.
+steps run through the decode-layer kernels; ``int4=True`` is the batch-1
+latency mode: the six decode-layer products and the head's ``w2`` become
+int4 (W4A8), everything else quantized stays int8. Voice cloning (a
+reference recording) needs the codec encoder, which comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -78,19 +81,16 @@ class TTSPipeline:
                  int8: bool = False,
                  int4: bool = False):
         self.device = resolve_device(device)
-        if int4:
-            raise NotImplementedError(
-                "int4 weights are not ported yet (ROADMAP Queue 2 item 4: "
-                "W4A8 and the lanes4 megakernel)")
         params = tree_to(params, self.device)
-        if fuse_matmuls or int8:
+        if fuse_matmuls or int8 or int4:
             from ..models.t5gemma import fuse_for_decode
 
             params = fuse_for_decode(params)
-        if int8:
+        if int8 or int4:
             from ..ops.quant import quantize_params_for_decode
 
-            params = quantize_params_for_decode(params)
+            params = quantize_params_for_decode(
+                params, weight_bits=4 if int4 else 8)
         self.params = params
         self.cfg = cfg
         self.encode_text = text_tokenizer
@@ -149,6 +149,17 @@ class TTSPipeline:
         return _bucket(self._need_frames(planned.target, len(planned.prompt)),
                        FRAME_BUCKETS)
 
+    def widths(self, planned: Sequence[PlannedRequest]
+               ) -> Tuple[int, int, int]:
+        """(text, prompt, frame) buckets of a batch: the encoder and cross
+        K/V run over B x text rows, the prefill over B x (prompt + 1)."""
+        tx = _bucket(max(len(p.text) for p in planned), TEXT_BUCKETS)
+        p_max = _bucket(max((len(p.prompt) for p in planned), default=1),
+                        PROMPT_BUCKETS)
+        max_frames = _bucket(max(self._need_frames(p.target, len(p.prompt))
+                                 for p in planned), FRAME_BUCKETS)
+        return tx, p_max, max_frames
+
     # -- synthesis ----------------------------------------------------------
 
     def synthesize_batch(self, requests: Sequence[Request],
@@ -173,11 +184,7 @@ class TTSPipeline:
         texts = [p.text for p in planned]
         prompts = [p.prompt for p in planned]
         b = len(planned)
-        tx = _bucket(max(len(t) for t in texts), TEXT_BUCKETS)
-        p_max = _bucket(max((len(p) for p in prompts), default=1),
-                        PROMPT_BUCKETS)
-        max_frames = _bucket(max(self._need_frames(p.target, len(p.prompt))
-                                 for p in planned), FRAME_BUCKETS)
+        tx, p_max, max_frames = self.widths(planned)
 
         x = np.zeros((b, tx), np.int32)
         x_lens = np.zeros((b,), np.int32)

@@ -18,8 +18,9 @@ Two decode caches:
 
 Projections go through ``ops/quant.q_matmul``: plain weights multiply as
 they are, int8 ``QuantWeight`` leaves (``quantize_params_for_decode``) take
-the W8A8 product. With W8A8 decoder weights the paged decode step runs all
-layers through ``ops/megakernel.decode_stack`` instead of the layer loop.
+the W8A8 product and int4 ``Int4Weight`` leaves the W4A8 product. With W8A8
+or int4 decoder weights the paged decode step runs all layers through
+``ops/megakernel.decode_stack`` instead of the layer loop.
 
 Unlike the JAX package, the caches are updated in place (the step writes
 one token per layer into preallocated buffers instead of returning copies).
@@ -38,7 +39,7 @@ from ..config import ModuleDims
 from ..ops import fused_attn, megakernel
 from ..ops import rope as rope_ops
 from ..ops.paged_attn import identity_page_indices
-from ..ops.quant import QuantWeight
+from ..ops.quant import Int4Weight, QuantWeight, map_weight
 from ..ops.quant import q_matmul as _mm
 
 PyTree = Any
@@ -154,8 +155,8 @@ def layer_params(tree: PyTree, li: int) -> PyTree:
     """Layer ``li`` of a stacked [L, ...] parameter tree (views)."""
     if isinstance(tree, dict):
         return {k: layer_params(v, li) for k, v in tree.items()}
-    if isinstance(tree, QuantWeight):
-        return tree._replace(values=tree.values[li], scale=tree.scale[li])
+    if isinstance(tree, (QuantWeight, Int4Weight)):
+        return map_weight(tree, lambda t: t[li])
     return tree[li]
 
 
@@ -509,7 +510,7 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     ``batch_paged_attention`` call. The new token's K/V become the pending
     block (bf16). ``prompt_lengths``/``enc_lengths`` are int32 [B].
 
-    When ``megakernel.supports`` the decoder's (W8A8) layers, one
+    When ``megakernel.supports`` the decoder's (W8A8 or int4) layers, one
     ``decode_stack`` call replaces the layer loop: the hidden state enters
     it in f32 and stays f32 across the layers, and its unrounded k/v come
     back as the new pending block."""

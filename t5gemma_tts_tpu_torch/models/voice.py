@@ -63,7 +63,7 @@ def init_params(seed: int, cfg: VoiceConfig,
 def predict_head(head: Dict[str, torch.Tensor],
                  hidden: torch.Tensor) -> torch.Tensor:
     """2-layer head with exact (erf) GELU -> audio-token logits; ``w1`` and
-    ``w2`` may be W8A8 ``QuantWeight`` leaves."""
+    ``w2`` may be W8A8 ``QuantWeight`` leaves, ``w2`` an ``Int4Weight``."""
     h = F.gelu(q_matmul(hidden, head["w1"]) + head["b1"])
     return q_matmul(h, head["w2"]) + head["b2"]
 

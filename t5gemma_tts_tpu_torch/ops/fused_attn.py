@@ -29,12 +29,12 @@ import torch
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def absmax_scale(amax: torch.Tensor) -> torch.Tensor:
-    """``max(amax, 1e-8) / 127`` as an f32 division. (On the card PyTorch
-    turns a division by a Python number into a multiplication by its
-    reciprocal, which can round the scale, and through it an int8 level,
-    differently.)"""
-    return amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
+def absmax_scale(amax: torch.Tensor, levels: float = 127.0) -> torch.Tensor:
+    """``max(amax, 1e-8) / levels`` as an f32 division. (On the card
+    PyTorch turns a division by a Python number into a multiplication by
+    its reciprocal, which can round the scale, and through it a quantized
+    level, differently.)"""
+    return amax.clamp_min(1e-8) / torch.full_like(amax, levels)
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

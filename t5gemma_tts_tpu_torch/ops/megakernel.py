@@ -1,8 +1,9 @@
-"""The int8-weight decode layer: hand-written CUDA kernels and their plain
-PyTorch version.
+"""The int8- and int4-weight decode layer: hand-written CUDA kernels and
+their plain PyTorch version.
 
 Counterpart of ``t5gemma_tts_tpu/ops/megakernel.py`` for W8A8 weights and
-``chain=1``: :func:`supports`, :func:`decode_layer` (one layer) and
+for its w4 variant (int4 weights, the batch-1 latency mode), ``chain=1``:
+:func:`supports`, :func:`decode_layer` (one layer) and
 :func:`decode_stack` (all layers). On a CUDA tensor both launch
 ``csrc/decode_layer.cu`` (built with nvcc at first use, see
 ops/cuda_build.py; ``decode_stack`` is one host call per decode step) or
@@ -13,9 +14,11 @@ What a layer computes (the TPU kernel's semantics, all in f32; the hidden
 state is never rounded between layers):
 
 - RMSNorm ``(x * rsqrt(mean(x^2) + eps)) * (1 + w)``;
-- per-row int8 activations (``round`` half to even) and W8A8 products
-  ``(f32(x8 @ w8) * sx) * s``; the o / cross-o products sum exactly in
-  int32 over all of K before the one rescale;
+- per-row int8 activations (``round`` half to even) and products
+  ``(f32(x8 @ w) * sx) * s`` over int8 levels (``QuantWeight``) or int4
+  levels (``Int4Weight``; the TPU kernel's lanes4 AND-mask dots recover the
+  same exact integer sums); the o / cross-o products sum exactly over all
+  of K before the one rescale;
 - RoPE on the f32 projections, q scaled after RoPE; the cross query uses
   the PM-RoPE tables; the in-flight k/v are the unrounded f32 post-RoPE k
   and v, returned as ``k_new``/``v_new``;
@@ -42,7 +45,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .fused_attn import MASK_VALUE, _check
-from .quant import QuantWeight, int_matmul_exact, quantize_act_plain
+from .quant import (Int4Weight, QuantWeight, int4_levels, int_matmul_exact,
+                    quantize_act_plain)
 
 WTILE = 512      # GeGLU tile width (the TPU kernel's weight tile)
 TBLOCK = 128     # attention time block (= the cache's page size)
@@ -62,21 +66,33 @@ def ftile_of(f: int) -> int:
     return WTILE if f % WTILE == 0 else f
 
 
+def widths_fit(d: int, ho: int, f: int) -> bool:
+    """Whether the kernels take a decoder's widths: hidden ``d``, heads x
+    head_dim ``ho`` and intermediate ``f`` multiples of 16 (one 8-byte
+    load of int4 weights is 16 levels), and an ``f`` that tiles by 512 or
+    is below it."""
+    return all(w % 16 == 0 for w in (d, ho, f)) and ftile_of(f) <= WTILE
+
+
 def supports(params_layers: Dict[str, Any], dims, cache) -> bool:
     """Whether the decode-layer path applies: fused W8A8 weights of every
-    projection, bf16 pages or int8 pages with scale planes, an F that tiles
-    by 512 (or is below it), and widths the kernels take (multiples of 16,
-    head_dim a multiple of 8 up to 256)."""
-    if not all(isinstance(w, QuantWeight) and w.act_bits == 8
-               and w.values.ndim == 3 for w in _weights(params_layers)):
+    projection, or int4 weights of every projection (mixed int4 and int8
+    is refused), bf16 pages or int8 pages with scale planes, widths the
+    kernels take (:func:`widths_fit`) and a head_dim that is a multiple of
+    8 up to 256."""
+    ws = _weights(params_layers)
+    w8 = all(isinstance(w, QuantWeight) and w.act_bits == 8
+             and w.values.ndim == 3 for w in ws)
+    w4 = all(isinstance(w, Int4Weight) and w.packed.ndim == 3 for w in ws)
+    if not (w8 or w4):
         return False
     pages = cache.gen_k.dtype
     if not (pages == torch.bfloat16
             or (pages == torch.int8 and cache.gen_k_scale is not None)):
         return False
-    f, hd = dims.intermediate_size, dims.head_dim
-    widths = (dims.hidden_size, dims.num_heads * hd, f)
-    return ((f % WTILE == 0 or f < WTILE) and all(w % 16 == 0 for w in widths)
+    hd = dims.head_dim
+    return (widths_fit(dims.hidden_size, dims.num_heads * hd,
+                       dims.intermediate_size)
             and hd % 8 == 0 and hd <= 256)
 
 
@@ -89,9 +105,16 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps) * (1.0 + w)
 
 
-def _w8a8(x8, sx, w: QuantWeight, li: int) -> torch.Tensor:
-    """(f32(x8 @ w8[li]) * sx) * s[li] -> f32."""
-    return int_matmul_exact(x8, w.values[li]).float() * sx * w.scale[li]
+def _levels(w, li: int) -> torch.Tensor:
+    """Layer ``li``'s int8 levels [N, K] (int4 weights unpacked)."""
+    if isinstance(w, Int4Weight):
+        return int4_levels(w.packed[li])
+    return w.values[li]
+
+
+def _w8a8(x8, sx, w, li: int) -> torch.Tensor:
+    """(f32(x8 @ w[li]) * sx) * s[li] -> f32."""
+    return int_matmul_exact(x8, _levels(w, li)).float() * sx * w.scale[li]
 
 
 def _rope(x, cos, sin):
@@ -218,12 +241,13 @@ def decode_layer_plain(params_layers, dims, *, h, cos, sin, qcos, qsin, li,
     f = dims.intermediate_size
     ft = ftile_of(f)
     acc = torch.zeros((b, w_dn.n), device=h.device)
+    dn = _levels(w_dn, li)
     for j in range(f // ft):
         g = gu[:, j * ft:(j + 1) * ft]
         u = gu[:, f + j * ft:f + (j + 1) * ft]
         t8, st = quantize_act_plain(gelu_tanh(g) * u)
         acc = acc + int_matmul_exact(
-            t8, w_dn.values[li][:, j * ft:(j + 1) * ft]).float() * st
+            t8, dn[:, j * ft:(j + 1) * ft]).float() * st
     h = h + _rms(acc * w_dn.scale[li], n5, eps)
     return h, k_new, v_new
 
@@ -251,7 +275,7 @@ def _pair(a, b):
 def decode_layer(params_layers, dims, *, h, cos, sin, qcos, qsin, li: int,
                  plens, glens, elens, prompt_k, prompt_v, gen_k, gen_v,
                  cross_k, cross_v, kv_scales=None):
-    """Decoder layer ``li`` of the stacked int8 layer tree.
+    """Decoder layer ``li`` of the stacked int8 or int4 layer tree.
 
     h [B, D]; cos/sin/qcos/qsin [B, hd] f32; plens/glens/elens [B] int32;
     slabs the cache's [Hkv, L*B, T, hd] buffers, with ``kv_scales`` the six
@@ -314,7 +338,7 @@ class _DecodeArgs(ctypes.Structure):
                                       "qbuf", "attn", "dout")]
                 + [(n, _i32) for n in ("B", "D", "H", "Hkv", "hd", "F", "L",
                                        "ftile", "Tp", "Tg", "Tx",
-                                       "kv_quant")]
+                                       "kv_quant", "w4")]
                 + [(n, ctypes.c_float) for n in ("eps", "soft_cap",
                                                  "q_scale")])
 
@@ -342,9 +366,13 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
     ft = ftile_of(f)
     shapes = ((ho + 2 * nkv, d), (d, ho), (ho, d), (d, ho), (2 * f, d), (d, f))
     weights = _weights(params_layers)
+    w4 = isinstance(weights[0], Int4Weight)
     for name, w, (n, k) in zip(("qkv", "o", "cross q", "cross o", "gate_up",
                                 "down"), weights, shapes):
-        _check(f"{name} values", w.values, dev, torch.int8, (n_layers, n, k))
+        if isinstance(w, Int4Weight) != w4:
+            raise ValueError("the six products mix int4 and int8 weights")
+        _check(f"{name} weights", w.packed if w4 else w.values, dev,
+               torch.int8, (n_layers, n, k // 2 if w4 else k))
         _check(f"{name} scale", w.scale, dev, torch.float32, (n_layers, n))
     norms = [params_layers[n].float().contiguous() for n in _NORMS]
     for name, t in zip(_NORMS, norms):
@@ -384,7 +412,8 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
         qcos=tabs[2].data_ptr(), qsin=tabs[3].data_ptr(),
         plens=lens[0].data_ptr(), glens=lens[1].data_ptr(),
         elens=lens[2].data_ptr(),
-        w=(_vp * 6)(*(w.values.data_ptr() for w in weights)),
+        w=(_vp * 6)(*((w.packed if w4 else w.values).data_ptr()
+                      for w in weights)),
         ws=(_vp * 6)(*(w.scale.data_ptr() for w in weights)),
         norms=(_vp * 6)(*(t.data_ptr() for t in norms)),
         slab=(_vp * 6)(*(s.data_ptr() for s in slabs)),
@@ -394,7 +423,7 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
         **{k: v.data_ptr() for k, v in ws.items()},
         B=b, D=d, H=n_heads, Hkv=hkv, hd=hd, F=f, L=n_layers, ftile=ft,
         Tp=prompt_k.shape[2], Tg=gen_k.shape[2], Tx=cross_k.shape[2],
-        kv_quant=int(quant), eps=dims.rms_norm_eps,
+        kv_quant=int(quant), w4=int(w4), eps=dims.rms_norm_eps,
         soft_cap=dims.attn_logit_softcap or 0.0, q_scale=dims.q_scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

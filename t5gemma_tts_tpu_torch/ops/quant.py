@@ -1,36 +1,50 @@
-"""Int8 weight quantization for the decode path (W8A8), in PyTorch.
+"""Int8 and int4 weight quantization for the decode path, in PyTorch.
 
-Counterpart of the W8A8 part of ``t5gemma_tts_tpu/ops/quant.py``:
-per-output-channel absmax int8 weights (:func:`quantize_weight`), per-row
-absmax int8 activations (:func:`quantize_act`), and the int8 x int8 product
-with exact int32 accumulation and an f32 rescale
-``(f32(acc[m, n]) * sx[m]) * sw[n]`` (:func:`w8a8_matmul`).
+Counterpart of ``t5gemma_tts_tpu/ops/quant.py``:
 
-On a CUDA tensor :func:`w8a8_matmul` and :func:`quantize_act` launch the
-hand-written kernels of ``csrc/w8a8_matmul.cu`` (built with nvcc at first
-use, see ops/cuda_build.py) or raise; on a CPU tensor they run
-:func:`w8a8_matmul_plain` / :func:`quantize_act_plain`. ``.launches`` on
-each wrapper counts kernel launches.
+- W8A8: per-output-channel absmax int8 weights (:func:`quantize_weight`),
+  per-row absmax int8 activations (:func:`quantize_act`), and the int8 x
+  int8 product with exact int32 accumulation and an f32 rescale
+  ``(f32(acc[m, n]) * sx[m]) * sw[n]`` (:func:`w8a8_matmul`);
+- W4A8, the batch-1 latency mode: per-output-channel absmax int4 weights
+  (levels -7..7, scale ``absmax / 7``; :func:`quantize_weight_int4_lanes`,
+  the levels and scales of the JAX ``quantize_weight_lanes4``) and the same
+  product over the int4 levels (:func:`w4a8_matmul`; the JAX
+  ``_w4a8_2d_xla`` / ``_w4a8_kernel``);
+- the grouped int4 reference (:class:`Quant4Weight`, :func:`q4_matmul`):
+  per-(K-group, channel) scales, plain PyTorch only, as the JAX package has
+  no kernel for it.
+
+On a CUDA tensor :func:`w8a8_matmul`, :func:`w4a8_matmul` and
+:func:`quantize_act` launch the hand-written kernels of
+``csrc/w8a8_matmul.cu`` / ``csrc/w4a8_matmul.cu`` (built with nvcc at first
+use, see ops/cuda_build.py) or raise; on a CPU tensor they run their plain
+versions. ``.launches`` on each wrapper counts kernel launches.
 
 Layout. The levels and scales are bit-identical to the JAX package's, but
-the port stores a weight as ``values [..., N, K]`` (each output channel's K
-weights contiguous, which is what the weight-streaming kernel reads) and
-keeps no padding of N: the JAX ``[..., K, N_pad]`` layout and its
-``tiled_n``/``tiled_k`` re-tilings (a TPU DMA constraint) are translated by
-``bridge.py``. Only W8A8 (``act_bits=8``) and 8-bit weights are ported;
-W8A16 and int4 raise ``NotImplementedError`` naming their ROADMAP item.
+the port stores a weight channel-major: ``QuantWeight.values [..., N, K]``
+and ``Int4Weight.packed [..., N, K/2]`` (each output channel's K weights
+contiguous, which is what the weight-streaming kernels read), with no
+padding of N. The JAX ``[..., K, N_pad]`` layouts, their
+``tiled_n``/``tiled_k`` re-tilings and the lanes4 ``l4n``/``l4k`` nibble
+pairings (TPU DMA and Mosaic constraints) are translated by ``bridge.py``.
+W8A16 (``act_bits=16``) is not ported and raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, NamedTuple, Optional, Tuple
+import logging
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from .fused_attn import _check, absmax_scale
 
 PyTree = Any
+log = logging.getLogger(__name__)
+_W8A16 = "W8A16 (act_bits=16) is not ported yet (ROADMAP Queue 2 item 6)"
 
 
 class QuantWeight(NamedTuple):
@@ -40,12 +54,39 @@ class QuantWeight(NamedTuple):
     act_bits: int = 8      # 8 = W8A8; 16 (W8A16) is not ported
 
 
+class Int4Weight(NamedTuple):
+    """Per-channel int4 weights (levels -7..7) for the W4A8 product.
+
+    ``packed`` int8 [..., N, K/2]: each channel's K levels, two to a byte,
+    in groups of 8 consecutive K: byte ``4 g + j`` (j < 4) holds level
+    ``8 g + j`` in its low nibble and level ``8 g + 4 + j`` in its high
+    nibble, both as 4-bit two's complement. So one 32-bit word holds 8
+    levels whose low nibbles line up with the 4 activation bytes of one
+    int8x4 word and whose high nibbles with the next word's (see
+    csrc/w8a8.cuh). ``scale`` f32 [..., N]."""
+
+    packed: torch.Tensor
+    scale: torch.Tensor
+    n: int                 # output width (== packed.shape[-2])
+
+
+Weight = Union[QuantWeight, Int4Weight]
+
+
+def map_weight(w: Weight,
+               fn: Callable[[torch.Tensor], torch.Tensor]) -> Weight:
+    """``w`` with ``fn`` applied to each of its tensors (device moves,
+    layer slices)."""
+    if isinstance(w, Int4Weight):
+        return w._replace(packed=fn(w.packed), scale=fn(w.scale))
+    return w._replace(values=fn(w.values), scale=fn(w.scale))
+
+
 def quantize_weight(w: torch.Tensor, act_bits: int = 8) -> QuantWeight:
     """Per-output-channel absmax int8 quantization of ``w [..., K, N]``
     (the JAX ``quantize_weight`` levels and scales, stored [..., N, K])."""
     if act_bits != 8:
-        raise NotImplementedError(
-            "W8A16 (act_bits=16) is not ported yet (ROADMAP Queue 2 item 6)")
+        raise NotImplementedError(_W8A16)
     wf = w.float()
     scale = absmax_scale(wf.abs().amax(dim=-2))                # [..., N]
     q = torch.round(wf / scale[..., None, :]).clamp(-127, 127).to(torch.int8)
@@ -53,9 +94,49 @@ def quantize_weight(w: torch.Tensor, act_bits: int = 8) -> QuantWeight:
                        act_bits)
 
 
-def dequantize(w: QuantWeight) -> torch.Tensor:
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 levels in [-8, 7] ``[..., K]`` (K a multiple of 8) -> the
+    :class:`Int4Weight` bytes ``[..., K/2]``."""
+    *lead, k = q.shape
+    if k % 8:
+        raise ValueError(f"int4 packing needs K % 8 == 0 (got K={k})")
+    g = q.to(torch.int32).reshape(*lead, k // 8, 2, 4)
+    packed = (g[..., 0, :] & 15) | (g[..., 1, :] << 4)         # in [-128, 127]
+    return packed.reshape(*lead, k // 2).to(torch.int8)
+
+
+def int4_levels(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: ``[..., K/2]`` bytes -> int8 levels
+    ``[..., K]``."""
+    *lead, kh = packed.shape
+    p = packed.to(torch.int32).reshape(*lead, kh // 4, 4)
+    lo = ((p & 15) ^ 8) - 8                                     # sign-extend
+    hi = p >> 4                                                 # arithmetic
+    return torch.cat([lo, hi], dim=-1).reshape(*lead, 2 * kh).to(torch.int8)
+
+
+def quantize_weight_int4_lanes(w: torch.Tensor) -> Int4Weight:
+    """Per-output-channel absmax int4 quantization of ``w [..., K, N]``:
+    the levels (``round`` half to even, clipped to -7..7) and scales
+    (``max(absmax, 1e-8) / 7``) of the JAX ``quantize_weight_lanes4``, in
+    the :class:`Int4Weight` layout."""
+    wf = w.float()
+    scale = absmax_scale(wf.abs().amax(dim=-2), 7.0)           # [..., N]
+    q = torch.round(wf / scale[..., None, :]).clamp(-7, 7).to(torch.int8)
+    return Int4Weight(pack_int4(q.transpose(-1, -2)).contiguous(), scale,
+                      w.shape[-1])
+
+
+def weight_levels(w: Weight) -> torch.Tensor:
+    """The int8 levels of a weight, ``[..., N, K]``."""
+    if isinstance(w, Int4Weight):
+        return int4_levels(w.packed)
+    return w.values
+
+
+def dequantize(w: Weight) -> torch.Tensor:
     """Reference dequantization -> f32 [..., K, N] (for tests)."""
-    return (w.values.float() * w.scale[..., None]).transpose(-1, -2)
+    return (weight_levels(w).float() * w.scale[..., None]).transpose(-1, -2)
 
 
 def quantize_act_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -77,7 +158,7 @@ def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     x = x.contiguous()
     x8 = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    fn = _bind("t5g_quantize_rows")
+    fn = _bind("w8a8_matmul", "t5g_quantize_rows")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
                  x8.data_ptr(), sx.data_ptr(),
@@ -99,14 +180,29 @@ def int_matmul_exact(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return (x8.double() @ w8.double().t()).to(torch.int32)
 
 
+def _plain(x: torch.Tensor, w: Weight,
+           out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``(f32(x8 @ levels) * sx) * s`` in ``out_dtype`` (default
+    ``x.dtype``); the rescale order of the JAX ``_w8a8_2d_xla`` and
+    ``_w4a8_2d_xla``."""
+    x8, sx = quantize_act_plain(x)
+    acc = int_matmul_exact(x8, weight_levels(w)).float()
+    return (acc * sx * w.scale[None, :]).to(out_dtype or x.dtype)
+
+
 def w8a8_matmul_plain(x: torch.Tensor, w: QuantWeight,
                       out_dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
-    """x [M, K] -> ``(f32(x8 @ w8) * sx) * sw`` [M, N] in ``out_dtype``
-    (default ``x.dtype``); the rescale order of the JAX ``_w8a8_2d_xla``."""
-    x8, sx = quantize_act_plain(x)
-    acc = int_matmul_exact(x8, w.values).float()
-    return (acc * sx * w.scale[None, :]).to(out_dtype or x.dtype)
+    """x [M, K] -> ``(f32(x8 @ w8) * sx) * sw`` [M, N]."""
+    return _plain(x, w, out_dtype)
+
+
+def w4a8_matmul_plain(x: torch.Tensor, w: Int4Weight,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """x [M, K] -> ``(f32(x8 @ q4) * sx) * s`` [M, N] over the int4 levels
+    unpacked to int8 (the JAX ``_w4a8_2d_xla``)."""
+    return _plain(x, w, out_dtype)
 
 
 def w8a8_matmul(x: torch.Tensor, w: QuantWeight,
@@ -126,51 +222,109 @@ def w8a8_matmul(x: torch.Tensor, w: QuantWeight,
 w8a8_matmul.launches = 0
 
 
+def w4a8_matmul(x: torch.Tensor, w: Int4Weight,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """W4A8 product of ``x [M, K]`` (f32 or bf16) and a 2-D
+    :class:`Int4Weight` -> [M, N] in ``out_dtype`` (default ``x.dtype``).
+    On the card one call quantizes the rows and runs the int4 product."""
+    if x.device.type == "cpu":
+        return w4a8_matmul_plain(x, w, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"w4a8_matmul: no kernel for {x.device}")
+    out = _launch(x, w, out_dtype or x.dtype)
+    w4a8_matmul.launches += 1
+    return out
+
+
+w4a8_matmul.launches = 0
+
+
 def q_matmul(x: torch.Tensor, w) -> torch.Tensor:
     """Drop-in for ``x @ w`` over [..., K] activations: a plain tensor is
-    multiplied as is; a :class:`QuantWeight` takes the W8A8 product and
-    comes back in ``x.dtype``."""
-    if not isinstance(w, QuantWeight):
+    multiplied as is; a :class:`QuantWeight` takes the W8A8 product and an
+    :class:`Int4Weight` the W4A8 product, both back in ``x.dtype``."""
+    if isinstance(w, Int4Weight):
+        product = w4a8_matmul
+    elif isinstance(w, QuantWeight):
+        if w.act_bits != 8:
+            raise NotImplementedError(_W8A16)
+        product = w8a8_matmul
+    else:
         return x @ w
-    if w.act_bits != 8:
-        raise NotImplementedError(
-            "W8A16 (act_bits=16) is not ported yet (ROADMAP Queue 2 item 6)")
     *lead, k = x.shape
-    out = w8a8_matmul(x.reshape(-1, k), w)
+    out = product(x.reshape(-1, k), w)
     return out.reshape(*lead, w.n)
 
 
 _QUANT_KEYS = ("q", "k", "v", "o", "gate", "up", "down", "w1", "w2",
                "qkv", "gate_up")
+_W4_KEYS = ("qkv", "o", "gate_up", "down")   # + the cross-attention "q"
+
+
+def _decoder_widths(params: PyTree) -> Optional[Tuple[int, int, int]]:
+    """(hidden, heads x head_dim, intermediate) of a stacked decoder tree,
+    or None where it has no such layers."""
+    try:
+        lay = params["decoder"]["layers"]
+        _, ho, d = lay["self_attn"]["o"].shape
+        _, f, _ = lay["mlp"]["down"].shape
+    except (KeyError, TypeError, ValueError):
+        return None
+    return d, ho, f
 
 
 def quantize_params_for_decode(params: PyTree, act_bits: int = 8,
-                               weight_bits: int = 8) -> PyTree:
+                               weight_bits: int = 8,
+                               head_bits: Optional[int] = None) -> PyTree:
     """Quantize the matmuls the decode loop reads every step: the decoder's
     stacked projections (cross K/V included) and the head's ``w1``/``w2``
     go W8A8; the encoder stays as it is. Returns a new tree (the
-    quantization runs on the tensors' device)."""
-    if weight_bits != 8:
-        raise NotImplementedError(
-            "int4 weights are not ported yet (ROADMAP Queue 2 item 4: W4A8 "
-            "and the lanes4 megakernel)")
-    if act_bits != 8:
-        raise NotImplementedError(
-            "W8A16 (act_bits=16) is not ported yet (ROADMAP Queue 2 item 6)")
+    quantization runs on the tensors' device).
 
-    def stacked(leaf):
+    ``weight_bits=4`` is the batch-1 latency mode: the six decode-layer
+    products (fused qkv, self o, cross q, cross o, gate_up, down) become
+    :class:`Int4Weight`, and so does the head's ``w2`` unless
+    ``head_bits=8`` (default: follow ``weight_bits``); cross K/V and the
+    head's ``w1`` stay W8A8. Where the decoder's widths do not fit the
+    decode-layer kernels (``megakernel.widths_fit``) it warns and quantizes
+    int8."""
+    if weight_bits not in (8, 4):
+        raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
+    head_bits = weight_bits if head_bits is None else head_bits
+    if head_bits not in (8, 4):
+        raise ValueError(f"head_bits must be 8 or 4, got {head_bits}")
+    if act_bits != 8:
+        raise NotImplementedError(_W8A16)
+    from .megakernel import widths_fit   # megakernel imports this module
+
+    widths = _decoder_widths(params)
+    if weight_bits == 4 and not (widths and widths_fit(*widths)):
+        log.warning("weight_bits=4 requested but the decoder's widths %s do "
+                    "not fit the decode-layer kernels "
+                    "(megakernel.widths_fit); quantizing int8 instead",
+                    widths)
+        weight_bits = 8
+
+    def stacked(leaf, quantize, cls):
         # one layer at a time: the f32 temporaries stay one layer's size
-        parts = [quantize_weight(leaf[i]) for i in range(leaf.shape[0])]
-        return QuantWeight(torch.stack([p.values for p in parts]),
-                           torch.stack([p.scale for p in parts]),
-                           leaf.shape[-1])
+        parts = [quantize(leaf[i]) for i in range(leaf.shape[0])]
+        return cls(*(torch.stack(t) for t in zip(*(p[:2] for p in parts))),
+                   leaf.shape[-1])
 
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         top, name = path[0], path[-1]
+        if weight_bits == 4:
+            if (top == "head" and name == "w2" and tree.ndim == 2
+                    and head_bits == 4):
+                return quantize_weight_int4_lanes(tree)
+            if top == "decoder" and tree.ndim == 3 and (
+                    name in _W4_KEYS
+                    or (name == "q" and "cross_attn" in path)):
+                return stacked(tree, quantize_weight_int4_lanes, Int4Weight)
         if top == "decoder" and name in _QUANT_KEYS and tree.ndim == 3:
-            return stacked(tree)
+            return stacked(tree, quantize_weight, QuantWeight)
         if top == "head" and name in ("w1", "w2"):
             return quantize_weight(tree)
         return tree
@@ -179,14 +333,79 @@ def quantize_params_for_decode(params: PyTree, act_bits: int = 8,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernels (csrc/w8a8_matmul.cu)
+# the grouped int4 reference (plain PyTorch: the JAX package has no kernel)
 # ---------------------------------------------------------------------------
 
 
-def _bind(name: str):
+class Quant4Weight(NamedTuple):
+    """Grouped int4 weights, the JAX ``Quant4Weight`` without its N
+    padding: ``packed`` int8 [..., K/2, N] in the halves layout (byte row
+    i holds K row i in its low nibble and K row i + K/2 in its high
+    nibble), ``scale`` f32 [..., K/group, N] per (K group, channel)."""
+
+    packed: torch.Tensor
+    scale: torch.Tensor
+    n: int
+    group: int = 128
+
+
+def quantize_weight_int4(w: torch.Tensor, group: int = 128) -> Quant4Weight:
+    """Per-(K-group, channel) absmax int4 quantization of ``w [..., K, N]``
+    (levels -7..7, scale ``max(absmax, 1e-8) / 7``), nibble-packed."""
+    *lead, k, n = w.shape
+    if k % 2:
+        raise ValueError(f"int4 packing needs even K (got {k})")
+    if k % group:
+        raise ValueError(f"K ({k}) must be a multiple of group ({group})")
+    grouped = w.float().reshape(*lead, k // group, group, n)
+    scale = absmax_scale(grouped.abs().amax(dim=-2), 7.0)      # [..., K/g, N]
+    q = torch.round(grouped / scale[..., None, :]).clamp(-7, 7)
+    q = q.to(torch.int32).reshape(*lead, k, n)
+    packed = (q[..., :k // 2, :] & 15) | (q[..., k // 2:, :] << 4)
+    return Quant4Weight(packed.to(torch.int8), scale, n, group)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """int8 [..., K/2, N] (halves layout) -> int8 levels [..., K, N]."""
+    p = packed.to(torch.int32)
+    lo = ((p & 15) ^ 8) - 8
+    return torch.cat([lo, p >> 4], dim=-2).to(torch.int8)
+
+
+def dequantize_int4(qw: Quant4Weight) -> torch.Tensor:
+    """Reference dequantization -> f32 [..., K, N]."""
+    w8 = unpack_int4(qw.packed).float()
+    *lead, k, n = w8.shape
+    g = qw.group
+    return (w8.reshape(*lead, k // g, g, n)
+            * qw.scale[..., :, None, :]).reshape(*lead, k, n)
+
+
+def q4_matmul(x: torch.Tensor, qw: Quant4Weight) -> torch.Tensor:
+    """Reference grouped W4A8 product: per-row int8 activations, an exact
+    integer dot per K group rescaled by its group scale, f32 accumulation
+    across groups in order, then the row scale."""
+    *lead, k = x.shape
+    x8, sx = quantize_act_plain(x.reshape(-1, k))
+    w8 = unpack_int4(qw.packed)                                 # [K, N]
+    g = qw.group
+    acc = torch.zeros((x8.shape[0], qw.n), device=x.device)
+    for gi in range(k // g):
+        part = int_matmul_exact(x8[:, gi * g:(gi + 1) * g],
+                                w8[gi * g:(gi + 1) * g].t())
+        acc = acc + part.float() * qw.scale[gi][None, :]
+    return (acc * sx).to(x.dtype).reshape(*lead, qw.n)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels (csrc/w8a8_matmul.cu, csrc/w4a8_matmul.cu)
+# ---------------------------------------------------------------------------
+
+
+def _bind(lib: str, name: str):
     from . import cuda_build
 
-    fn = getattr(cuda_build.load("w8a8_matmul"), name)
+    fn = getattr(cuda_build.load(lib), name)
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         if name == "t5g_quantize_rows":
@@ -198,33 +417,42 @@ def _bind(name: str):
     return fn
 
 
-def _launch(x: torch.Tensor, w: QuantWeight, out_dtype: torch.dtype):
+def _launch(x: torch.Tensor, w: Weight, out_dtype: torch.dtype):
     dev = x.device
-    if x.ndim != 2 or w.values.ndim != 2:
-        raise ValueError("w8a8_matmul takes x [M, K] and a 2-D weight")
+    w4 = isinstance(w, Int4Weight)
+    wt = w.packed if w4 else w.values
+    if x.ndim != 2 or wt.ndim != 2:
+        raise ValueError("the quantized product takes x [M, K] and a 2-D "
+                         "weight")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x has dtype {x.dtype}, expected f32 or bf16")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype} is not f32 or bf16")
     m, k = x.shape
-    n = w.values.shape[0]
+    n = wt.shape[0]
     if k % 16:
-        raise ValueError(f"K={k} must be a multiple of 16 (16-byte rows)")
+        raise ValueError(f"K={k} must be a multiple of 16 (one 16-byte load "
+                         f"of activations, 16 weights a load)")
+    if w4 and k > 65536:
+        raise ValueError(f"K={k}: the W4A8 kernel's int32 sums of 16 q x "
+                         f"are exact up to K = 65536")
     x = x.contiguous()
     _check("x", x, dev, x.dtype, (m, k))
-    _check("w.values", w.values, dev, torch.int8, (n, k))
-    _check("w.scale", w.scale, dev, torch.float32, (n,))
-    if w.values.data_ptr() % 16:
-        raise ValueError("w.values must be 16-byte aligned")
+    _check("weight", wt, dev, torch.int8, (n, k // 2 if w4 else k))
+    _check("scale", w.scale, dev, torch.float32, (n,))
+    if wt.data_ptr() % 16:
+        raise ValueError("the weight must be 16-byte aligned")
     x8 = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((m,), dtype=torch.float32, device=dev)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    fn = _bind("t5g_w8a8_matmul")
+    fn = (_bind("w4a8_matmul", "t5g_w4a8_matmul") if w4
+          else _bind("w8a8_matmul", "t5g_w8a8_matmul"))
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
-                 w.values.data_ptr(), w.scale.data_ptr(), n, out.data_ptr(),
+                 wt.data_ptr(), w.scale.data_ptr(), n, out.data_ptr(),
                  int(out_dtype == torch.bfloat16), x8.data_ptr(),
                  sx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"w8a8_matmul kernel launch failed: CUDA error {err}")
+        name = "w4a8_matmul" if w4 else "w8a8_matmul"
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out

@@ -140,10 +140,20 @@ def test_quantize_params_through_bridge_equal_port(voice_params, tiled):
 
 
 def test_quantize_params_refuses_unported_modes():
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        tquant.quantize_params_for_decode({}, weight_bits=4)
+    """W8A16 (act_bits=16) is the one mode still refused, wherever it is
+    asked for; unknown bit widths are errors."""
+    w = torch.from_numpy(_weights(8, (64, 32)))
     with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
         tquant.quantize_params_for_decode({}, act_bits=16)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
+        tquant.quantize_params_for_decode({}, act_bits=16, weight_bits=4)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
+        tquant.quantize_weight(w, act_bits=16)
+    w16 = tquant.quantize_weight(w)._replace(act_bits=16)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
+        tquant.q_matmul(torch.ones((2, 64)), w16)
+    with pytest.raises(ValueError, match="weight_bits"):
+        tquant.quantize_params_for_decode({}, weight_bits=2)
 
 
 def test_layer_params_slices_quant_weights():
