@@ -9,15 +9,20 @@ Phases, in order; any failure exits non-zero before the result line:
    source, all started together);
 2. kernel: each kernel against its plain PyTorch version on the card at the
    2b-2b shapes, with its error, time, plain time, bound and library time:
-   the paged attention (bf16 and int8 pages, self and cross forms, a small
-   odd shape), the int8 decode layer (B = 4) and the int4 decode layer
-   (B = 1 and 4), each with bf16 and int8 pages; the W8A8 and W4A8
-   products are held here too, but at each quantized main path's own
-   shapes and weights, right after that path's run (4b, 4c);
+   the two-segment paged attention (bf16, int8 and e4m3 pages, self and
+   cross forms, a small odd shape), the one-segment paged kernel (bf16 and
+   e4m3 pages, 5 pseudo-rows over one cache row, an empty row, hd 16), the
+   int8 decode layer (B = 4), the int4 decode layer (B = 1 and 4) and the
+   decode layer at chain 5 (int8 and int4, 1 and 2 cache rows), each with
+   bf16 and int8 pages; the W8A8 and W4A8 products are held here too, but
+   at each quantized main path's own shapes and weights, right after that
+   path's run (4b, 4c, 4d);
 3. reference: a tiny f32 model decoded greedily on the card (kernels) and on
    the CPU (plain versions) must give the same tokens and waveforms, with
    bf16 weights and paged pages, with int8 weights and int8 pages, and with
-   int4 weights and int8 pages;
+   int4 weights and int8 pages; and the same tokens from the speculative
+   engine (k = 4) with int4 weights over bf16 pages (the decode layer's
+   chain) and with f32 weights over e4m3 pages (the one-segment kernel);
 4. main path, bf16: TTSPipeline at the full width of the 2b-2b preset
    (seeded random bf16 weights, the full-width XCodec2 decoder) synthesizes
    four requests with the paged cache; the attention kernel's launch count
@@ -47,7 +52,22 @@ Phases, in order; any failure exits non-zero before the result line:
    products of the prefill, M = 65; W8A8 at the head's w1 and cross K/V),
    the int4 profile (phase 5) and step timing (phase 6): one int4
    decode_stack call at the main path's cache shapes and the head's two
-   products (w1 W8A8, w2 W4A8).
+   products (w1 W8A8, w2 W4A8);
+4d. speculative, the JAX bench's probe: the int4 pipeline, the 4.0 s
+   request at batch 1, kv_cache auto (bf16 pages), greedy, k = 4: the
+   sequential engine, then the speculative engine drafted from its trace
+   (the trace agreement) and drafted from its own trace corrupted to 90 %
+   per-token acceptance (numpy seed 0), timed: steps, passes, tokens per
+   pass, ms per step and per pass, the verify pass's cost against a step
+   and the speedup. decode_stack must run once per pass (chain 5), the
+   attention kernel never, W4A8 at least once per pass; then every
+   quantized product of the run (the head now also at M = k + 1) and one
+   verify pass's decode_stack at its shapes against their plain versions;
+4e. bf16 weights over e4m3 pages, the same request: the sequential decode
+   (the two-segment kernel, e4m3: 2 x 26 launches per step), then the
+   speculative decode drafted as in 4d (the one-segment kernel: 3 x 26
+   launches per pass), with 4d's numbers, and both kernels at the run's
+   shapes against their plain versions.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -128,8 +148,9 @@ def graph_ms(fn, iters: int) -> float:
 
 
 def attention_case(rng, *, b, h, hkv, hd, quant, a_lens, b_lens, pp_a, pp_b,
-                   layers, li, include_current, device):
-    """Random inputs of one batch_paged_attention call (numpy-seeded)."""
+                   layers, li, include_current, device, f8=False):
+    """Random inputs of one batch_paged_attention call (numpy-seeded); int8
+    pages with ``quant``, float8 e4m3 pages with ``f8``, else bf16."""
     from t5gemma_tts_tpu_torch.ops.fused_attn import quantize_kv
     from t5gemma_tts_tpu_torch.ops.paged_attn import identity_page_indices
 
@@ -140,7 +161,7 @@ def attention_case(rng, *, b, h, hkv, hd, quant, a_lens, b_lens, pp_a, pp_b,
         x = t(rng.standard_normal((hkv, n, PAGE, hd)).astype(np.float32))
         if quant:
             return quantize_kv(x)
-        return x.to(torch.bfloat16), None
+        return x.to(torch.float8_e4m3fn if f8 else torch.bfloat16), None
 
     a_k, a_ks = pages(layers * b * pp_a)
     a_v, a_vs = pages(layers * b * pp_a)
@@ -208,20 +229,20 @@ def phase_kernel(card: str, iters: int) -> dict:
     dev = torch.device("cuda")
     big = dict(b=4, h=8, hkv=4, hd=256)
     cases = []
-    for quant in (False, True):
-        tag = "i8" if quant else "bf16"
+    for tag in ("bf16", "i8", "f8"):
+        quant, f8 = tag == "i8", tag == "f8"
         cases.append((f"self/{tag}", dict(
-            big, quant=quant, a_lens=[1, 128, 165, 256],
+            big, quant=quant, f8=f8, a_lens=[1, 128, 165, 256],
             b_lens=[0, 5, 129, 320], pp_a=2, pp_b=3, layers=2, li=1,
             include_current=True)))
         cases.append((f"cross/{tag}", dict(
-            big, quant=quant, a_lens=[12, 128, 133, 256], b_lens=None,
+            big, quant=quant, f8=f8, a_lens=[12, 128, 133, 256], b_lens=None,
             pp_a=2, pp_b=0, layers=2, li=1, include_current=False)))
         cases.append((f"self-hd16-g2/{tag}", dict(
-            b=3, h=4, hkv=2, hd=16, quant=quant, a_lens=[0, 100, 200],
+            b=3, h=4, hkv=2, hd=16, quant=quant, f8=f8, a_lens=[0, 100, 200],
             b_lens=[7, 0, 130], pp_a=2, pp_b=2, layers=1, li=0,
             include_current=True)))
-    worst = 0.0
+    worst = {}
     for name, spec in cases:
         args = attention_case(rng, device=dev, **spec)
         cur = spec["include_current"]
@@ -231,7 +252,8 @@ def phase_kernel(card: str, iters: int) -> dict:
             **args, attn_logits_soft_cap=50.0, include_current=cur)
         torch.cuda.synchronize()
         err = check_close(name, got, want)
-        worst = max(worst, err)
+        page = name.split("/")[1]
+        worst[page] = max(worst.get(page, 0.0), err)
         k_ms = cuda_ms(lambda: fa.batch_paged_attention(
             **args, attn_logits_soft_cap=50.0, include_current=cur), iters)
         p_ms = cuda_ms(lambda: fa.batch_paged_attention_plain(
@@ -241,13 +263,15 @@ def phase_kernel(card: str, iters: int) -> dict:
               f"(tol {TOL_ABS:g} abs + {TOL_REL:g} rel) kernel_ms={k_ms:.4f} "
               f"plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} library_ms=none "
               f"(no PyTorch call computes soft-capped paged GQA) [{card}]")
-    return {"max_abs_err": worst}
+    return worst
 
 
 def main_path_step_timing(card: str, prompt_len: int, gen_len: int,
-                          enc_lens, gen_slab: int, iters: int) -> dict:
+                          enc_lens, gen_slab: int, iters: int,
+                          f8: bool = False) -> dict:
     """One decode step's 52 launches (self + cross for each of 26 layers)
-    at the main path's cache shapes, kernel against plain version."""
+    at the main path's cache shapes (bf16 pages, or e4m3 with ``f8``),
+    kernel against plain version."""
     from t5gemma_tts_tpu_torch.ops import fused_attn as fa
 
     rng = np.random.default_rng(1)
@@ -255,7 +279,7 @@ def main_path_step_timing(card: str, prompt_len: int, gen_len: int,
     b = len(enc_lens)
     tx = -(-max(enc_lens) // PAGE) * PAGE
     common = dict(b=b, h=8, hkv=4, hd=256, quant=False, layers=MODEL_LAYERS,
-                  li=0)
+                  li=0, f8=f8)
     self_args = attention_case(
         rng, device=dev, a_lens=[prompt_len] * b, b_lens=[gen_len] * b,
         pp_a=1, pp_b=gen_slab // PAGE, include_current=True, **common)
@@ -294,7 +318,8 @@ def main_path_step_timing(card: str, prompt_len: int, gen_len: int,
     cb, cf = attention_bytes_ops(cross_args, False)
     b_ms, by = bound_ms((sb + cb) / 2, (sf + cf) / 2)
     print(f"[kernel] main-path step (B={b}, prompt {prompt_len}, gen "
-          f"{gen_len}, enc {list(enc_lens)}; mean of {n} launches): "
+          f"{gen_len}, enc {list(enc_lens)}, {'e4m3' if f8 else 'bf16'} "
+          f"pages; mean of {n} launches): "
           f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} "
           f"({by}) max_abs_err={worst:.3e} [{card}]")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
@@ -357,16 +382,18 @@ def int_mm_call(x, w):
 def run_products(run: dict) -> list:
     """The quantized products a main-path run sent to the product kernels,
     as (name, M, weight), on the run's own weights (layer 0 of a stack):
-    the head's w1 and w2 at M = B (every decode step), the decoder's six
-    layer products in the prefill at M = B x (prompt width + 1), and cross
-    K/V at M = B x text width; M comes from the run's plan."""
+    the head's w1 and w2 at M = B (every decode step; a speculative run
+    also at M = B x (k + 1), its ``head_rows``), the decoder's six layer
+    products in the prefill at M = B x (prompt width + 1), and cross K/V at
+    M = B x text width; M comes from the run's plan."""
     from t5gemma_tts_tpu_torch.models.t5gemma import layer_params
 
     params = run["pipe"].params
     lay = layer_params(params["decoder"]["layers"], 0)
-    b, rows = run["batch"], run["prefill_rows"]
-    out = [("head w1", b, params["head"]["w1"]),
-           ("head w2", b, params["head"]["w2"])]
+    rows = run["prefill_rows"]
+    out = [(f"head {nm}", b, params["head"][nm])
+           for b in run.get("head_rows", [run["batch"]])
+           for nm in ("w1", "w2")]
     for blk, names in (("self_attn", ("qkv", "o")), ("cross_attn", ("q", "o")),
                        ("mlp", ("gate_up", "down"))):
         out += [(f"prefill {blk}.{nm}", rows, lay[blk][nm]) for nm in names]
@@ -439,9 +466,10 @@ def rel_fro(got, want) -> float:
 
 
 def decode_layer_inputs(dims, b, quant, prompt, gen_lens, enc_lens, gen_slab,
-                        device, seed, layers=None):
+                        device, seed, layers=None, chain=1):
     """Seeded slabs, lengths, rope tables and hidden rows of one decode-layer
-    call (``layers``: the stack depth the slabs hold)."""
+    call (``layers``: the stack depth the slabs hold; ``chain``: b rows are
+    b / chain cache rows of the slabs, chain pseudo-rows each)."""
     from t5gemma_tts_tpu_torch.ops import rope
     from t5gemma_tts_tpu_torch.ops.fused_attn import quantize_kv
 
@@ -451,7 +479,7 @@ def decode_layer_inputs(dims, b, quant, prompt, gen_lens, enc_lens, gen_slab,
     tx = -(-max(enc_lens) // PAGE) * PAGE
 
     def slab(t):
-        x = torch.randn((hkv, n_layers * b, t, hd), generator=g,
+        x = torch.randn((hkv, n_layers * (b // chain), t, hd), generator=g,
                         device=device) * 0.5
         return quantize_kv(x) if quant else (x.to(torch.bfloat16), None)
 
@@ -505,10 +533,11 @@ def random_quant_layers(dims, n_layers, device, seed, int4=False):
     return layers
 
 
-def decode_layer_bytes(dims, args, w_bytes=1.0) -> int:
+def decode_layer_bytes(dims, args, w_bytes=1.0, chain=1) -> int:
     """Bytes one layer must move: its weights (``w_bytes`` a level, 0.5 for
     int4) and f32 scales and norms, the valid K/V (and scales) of this
-    call's lengths, h in and out, the rope tables and the new k/v."""
+    call's lengths (once per cache row: the ``chain`` pseudo-rows of a row
+    share its pages), h in and out, the rope tables and the new k/v."""
     d, f = dims.hidden_size, dims.intermediate_size
     ho = dims.num_heads * dims.head_dim
     nkv = dims.num_kv_heads * dims.head_dim
@@ -517,8 +546,8 @@ def decode_layer_bytes(dims, args, w_bytes=1.0) -> int:
     b = args["h"].shape[0]
     elem = args["prompt_k"].element_size()
     quant = args["kv_scales"] is not None
-    tokens = int(args["plens"].sum() + args["glens"].sum()
-                 + args["elens"].clamp_min(1).sum())
+    tokens = int(args["plens"][::chain].sum() + args["glens"][::chain].sum()
+                 + args["elens"][::chain].clamp_min(1).sum())
     per_token = 2 * nkv * elem + (2 * dims.num_kv_heads * 4 if quant else 0)
     return (weights + tokens * per_token + 2 * b * d * 4
             + 4 * b * dims.head_dim * 4 + 2 * b * nkv * 4 + 3 * b * 4)
@@ -685,6 +714,261 @@ def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the speculative slice's kernels
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4                     # drafted tokens per verify pass (k)
+
+
+def parts_case(rng, *, rows, s_len, h, hkv, hd, lens, pp, dtype, layers, li,
+               device):
+    """Random inputs of one paged_flash_parts call: ``rows`` cache rows,
+    each repeated over ``s_len`` pseudo-rows as in a verify pass."""
+    from t5gemma_tts_tpu_torch.ops.paged_attn import identity_page_indices
+
+    def t(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(device)
+
+    idx = identity_page_indices(rows, pp, device) + li * rows * pp
+    return dict(
+        q=t((rows * s_len, h, hd)),
+        k_pages=t((hkv, layers * rows * pp, PAGE, hd)).to(dtype),
+        v_pages=t((hkv, layers * rows * pp, PAGE, hd)).to(dtype),
+        lengths=torch.tensor(lens, dtype=torch.int32,
+                             device=device).repeat_interleave(s_len),
+        page_indices=idx.repeat_interleave(s_len, dim=0))
+
+
+def parts_bytes_ops(args, s_len) -> tuple:
+    """Bytes a paged_flash_parts call must move (the valid K/V of each
+    cache row once, its page ids and lengths, q in, out/m/l out) and its
+    floating-point operations (every pseudo-row's dots)."""
+    b, h, hd = args["q"].shape
+    hkv = args["k_pages"].shape[0]
+    elem = args["k_pages"].element_size()
+    lens = args["lengths"][::s_len]
+    tokens = int(lens.sum())
+    pages = int(((lens + PAGE - 1) // PAGE).sum())
+    nbytes = (tokens * 2 * hkv * hd * elem + pages * 4 + b * 4
+              + 2 * b * h * hd * 4 + 2 * b * h * 4)
+    return nbytes, 4 * h * hd * tokens * s_len
+
+
+def check_parts(name, got, want) -> float:
+    """(out, m, l) against the plain version: the same rows empty (m = -inf
+    exactly, l = 0), the rest within TOL_ABS + TOL_REL."""
+    worst = 0.0
+    for g, w, part in zip(got, want, ("out", "m", "l")):
+        if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
+            raise AssertionError(f"{name} {part}: empty rows differ")
+        live = torch.isfinite(w)
+        worst = max(worst, check_close(f"{name} {part}", g[live], w[live]))
+    empty = ~torch.isfinite(want[1])
+    if not (bool((got[2][empty] == 0).all())
+            and bool((got[0][empty.any(-1)] == 0).all())):
+        raise AssertionError(f"{name}: an empty row is not (0, -inf, 0)")
+    return worst
+
+
+def phase_paged_parts(card: str, iters: int) -> float:
+    """The one-segment paged kernel against its plain version at the 2b-2b
+    head shapes (8 query heads, 4 kv heads, hd 256), bf16 and e4m3 pages:
+    5 pseudo-rows over 1 cache row (a verify pass at k = 4), 2 cache rows
+    of which one is empty, and a small odd shape (hd 16, G 2)."""
+    from t5gemma_tts_tpu_torch.ops import paged_attn as pa
+
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    big = dict(h=8, hkv=4, hd=256, pp=3, layers=2, li=1)
+    worst = 0.0
+    for dtype, tag in ((torch.bfloat16, "bf16"),
+                       (torch.float8_e4m3fn, "e4m3")):
+        for name, spec in (
+                (f"chain5/{tag}", dict(big, rows=1, s_len=5, lens=[300])),
+                (f"chain5-empty/{tag}", dict(big, rows=2, s_len=5,
+                                             lens=[0, 129])),
+                (f"hd16-g2/{tag}", dict(rows=3, s_len=1, h=4, hkv=2, hd=16,
+                                        pp=2, layers=1, li=0,
+                                        lens=[0, 100, 200]))):
+            args = parts_case(rng, dtype=dtype, device=dev, **spec)
+            got = pa.paged_flash_parts(**args, attn_logits_soft_cap=50.0)
+            want = pa.paged_flash_parts_plain(**args,
+                                              attn_logits_soft_cap=50.0)
+            torch.cuda.synchronize()
+            err = check_parts(name, got, want)
+            worst = max(worst, err)
+            k_ms = cuda_ms(lambda: pa.paged_flash_parts(
+                **args, attn_logits_soft_cap=50.0), iters)
+            p_ms = cuda_ms(lambda: pa.paged_flash_parts_plain(
+                **args, attn_logits_soft_cap=50.0), iters)
+            b_ms, by = bound_ms(*parts_bytes_ops(args, spec["s_len"]))
+            print(f"[kernel] paged_flash_parts {name}: max_abs_err={err:.3e} "
+                  f"(tol {TOL_ABS:g} abs + {TOL_REL:g} rel; empty rows exact)"
+                  f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                  f"bound_ms={b_ms:.5f} ({by}) library_ms=none (no PyTorch "
+                  f"call computes soft-capped paged GQA with its flash "
+                  f"statistics) [{card}]")
+    return worst
+
+
+def parts_step_timing(card: str, prompt_len: int, gen_len: int, enc_len: int,
+                      gen_slab: int, iters: int, s_len: int = SPEC_K + 1
+                      ) -> dict:
+    """One verify pass's 78 one-segment launches (prompt, generation and
+    cross for each of 26 layers) at a batch-1 main path's shapes, e4m3
+    pages, s_len pseudo-rows, kernel against plain version."""
+    from t5gemma_tts_tpu_torch.ops import paged_attn as pa
+
+    rng = np.random.default_rng(6)
+    dev = torch.device("cuda")
+    tx = -(-enc_len // PAGE) * PAGE
+    common = dict(rows=1, s_len=s_len, h=8, hkv=4, hd=256,
+                  dtype=torch.float8_e4m3fn, layers=MODEL_LAYERS, li=0,
+                  device=dev)
+    segs = [parts_case(rng, lens=[n], pp=t // PAGE, **common)
+            for n, t in ((prompt_len, PAGE), (gen_len, gen_slab),
+                         (enc_len, tx))]
+    calls = []
+    for li in range(MODEL_LAYERS):
+        for a in segs:
+            pp = a["page_indices"].shape[1]
+            calls.append(dict(a, page_indices=a["page_indices"] + li * pp))
+    worst = max(check_parts("verify-pass shapes", pa.paged_flash_parts(
+        **a, attn_logits_soft_cap=50.0), pa.paged_flash_parts_plain(
+        **a, attn_logits_soft_cap=50.0)) for a in calls[:3])
+
+    def run(fn):
+        return lambda: [fn(**a, attn_logits_soft_cap=50.0) for a in calls]
+
+    n = len(calls)
+    out = {"ms": graph_ms(run(pa.paged_flash_parts), iters) / n,
+           "eager_ms": cuda_ms(run(pa.paged_flash_parts), iters) / n,
+           "plain_ms": cuda_ms(run(pa.paged_flash_parts_plain), iters) / n,
+           "max_abs_err": worst, "library_ms": None}
+    costs = [parts_bytes_ops(a, s_len) for a in segs]
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        sum(c[0] for c in costs) / 3, sum(c[1] for c in costs) / 3)
+    print(f"[kernel] paged_flash_parts verify-pass shapes (1 row x {s_len} "
+          f"pseudo-rows, prompt {prompt_len}, gen {gen_len}, enc {enc_len}, "
+          f"e4m3 pages; mean of {n} launches): kernel_ms={out['ms']:.4f} "
+          f"(graph; eager {out['eager_ms']:.4f}) "
+          f"plain_ms={out['plain_ms']:.4f} bound_ms={out['bound_ms']:.5f} "
+          f"({out['bound_by']}) max_abs_err={worst:.3e} [{card}]")
+    return out
+
+
+def chain_layer_inputs(dims, rows, s_len, quant, device, seed, layers=None,
+                       gen=(129, 5), enc=(44, 9), gen_slab=384):
+    """Inputs of one decode-layer call at chain ``s_len`` over ``rows``
+    cache rows (prompt 37; generated and encoder lengths by cache row)."""
+    n = rows * s_len
+    return decode_layer_inputs(
+        dims, n, quant, prompt=37,
+        gen_lens=np.repeat(np.asarray(gen[:rows]), s_len).tolist(),
+        enc_lens=np.repeat(np.asarray(enc[:rows]), s_len).tolist(),
+        gen_slab=gen_slab, device=device, seed=seed, layers=layers,
+        chain=s_len)
+
+
+def phase_chain_layer(card: str, cfg, iters: int) -> dict:
+    """The decode layer at chain 5 (a verify pass at k = 4) against its
+    plain version at 2b-2b width, layer 1 of two: int8 and int4 weights,
+    bf16 and int8 pages, 1 and 2 cache rows. Returns the largest error by
+    weight format."""
+    import dataclasses
+
+    from t5gemma_tts_tpu_torch.ops import megakernel as mk
+
+    dev = torch.device("cuda")
+    s_len = SPEC_K + 1
+    dims = dataclasses.replace(cfg.backbone.decoder, num_layers=2,
+                               layer_types=())
+    worst = {}
+    for int4 in (False, True):
+        weights = "int4" if int4 else "int8"
+        layers = random_quant_layers(dims, 2, dev, seed=8 + int4, int4=int4)
+        for rows in (1, 2):
+            for quant in (False, True):
+                tag = "i8" if quant else "bf16"
+                args = chain_layer_inputs(dims, rows, s_len, quant, dev,
+                                          seed=9 + quant + 2 * rows)
+                got = mk.decode_layer(layers, dims, li=1, chain=s_len, **args)
+                want = mk.decode_layer_plain(layers, dims, li=1, chain=s_len,
+                                             **args)
+                torch.cuda.synchronize()
+                errs = [rel_fro(g, w) for g, w in zip(got, want)]
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                if (errs[0] > REL_FRO_TOL_H or errs[1] > REL_FRO_TOL_KV
+                        or errs[2] > REL_FRO_TOL_KV):
+                    raise AssertionError(
+                        f"{weights} chain-{s_len} layer, {rows} rows, {tag}: "
+                        f"relative error {errs} (h, k, v)")
+                worst[weights] = max(worst.get(weights, 0.0), err)
+                k_ms = graph_ms(lambda: mk.decode_layer(
+                    layers, dims, li=1, chain=s_len, **args), iters)
+                p_ms = cuda_ms(lambda: mk.decode_layer_plain(
+                    layers, dims, li=1, chain=s_len, **args),
+                    max(iters // 4, 2))
+                b_ms, by = bound_ms(decode_layer_bytes(
+                    dims, args, 0.5 if int4 else 1.0, chain=s_len), 0)
+                print(f"[kernel] decode_layer {weights} chain {s_len} 2b-2b "
+                      f"{rows} cache row(s) = {rows * s_len} pseudo-rows, "
+                      f"{tag} pages: relative error h/k/v {errs[0]:.2e}/"
+                      f"{errs[1]:.2e}/{errs[2]:.2e} (tol {REL_FRO_TOL_H:g}/"
+                      f"{REL_FRO_TOL_KV:g}/{REL_FRO_TOL_KV:g}), max_abs_err="
+                      f"{err:.3e}; kernel_ms={k_ms:.4f} (graph) plain_ms="
+                      f"{p_ms:.4f} bound_ms={b_ms:.5f} ({by}) library_ms=none"
+                      f" (no PyTorch call computes a layer) [{card}]")
+    return worst
+
+
+def chain_step_timing(pipe, card: str, steps: int, enc_len: int,
+                      gen_slab: int, iters: int) -> dict:
+    """One verify pass's decode_stack call (26 layers, chain k + 1 over one
+    cache row, bf16 pages) at a batch-1 main path's shapes, on its own
+    weights, against the plain version."""
+    from t5gemma_tts_tpu_torch.ops import megakernel as mk
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    cfg, dev = pipe.cfg, pipe.device
+    dims = cfg.backbone.decoder
+    layers = pipe.params["decoder"]["layers"]
+    int4 = isinstance(layers["mlp"]["down"], quant.Int4Weight)
+    s_len = SPEC_K + 1
+    args = chain_layer_inputs(dims, 1, s_len, False, dev, seed=10,
+                              gen=(steps // 2,), enc=(enc_len,),
+                              gen_slab=gen_slab)
+    args["plens"].fill_(1)
+    got = mk.decode_stack(layers, dims, chain=s_len, **args)
+    want = mk.decode_stack_plain(layers, dims, chain=s_len, **args)
+    torch.cuda.synchronize()
+    errs = [rel_fro(g, w) for g, w in zip(got, want)]
+    if max(errs) > REL_FRO_TOL_STACK:
+        raise AssertionError(f"chain decode_stack at main-path shapes: "
+                             f"relative error {errs}")
+    out = {"max_abs_err": max(float((g - w).abs().max())
+                              for g, w in zip(got, want)),
+           "ms": graph_ms(lambda: mk.decode_stack(layers, dims, chain=s_len,
+                                                  **args), iters),
+           "plain_ms": cuda_ms(lambda: mk.decode_stack_plain(
+               layers, dims, chain=s_len, **args), 2),
+           "library_ms": None}
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        dims.num_layers * decode_layer_bytes(dims, args, 0.5 if int4 else 1.0,
+                                             chain=s_len), 0)
+    print(f"[kernel] decode_stack {'int4' if int4 else 'int8'} chain {s_len}"
+          f" verify pass at main-path shapes (1 row x {s_len}, prompt 1, gen "
+          f"{steps // 2}, enc {enc_len}, bf16 pages, 26 layers): relative "
+          f"error h/k/v {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol "
+          f"{REL_FRO_TOL_STACK:g}), kernel_ms={out['ms']:.4f} (graph) "
+          f"plain_ms={out['plain_ms']:.4f} bound_ms={out['bound_ms']:.5f} "
+          f"({out['bound_by']}) [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: the port's main path
 # ---------------------------------------------------------------------------
 
@@ -753,6 +1037,240 @@ def phase_reference(devices=("cpu", "cuda"), weights="f32",
           f"wav max abs diff {worst:.3e} (tol 1e-4)")
 
 
+def planned_inputs(pipe, reqs):
+    """The decode inputs TTSPipeline.synthesize_planned makes for
+    ``reqs`` (int32 tensors on the pipeline's device) and the frame bucket
+    it decodes them in."""
+    planned = [pipe.plan_request(r) for r in reqs]
+    tx, p_max, max_frames = pipe.widths(planned)
+    b = len(planned)
+    x = np.zeros((b, tx), np.int32)
+    x_lens = np.zeros((b,), np.int32)
+    prm = np.full((b, p_max), pipe.cfg.special.pad, np.int32)
+    prm_lens = np.zeros((b,), np.int32)
+    for i, p in enumerate(planned):
+        t, pr = p.text[:tx], p.prompt[:p_max]
+        x[i, :len(t)], x_lens[i] = t, len(t)
+        prm[i, :len(pr)], prm_lens[i] = pr, len(pr)
+    targets = np.asarray([p.target for p in planned], np.int32)
+    return (tuple(torch.from_numpy(a).to(pipe.device)
+                  for a in (x, x_lens, prm, prm_lens, targets)), max_frames)
+
+
+def phase_spec_reference(weights: str, kv_cache: str) -> None:
+    """Tiny f32 model: greedy speculative decode (k = 4, drafted from the
+    CPU's sequential trace) on the card == on the CPU, and == the
+    sequential trace."""
+    import dataclasses
+
+    from t5gemma_tts_tpu_torch.codec.model import tiny_codec_config
+    from t5gemma_tts_tpu_torch.config import (
+        DecodeConfig, backbone_preset, tiny_voice_config)
+    from t5gemma_tts_tpu_torch.decode import engine, speculative
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request
+
+    bb = backbone_preset("test")
+    dims = dataclasses.replace(bb.decoder, sliding_window=512)
+    cfg = tiny_voice_config(backbone=dataclasses.replace(
+        bb, encoder=dims, decoder=dims), extra_cutoff=0.5)
+    reqs = [Request(target_text=t, target_duration=d, lang="en")
+            for t, d in (("hello world", 0.4), ("a test of the port", 0.6))]
+    out, trace = {}, None
+    for device in ("cpu", "cuda"):
+        pipe = build_pipeline(cfg, tiny_codec_config(), device, seed=0,
+                              init_device="cpu", int8=weights == "int8",
+                              int4=weights == "int4")
+        inputs, max_frames = planned_inputs(pipe, reqs)
+        dcfg = DecodeConfig(top_k=1, kv_cache=kv_cache, max_frames=max_frames)
+        if trace is None:
+            trace = engine.decode_tokens(pipe.params, cfg, dcfg, *inputs, 0)
+        out[device] = speculative.decode_tokens_speculative(
+            pipe.params, cfg, dcfg, *inputs, 0,
+            speculative.trace_draft_fn(trace.tokens.to(pipe.device), SPEC_K),
+            SPEC_K)
+    cpu, gpu = out["cpu"], out["cuda"]
+    if not (torch.equal(cpu.tokens, gpu.tokens.cpu())
+            and torch.equal(cpu.gen_lens, gpu.gen_lens.cpu())):
+        raise AssertionError(f"speculative greedy tokens differ: cpu "
+                             f"{cpu.tokens} cuda {gpu.tokens}")
+    agree = float((cpu.tokens == trace.tokens).float().mean())
+    print(f"[reference] tiny {weights}-weight greedy speculative {kv_cache} "
+          f"decode (k={SPEC_K}): tokens equal on card and CPU "
+          f"({gpu.gen_lens.tolist()} frames, {gpu.steps} steps in "
+          f"{gpu.passes} passes), agreement with the sequential trace "
+          f"{agree:.4f}")
+
+
+def _counters():
+    from t5gemma_tts_tpu_torch.ops import fused_attn as fa
+    from t5gemma_tts_tpu_torch.ops import megakernel as mk
+    from t5gemma_tts_tpu_torch.ops import paged_attn as pa
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    return {"batch_paged_attention": fa.batch_paged_attention,
+            "paged_flash_parts": pa.paged_flash_parts,
+            "decode_stack": mk.decode_stack,
+            "decode_layer": mk.decode_layer,
+            "w8a8_matmul": quant.w8a8_matmul,
+            "w4a8_matmul": quant.w4a8_matmul}
+
+
+def _counted(fn):
+    """(result, wall s, launches by kernel) of ``fn()``, counts set to 0
+    just before and read just after."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return out, wall, {k: c.launches for k, c in counters.items()}
+
+
+def _recorded(fn, store):
+    """``fn()`` with the logits of every sampled step kept in ``store``
+    (step -> [B, V] f32 on the device; a step sampled twice keeps its last
+    logits, those of the emitted token)."""
+    from t5gemma_tts_tpu_torch.decode import engine
+
+    sample = engine._candidate_sample
+
+    def recording(cfg, dcfg, logits, step, *a, **k):
+        store[int(step)] = logits.float().clone()
+        return sample(cfg, dcfg, logits, step, *a, **k)
+
+    engine._candidate_sample = recording
+    try:
+        return fn()
+    finally:
+        engine._candidate_sample = sample
+
+
+def parting(seq_tokens, spec_tokens, seq_logits, spec_logits) -> tuple:
+    """Where the speculative stream first parts from the sequential one
+    (row 0), and whether it parts at a near-tie: the two engines' logits
+    before it (largest relative difference, returned with the report), and
+    at it the sequential engine's margin between its token and the
+    speculative engine's token against how far the two engines' logits lie
+    apart there."""
+    differ = (seq_tokens[0] != spec_tokens[0]).nonzero()
+    if not len(differ):
+        return "never parts", 0.0
+    t = int(differ[0])
+
+    def rel(s):
+        return float((spec_logits[s] - seq_logits[s]).norm()
+                     / seq_logits[s].norm())
+
+    before = max((rel(s) for s in range(t)), default=0.0)
+    a, b = int(seq_tokens[0, t]), int(spec_tokens[0, t])
+    ls, lp = seq_logits[t][0], spec_logits[t][0]
+    return (f"parts at step {t}: logits apart by at most {before:.2e} "
+            f"(relative) before it, {rel(t):.2e} at it; there the sequential "
+            f"engine puts its token {a} {float(ls[a] - ls[b]):.3e} above the "
+            f"speculative engine's {b}, which puts its token "
+            f"{float(lp[b] - lp[a]):.3e} above; the largest logit gap "
+            f"between the engines there is "
+            f"{float((lp - ls).abs().max()):.3e}"), before
+
+
+def phase_speculative(card: str, pipe, tag: str, kv_cache: str, seed: int,
+                      accept: float = 0.9) -> dict:
+    """The JAX bench's speculative probe on the port: the 4.0 s request at
+    batch 1, greedy, k = 4. The sequential engine first; then the
+    speculative engine drafted from the sequential trace (its own trace
+    and the agreement), then drafted from its own trace corrupted to
+    ``accept`` per-token acceptance (numpy seed 0), timed."""
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+    from t5gemma_tts_tpu_torch.decode import engine, speculative
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request
+
+    cfg = pipe.cfg
+    layers = cfg.backbone.decoder.num_layers
+    reqs = [Request(target_text=TEXTS[-1], target_duration=DURATIONS[-1],
+                    lang="en")]
+    inputs, max_frames = planned_inputs(pipe, reqs)
+    dcfg = DecodeConfig(kv_cache=kv_cache, top_k=1, top_p=1.0,
+                        temperature=1.0, max_frames=max_frames, seed=seed)
+
+    # the sequential run keeps each step's logits (one device copy of the
+    # [1, V] row per step) to show where the streams part
+    seq_logits, boot_logits = {}, {}
+    seq, seq_s, seq_n = _counted(lambda: _recorded(
+        lambda: engine.decode_tokens(pipe.params, cfg, dcfg, *inputs, seed),
+        seq_logits))
+
+    def spec(trace):
+        draft = speculative.trace_draft_fn(trace, SPEC_K)
+        return speculative.decode_tokens_speculative(
+            pipe.params, cfg, dcfg, *inputs, seed, draft, SPEC_K)
+
+    boot = _recorded(lambda: spec(seq.tokens), boot_logits)
+    agree = float((boot.tokens == seq.tokens).float().mean())
+    parted, apart = parting(seq.tokens, boot.tokens, seq_logits, boot_logits)
+    del seq_logits, boot_logits
+    # until they part, both engines compute the same logits but for sums in
+    # another order, whose rounding flips cascade through 26 layers
+    if apart > REL_FRO_TOL_STACK:
+        raise AssertionError(f"{tag}: the speculative logits are {apart:.2e} "
+                             f"from the sequential ones before the streams "
+                             f"part (tol {REL_FRO_TOL_STACK:g})")
+    own = boot.tokens.cpu().numpy()
+    corrupt = np.random.default_rng(0).random(own.shape) > accept
+    bad = (own + 1) % cfg.audio_vocab_size
+    drafted = torch.from_numpy(np.where(corrupt, bad, own)).to(pipe.device)
+    out, spec_s, spec_n = _counted(lambda: spec(drafted))
+    # the verify pass sums a token's logits in another order at another
+    # chain position, so a near-tie may resolve otherwise with another draft
+    draft_agree = float((out.tokens == boot.tokens).float().mean())
+
+    steps, passes = out.steps, out.passes
+    if kv_cache == "paged_f8":
+        ok = (seq_n["batch_paged_attention"] == 2 * layers * seq.steps
+              and spec_n["paged_flash_parts"] == 3 * layers * passes
+              and spec_n["batch_paged_attention"] == 0
+              and spec_n["decode_stack"] == 0)
+    else:
+        ok = (seq_n["decode_stack"] == seq.steps
+              and spec_n["decode_stack"] == passes
+              and spec_n["batch_paged_attention"] == 0
+              and spec_n["paged_flash_parts"] == 0
+              and spec_n["w4a8_matmul"] >= passes)
+    if not ok:
+        raise AssertionError(f"{tag}: launches sequential {seq_n} over "
+                             f"{seq.steps} steps, speculative {spec_n} over "
+                             f"{passes} passes")
+    if not steps / passes > 1:
+        raise AssertionError(f"{tag}: {steps / passes} tokens per pass")
+    step_ms = 1e3 * seq_s / seq.steps
+    pass_ms = 1e3 * spec_s / passes
+    ideal = sum(accept ** i for i in range(SPEC_K + 1))
+    print(f"[spec/{tag}] 2b-2b batch 1, {kv_cache} cache, greedy, k={SPEC_K}"
+          f": sequential {seq.steps} steps in {seq_s:.3f}s ({step_ms:.2f} ms "
+          f"per step); speculative {steps} steps in {passes} passes = "
+          f"{steps / passes:.3f} tokens per pass at {accept:g} draft "
+          f"acceptance, {spec_s:.3f}s ({pass_ms:.2f} ms per pass); "
+          f"verify_pass_cost_vs_step {pass_ms / step_ms:.3f}, speedup "
+          f"{seq_s / spec_s:.3f}x (at the formula's {ideal:.3f} tokens per "
+          f"pass for {accept:g} acceptance it would be "
+          f"{ideal * step_ms / pass_ms:.3f}x); trace agreement with "
+          f"sequential {agree:.4f}, with the bootstrap run "
+          f"{draft_agree:.4f}; launches sequential {seq_n}, speculative "
+          f"{spec_n} [{card}]")
+    print(f"[spec/{tag}] the speculative stream (drafted from the sequential "
+          f"trace) {parted} [{card}]")
+    planned = [pipe.plan_request(r) for r in reqs]
+    tx, p_max, _ = pipe.widths(planned)
+    return {"pipe": pipe, "tag": tag, "batch": 1,
+            "head_rows": [1, SPEC_K + 1], "steps": steps, "passes": passes,
+            "seq_steps": seq.steps, "launches": spec_n, "seq_launches": seq_n,
+            "enc_lens": [len(p.text) for p in planned],
+            "gen_slab": -(-(max_frames + SPEC_K) // PAGE) * PAGE,
+            "prefill_rows": p_max + 1, "cross_rows": tx}
+
+
 TEXTS = ("Hello world, this is a test of the port.",
          "The quick brown fox jumps over the lazy dog.",
          "Speech synthesis on one card.",
@@ -770,9 +1288,6 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
     from t5gemma_tts_tpu_torch.codec.model import XCodec2Config
     from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
     from t5gemma_tts_tpu_torch.inference.pipeline import Request
-    from t5gemma_tts_tpu_torch.ops import fused_attn as fa
-    from t5gemma_tts_tpu_torch.ops import megakernel as mk
-    from t5gemma_tts_tpu_torch.ops import quant
 
     cfg = VoiceConfig()                      # 2b-2b preset, bf16
     ccfg = XCodec2Config()                   # full-width decoder
@@ -791,19 +1306,9 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
             for t, d in zip(TEXTS, DURATIONS)][-batch:]
     dcfg = DecodeConfig(kv_cache=kv_cache, seed=seed)
 
-    counters = {"batch_paged_attention": fa.batch_paged_attention,
-                "decode_stack": mk.decode_stack,
-                "decode_layer": mk.decode_layer,
-                "w8a8_matmul": quant.w8a8_matmul,
-                "w4a8_matmul": quant.w4a8_matmul}
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.time()
-    results = pipe.synthesize_batch(reqs, dcfg, seed=seed)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    results, wall, launches = _counted(
+        lambda: pipe.synthesize_batch(reqs, dcfg, seed=seed))
 
     steps = results[0].steps
     layers = cfg.backbone.decoder.num_layers
@@ -811,10 +1316,10 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
     if weights == "bf16":
         ok = (n["batch_paged_attention"] == 2 * layers * steps
               and n["decode_stack"] == n["w8a8_matmul"] == 0
-              and n["w4a8_matmul"] == 0)
+              and n["w4a8_matmul"] == n["paged_flash_parts"] == 0)
     else:
         ok = (n["decode_stack"] == steps and n["batch_paged_attention"] == 0
-              and n["decode_layer"] == 0)
+              and n["decode_layer"] == n["paged_flash_parts"] == 0)
         if weights == "int8":        # the head's w1 and w2
             ok = ok and n["w8a8_matmul"] >= 2 * steps and n["w4a8_matmul"] == 0
         else:                        # the head's w1 (int8) and w2 (int4)
@@ -871,9 +1376,8 @@ def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
     dcfg = DecodeConfig(kv_cache=kv_cache, max_frames=steps)
 
     def run():
-        gen = torch.Generator(device=dev).manual_seed(0)
         out = engine.decode_tokens(pipe.params, cfg, dcfg, x, x_lens, prompt,
-                                   prompt_lens, targets, gen)
+                                   prompt_lens, targets, 0)
         torch.cuda.synchronize()
         return out
 
@@ -950,12 +1454,16 @@ def main(argv=None) -> int:
                 print(f"[device] {name}: {line.strip()}")
 
     cfg = VoiceConfig()
-    worst_attn = phase_kernel(card, args.iters)["max_abs_err"]
+    worst_attn = phase_kernel(card, args.iters)
+    worst_parts = phase_paged_parts(card, args.iters)
     worst_layer = phase_decode_layer(card, cfg, args.iters)
     worst_layer4 = phase_decode_layer(card, cfg, args.iters, int4=True)
+    worst_chain = phase_chain_layer(card, cfg, args.iters)
     phase_reference()
     phase_reference(weights="int8", kv_cache="paged_i8")
     phase_reference(weights="int4", kv_cache="paged_i8")
+    phase_spec_reference("int4", "paged")
+    phase_spec_reference("f32", "paged_f8")
     step_iters = max(args.iters // 4, 2)
 
     main = phase_main_path(card, args.seed)
@@ -964,8 +1472,7 @@ def main(argv=None) -> int:
         card, prompt_len=1, gen_len=main["steps"] // 2,
         enc_lens=main["enc_lens"], gen_slab=main["gen_slab"],
         iters=step_iters)
-    del main["pipe"]
-    torch.cuda.empty_cache()
+    pipe16 = main.pop("pipe")          # phase 4e runs it over float8 pages
 
     main8 = phase_main_path(card, args.seed, "int8")
     worst8 = phase_products(card, main8, args.iters)
@@ -1007,6 +1514,32 @@ def main(argv=None) -> int:
                                 main4["enc_lens"], main4["gen_slab"],
                                 iters=step_iters)
 
+    # 4d: speculative int4 at batch 1 (the JAX bench's probe), then every
+    # quantized product of that run and one verify pass's decode_stack
+    spec4 = phase_speculative(card, pipe4, "int4 b1", "auto", args.seed)
+    worst_spec4 = phase_products(card, spec4, args.iters)
+    chain_timing = chain_step_timing(pipe4, card, spec4["steps"],
+                                     spec4["enc_lens"][0], spec4["gen_slab"],
+                                     iters=step_iters)
+    spec4.pop("pipe")
+    del pipe4
+    torch.cuda.empty_cache()
+
+    # 4e: bf16 weights over float8 pages at batch 1: sequential (kernel 1,
+    # e4m3) and speculative (the one-segment kernel)
+    spec8 = phase_speculative(card, pipe16, "bf16 b1", "paged_f8", args.seed)
+    spec8.pop("pipe")
+    timing_f8 = main_path_step_timing(
+        card, prompt_len=1, gen_len=spec8["seq_steps"] // 2,
+        enc_lens=spec8["enc_lens"], gen_slab=spec8["gen_slab"],
+        iters=step_iters, f8=True)
+    parts_timing = parts_step_timing(
+        card, prompt_len=1, gen_len=spec8["steps"] // 2,
+        enc_len=spec8["enc_lens"][0], gen_slab=spec8["gen_slab"],
+        iters=step_iters)
+    del pipe16
+    torch.cuda.empty_cache()
+
     src = "t5gemma_tts_tpu_torch/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
@@ -1014,15 +1547,21 @@ def main(argv=None) -> int:
              source=src + "batch_paged_attention.cu",
              replaces="t5gemma_tts_tpu/ops/fused_attn.py:220",
              launches=main["launches"]["batch_paged_attention"],
-             max_abs_err=max(worst_attn, timing["max_abs_err"]),
+             max_abs_err=max(*worst_attn.values(), timing["max_abs_err"],
+                             timing_f8["max_abs_err"]),
              ms=timing["ms"], plain_ms=timing["plain_ms"],
              bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             e4m3=dict(launches=spec8["seq_launches"]["batch_paged_attention"],
+                       max_abs_err=max(worst_attn["f8"],
+                                       timing_f8["max_abs_err"]),
+                       **{k: timing_f8[k] for k in keys[:4]})),
         dict(name="w8a8_matmul", route="cuda",
              source=src + "w8a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:140",
              launches=main8["launches"]["w8a8_matmul"],
              max_abs_err=max(worst8["w8a8"], worst4["w8a8"],
+                             worst_spec4["w8a8"],
                              timing8["w8a8"]["max_abs_err"]),
              **{k: timing8["w8a8"][k] for k in keys}),
         dict(name="decode_stack", route="cuda",
@@ -1036,7 +1575,8 @@ def main(argv=None) -> int:
              source=src + "w4a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:656",
              launches=main4["launches"]["w4a8_matmul"],
-             max_abs_err=max(worst4["w4a8"], timing4["w4a8"]["max_abs_err"]),
+             max_abs_err=max(worst4["w4a8"], worst_spec4["w4a8"],
+                             timing4["w4a8"]["max_abs_err"]),
              **{k: timing4["w4a8"][k] for k in keys}),
         dict(name="decode_stack_int4", route="cuda",
              source=src + "decode_layer.cu",
@@ -1044,7 +1584,17 @@ def main(argv=None) -> int:
              launches=main4["launches"]["decode_stack"],
              max_abs_err=max(worst_layer4,
                              timing4["decode_stack"]["max_abs_err"]),
-             **{k: timing4["decode_stack"][k] for k in keys}),
+             **{k: timing4["decode_stack"][k] for k in keys},
+             chain5=dict(launches=spec4["launches"]["decode_stack"],
+                         max_abs_err=max(*worst_chain.values(),
+                                         chain_timing["max_abs_err"]),
+                         **{k: chain_timing[k] for k in keys[:4]})),
+        dict(name="paged_flash_parts", route="cuda",
+             source=src + "paged_flash_parts.cu",
+             replaces="t5gemma_tts_tpu/ops/paged_attn.py:122",
+             launches=spec8["launches"]["paged_flash_parts"],
+             max_abs_err=max(worst_parts, parts_timing["max_abs_err"]),
+             **{k: parts_timing[k] for k in keys}),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 The port keeps the JAX tree's key names and its stacked ``[L, ...]`` layer
 axis (``voice.init_params``, ``codec.model.init_decoder_params``), so the
 bridge renames nothing: it maps every numpy leaf to a tensor, byte for byte
-(bfloat16 leaves, which numpy holds as ``ml_dtypes.bfloat16``, travel as
-their 16-bit patterns).
+(bfloat16 and float8 e4m3 leaves, which numpy holds as ``ml_dtypes`` types,
+travel as their bit patterns). Lists (the speculative draft heads are a
+list of dicts) map element by element.
 
 Int8 leaves. A JAX ``QuantWeight`` (a NamedTuple ``values, scale, n,
 act_bits, layout``, as ``jax.tree_util.tree_map(np.asarray, tree)`` leaves
@@ -66,6 +67,9 @@ def _to_tensor(arr: np.ndarray, device, dtype) -> torch.Tensor:
     arr = np.ascontiguousarray(arr)
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    elif arr.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(arr.copy())
     if dtype is not None and t.is_floating_point():
@@ -130,6 +134,8 @@ def params_from_jax(tree: Any, device: DeviceLike = "cuda",
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_jax(v, dev, dtype) for v in tree]
     if _is_jax_quant(tree):
         return _quant_from_jax(tree, dev)
     if _is_jax_lanes4(tree):
@@ -199,14 +205,17 @@ def _int4_to_numpy(w: Int4Weight, layout: str) -> NumpyLanes4Weight:
 
 def params_to_numpy(tree: Any, streaming_tiled: bool = False,
                     _path: tuple = ()) -> Any:
-    """Inverse of :func:`params_from_jax` (bf16 leaves as ml_dtypes
-    bfloat16 when ml_dtypes is installed, else as float32; ``QuantWeight``
+    """Inverse of :func:`params_from_jax` (bf16 and float8 leaves as their
+    ml_dtypes types when ml_dtypes is installed, else as float32;
+    ``QuantWeight``
     leaves as :class:`NumpyQuantWeight`, tiled as the JAX package tiles
     them for its megakernel when ``streaming_tiled``; ``Int4Weight`` leaves
     as :class:`NumpyLanes4Weight`)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v, streaming_tiled, _path + (k,))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to_numpy(v, streaming_tiled, _path) for v in tree]
     if isinstance(tree, Int4Weight):
         k_major = tree.packed.ndim == 3 and _path[-1] in _K_MAJOR
         return _int4_to_numpy(tree, "l4k" if k_major else "l4n")
@@ -216,10 +225,12 @@ def params_to_numpy(tree: Any, streaming_tiled: bool = False,
             layout = _tiling(_path, tree.values.shape[-1], tree.values.ndim)
         return _quant_to_numpy(tree, layout)
     t = tree.detach().cpu()
-    if t.dtype == torch.bfloat16:
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
         try:
             import ml_dtypes
         except ImportError:
             return t.float().numpy()
+        if t.dtype == torch.float8_e4m3fn:
+            return t.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn)
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()

@@ -238,7 +238,7 @@ class DecodeConfig:
     #   "dense"    — pre-allocated dense cache, full-extent reads every step
     #   "paged"    — paged decode attention (CUDA kernel), bf16 pages
     #   "paged_i8" — paged with int8 pages + per-token scales
-    #   "paged_f8" — float8 pages: not ported yet (ROADMAP Queue 2 item 5)
+    #   "paged_f8" — paged with float8 e4m3 pages (no scales)
     kv_cache: str = "auto"
     # approximate top-k candidate fetch: accepted for flag compatibility;
     # the port always takes the exact top-k

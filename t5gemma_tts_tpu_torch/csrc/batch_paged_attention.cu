@@ -11,26 +11,28 @@
 //   masked logits = -0.7 * FLT_MAX, masked probabilities = 0
 //   out = acc / (l > 0 ? l : 1)
 //
-// Pages are [Hkv, NP, ps, hd], bf16 or int8 with per-token f32 scales
-// [Hkv, NP, ps] (dequantized here as int8 * scale[token]). Page ids come
-// from page_indices[b, i]; nothing assumes identity paging.
+// Pages are [Hkv, NP, ps, hd], bf16, float8 e4m3 (widened exactly to f32,
+// no scales), or int8 with per-token f32 scales [Hkv, NP, ps] (dequantized
+// here as int8 * scale[token]). Page ids come from page_indices[b, i];
+// nothing assumes identity paging.
 //
 // Bound: the bytes of the K/V pages (and scales) that it reads. Each page
 // element is read from device memory exactly once per (row, kv head): the
-// logits pass streams K rows with 16-byte loads (one 8-element chunk per
-// lane, neighbouring lanes on neighbouring addresses) and the P.V pass
-// streams V rows with neighbouring threads on neighbouring elements. The
+// logits pass streams K rows one 8-element chunk per lane (16 bytes of
+// bf16, 8 of int8 or e4m3; neighbouring lanes on neighbouring addresses)
+// and the P.V pass streams V rows with neighbouring threads on neighbouring
+// elements. The
 // G = H / Hkv queries of a kv head share one CTA, so a page is read once for
 // all of them, and every reduction (max, sum, accumulator) stays in
 // registers and shared memory. This first design uses one CTA per
 // (row, kv head) and does not split a row's pages across CTAs: at small
 // batch it fills few of the 132 SMs (see PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_pages.cuh"
 
 namespace {
+
+using namespace t5g_pages;
 
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
 constexpr int kThreads = 256;
@@ -75,34 +77,7 @@ __device__ __forceinline__ float cap(float x, float soft_cap) {
   return soft_cap > 0.f ? tanhf(x / soft_cap) * soft_cap : x;
 }
 
-// 8 consecutive elements starting at element offset `off` (a multiple of 8).
-template <bool QUANT>
-__device__ __forceinline__ void load8(const void* base, int64_t off, float* out) {
-  if constexpr (QUANT) {
-    const int2 raw = *reinterpret_cast<const int2*>(
-        reinterpret_cast<const int8_t*>(base) + off);
-    const int8_t* r = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[j] = static_cast<float>(r[j]);
-  } else {
-    const uint4 raw = *reinterpret_cast<const uint4*>(
-        reinterpret_cast<const __nv_bfloat16*>(base) + off);
-    const __nv_bfloat16* r = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[j] = __bfloat162float(r[j]);
-  }
-}
-
-template <bool QUANT>
-__device__ __forceinline__ float load1(const void* base, int64_t off) {
-  if constexpr (QUANT) {
-    return static_cast<float>(reinterpret_cast<const int8_t*>(base)[off]);
-  } else {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(base)[off]);
-  }
-}
-
-template <bool QUANT>
+template <int PT>
 __global__ void __launch_bounds__(kThreads)
 batch_paged_attention_kernel(const Params p) {
   const int b = blockIdx.x;
@@ -150,8 +125,8 @@ batch_paged_attention_kernel(const Params p) {
         float kv[8];
         const bool active = lane < nchunks;
         if (active) {
-          load8<QUANT>(S.k, (row0 + t) * hd + lane * 8, kv);
-          if constexpr (QUANT) {
+          load8<PT>(S.k, (row0 + t) * hd + lane * 8, kv);
+          if constexpr (PT == kInt8) {
             const float sc = S.k_scale[row0 + t];
 #pragma unroll
             for (int j = 0; j < 8; ++j) kv[j] *= sc;
@@ -209,8 +184,8 @@ batch_paged_attention_kernel(const Params p) {
           for (int j = 0; j < kGroup; ++j)
             r[j] = g0 + j < G ? acc_s[(g0 + j) * hd + d] * a_s[g0 + j] : 0.f;
           for (int t = 0; t < nvalid; ++t) {
-            float v = load1<QUANT>(S.v, (row0 + t) * hd + d);
-            if constexpr (QUANT) v *= S.v_scale[row0 + t];
+            float v = load1<PT>(S.v, (row0 + t) * hd + d);
+            if constexpr (PT == kInt8) v *= S.v_scale[row0 + t];
 #pragma unroll
             for (int j = 0; j < kGroup; ++j)
               if (g0 + j < G) r[j] += s_s[(g0 + j) * ps + t] * v;
@@ -256,12 +231,12 @@ batch_paged_attention_kernel(const Params p) {
   }
 }
 
-template <bool QUANT>
+template <int PT>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const int G = p.H / p.Hkv;
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(2 * G * p.hd) + static_cast<size_t>(G) * p.ps + 3 * G);
-  auto kernel = batch_paged_attention_kernel<QUANT>;
+  auto kernel = batch_paged_attention_kernel<PT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -275,7 +250,8 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 
 // Plain C entry point (bound with ctypes). Returns a cudaError_t code.
 // Segment B is absent when b_lengths is null; k_cur/v_cur are read only
-// when include_current != 0; the scale pointers only when quantized != 0.
+// when include_current != 0; the scale pointers only for int8 pages
+// (page_type: 0 bf16, 1 int8, 2 float8 e4m3).
 extern "C" int t5g_batch_paged_attention(
     const float* q, const float* k_cur, const float* v_cur,
     const void* a_k, const void* a_v, const float* a_ks, const float* a_vs,
@@ -283,7 +259,7 @@ extern "C" int t5g_batch_paged_attention(
     const void* b_k, const void* b_v, const float* b_ks, const float* b_vs,
     const int* b_lengths, const int* b_pages, int b_pages_per_row, int64_t b_num_pages,
     float* out, int B, int H, int Hkv, int hd, int ps,
-    float soft_cap, int include_current, int quantized, void* stream) {
+    float soft_cap, int include_current, int page_type, void* stream) {
   Params p;
   p.q = q;
   p.k_cur = k_cur;
@@ -298,5 +274,10 @@ extern "C" int t5g_batch_paged_attention(
   p.soft_cap = soft_cap;
   p.include_current = include_current;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(quantized ? launch<true>(p, B, s) : launch<false>(p, B, s));
+  switch (page_type) {
+    case kBf16: return static_cast<int>(launch<kBf16>(p, B, s));
+    case kInt8: return static_cast<int>(launch<kInt8>(p, B, s));
+    case kE4m3: return static_cast<int>(launch<kE4m3>(p, B, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

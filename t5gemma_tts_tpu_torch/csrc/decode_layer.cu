@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel t5gemma_tts_tpu/ops/megakernel.py::_kernel
 // (reached through decode_layer and decode_stack) for W8A8 weights and for
-// lanes4 int4 weights (its w4 variant), chain = 1. One C call runs a fixed
+// lanes4 int4 weights (its w4 variant), chain >= 1. One C call runs a fixed
 // sequence of hand-written kernels per layer; t5g_decode_stack loops all
 // layers, so a decode step is one host call. Per layer (h [B, D] stays f32
 // across all layers):
@@ -38,7 +38,21 @@
 // scale after the dot, the soft cap comes before the -0.7 * FLT_MAX mask,
 // the online softmax advances by 128-token blocks, and the in-flight token
 // joins last with the unrounded f32 q. Page addressing is the cache's
-// identity slab layout: layer li, row b is slab row li * B + b.
+// identity slab layout: layer li, cache row c is slab row li * Bc + c.
+//
+// Chain (the speculative verify pass, DecodeArgs::chain = S > 1): every
+// per-row kernel runs over B = Bc * S pseudo-rows, S chain positions of
+// each of the Bc cache rows, position-major within a row. Pseudo-row b
+// reads the slabs (and scale planes) of cache row b / S, with its own
+// lengths, and its in-flight part is the causal chain (megakernel.py
+// :596-641): it folds in the fresh k/v of chain positions j = 0 .. pos_in
+// (pos_in = b - (b / S) * S) in order. For j < pos_in, k and v are
+// store-rounded as the sequential engine reads them from the cache (bf16,
+// and with int8 pages the per-token absmax / 127 quantize-dequantize,
+// half to even, true division) and the dot takes the bf16-rounded q; for
+// j = pos_in they are the raw f32 values and the dot takes the raw q;
+// j > pos_in is masked, which leaves the statistics as they are (exp of
+// the mask value is 0), so it is skipped.
 //
 // Bound: at decode batch sizes the layer is bound by its bytes: the int8
 // weights (87.3 MB per layer at 2b-2b, half that in int4), read once per
@@ -175,11 +189,12 @@ struct Seg {
 
 struct AttnArgs {
   const float* q;       // [B, H, hd] roped and scaled, f32
-  const float* k_cur;   // [B, Hkv, hd] in-flight token, or nullptr
+  const float* k_cur;   // [B, Hkv, hd] in-flight tokens, or nullptr
   const float* v_cur;
   Seg seg[2];
   float* out;           // [B, H * hd]
   int B, LB, row0, H, Hkv, hd;
+  int chain;            // pseudo-rows per cache row
   float soft_cap;       // <= 0: no cap
   int clamp_a;          // segment A length clamped to >= 1
 };
@@ -228,6 +243,9 @@ slab_attention_kernel(const AttnArgs p) {
   float* m_s = s_s + G * kBlock;   // [G] running max
   float* l_s = m_s + G;            // [G] running sum
   float* a_s = l_s + G;            // [G] rescale of this block
+  float* ck_s = a_s + G;           // [hd] a chain position's k
+  float* cv_s = ck_s + hd;         // [hd] and v
+  float* red = cv_s + hd;          // [kAttnWarps] block reductions
 
   const int64_t q_base = (static_cast<int64_t>(b) * p.H + kvh * G) * hd;
   for (int i = tid; i < G * hd; i += kAttnThreads) {
@@ -248,7 +266,7 @@ slab_attention_kernel(const AttnArgs p) {
     if (si == 0 && p.clamp_a) len = max(len, 1);
     const int nblocks = (len + kBlock - 1) / kBlock;
     const int pages = S.T / kBlock;
-    const int64_t slab0 = (static_cast<int64_t>(kvh) * p.LB + p.row0 + b) * S.T;
+    const int64_t slab0 = (static_cast<int64_t>(kvh) * p.LB + p.row0 + b / p.chain) * S.T;
     for (int i = 0; i < nblocks; ++i) {
       // a length past the slab re-reads its last page, as the TPU kernel does
       const int64_t tok0 = slab0 + static_cast<int64_t>(min(i, pages - 1)) * kBlock;
@@ -342,33 +360,62 @@ slab_attention_kernel(const AttnArgs p) {
   }
 
   if (p.k_cur != nullptr) {
-    // the in-flight token joins last, with the unrounded f32 q
-    const int64_t cur_base = (static_cast<int64_t>(b) * p.Hkv + kvh) * hd;
-    for (int g = warp; g < G; g += kAttnWarps) {
-      float part = 0.f;
-      for (int d = lane; d < hd; d += 32)
-        part = __fadd_rn(part, __fmul_rn(q_s[g * hd + d], p.k_cur[cur_base + d]));
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-      const float cur = cap(part, p.soft_cap);
-      if (lane == 0) {
-        const float m_old = m_s[g];
-        const float m_new = fmaxf(m_old, cur);
-        const float pc = expf(cur - m_new);
-        const float alpha = expf(m_old - m_new);
-        l_s[g] = __fadd_rn(__fmul_rn(l_s[g], alpha), pc);
-        m_s[g] = m_new;
-        a_s[g] = alpha;
-        s_s[g * kBlock] = pc;
+    // the in-flight chain joins last: positions j = 0 .. pos_in of this
+    // pseudo-row's chain (chain 1: the one in-flight token, j = 0 = pos_in)
+    const int cb = (b / p.chain) * p.chain;
+    const int pos_in = b - cb;
+    for (int j = 0; j <= pos_in; ++j) {
+      const bool self = j == pos_in;
+      const int64_t cur_base = (static_cast<int64_t>(cb + j) * p.Hkv + kvh) * hd;
+      float kmax = 0.f, vmax = 0.f;
+      for (int d = tid; d < hd; d += kAttnThreads) {
+        float kx = p.k_cur[cur_base + d], vx = p.v_cur[cur_base + d];
+        if (!self) {
+          kx = bf16_round(kx);
+          vx = bf16_round(vx);
+        }
+        ck_s[d] = kx;
+        cv_s[d] = vx;
+        kmax = fmaxf(kmax, fabsf(kx));
+        vmax = fmaxf(vmax, fabsf(vx));
       }
+      if (QUANT && !self) {
+        // the int8 page round trip of one token: levels of absmax / 127
+        const float ks = act_scale(block_max(kmax, red));
+        const float vs = act_scale(block_max(vmax, red));
+        for (int d = tid; d < hd; d += kAttnThreads) {
+          ck_s[d] = __fmul_rn(static_cast<float>(quant_level(ck_s[d], ks)), ks);
+          cv_s[d] = __fmul_rn(static_cast<float>(quant_level(cv_s[d], vs)), vs);
+        }
+      }
+      __syncthreads();
+      const float* qsel = self ? q_s : qb_s;
+      for (int g = warp; g < G; g += kAttnWarps) {
+        float part = 0.f;
+        for (int d = lane; d < hd; d += 32)
+          part = __fadd_rn(part, __fmul_rn(qsel[g * hd + d], ck_s[d]));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+        const float cur = cap(part, p.soft_cap);
+        if (lane == 0) {
+          const float m_old = m_s[g];
+          const float m_new = fmaxf(m_old, cur);
+          const float pc = expf(cur - m_new);
+          const float alpha = expf(m_old - m_new);
+          l_s[g] = __fadd_rn(__fmul_rn(l_s[g], alpha), pc);
+          m_s[g] = m_new;
+          a_s[g] = alpha;
+          s_s[g * kBlock] = pc;
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < G * hd; i += kAttnThreads) {
+        const int g = i / hd;
+        acc_s[i] = __fadd_rn(__fmul_rn(acc_s[i], a_s[g]),
+                             __fmul_rn(s_s[g * kBlock], cv_s[i - g * hd]));
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int i = tid; i < G * hd; i += kAttnThreads) {
-      const int g = i / hd;
-      acc_s[i] = __fadd_rn(__fmul_rn(acc_s[i], a_s[g]),
-                           __fmul_rn(s_s[g * kBlock], p.v_cur[cur_base + (i - g * hd)]));
-    }
-    __syncthreads();
   }
 
   for (int i = tid; i < G * p.hd; i += kAttnThreads) {
@@ -381,7 +428,8 @@ template <bool QUANT>
 cudaError_t launch_attention(const AttnArgs& p, cudaStream_t s) {
   const int G = p.H / p.Hkv;
   const size_t smem = sizeof(float) * (3 * static_cast<size_t>(G) * p.hd +
-                                       static_cast<size_t>(G) * kBlock + 3 * G);
+                                       static_cast<size_t>(G) * kBlock + 3 * G +
+                                       2 * p.hd + kAttnWarps);
   auto kernel = slab_attention_kernel<QUANT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -397,7 +445,7 @@ cudaError_t launch_attention(const AttnArgs& p, cudaStream_t s) {
 // The arguments of one call, mirrored field by field by the ctypes
 // Structure in ops/megakernel.py (keep the two in the same order).
 struct DecodeArgs {
-  float* h;                        // [B, D] f32, updated in place
+  float* h;                        // [B, D] f32, updated in place (B pseudo-rows)
   const float* cos;                // [B, hd] self-attention rope tables
   const float* sin;
   const float* qcos;               // [B, hd] cross-query rope tables
@@ -421,6 +469,7 @@ struct DecodeArgs {
   float* dout;                     // workspace [B, D]
   int B, D, H, Hkv, hd, F, L, ftile, Tp, Tg, Tx, kv_quant;
   int w4;                          // 1: int4 weights
+  int chain;                       // pseudo-rows per cache row (B = rows * chain)
   float eps, soft_cap, q_scale;
 };
 
@@ -460,8 +509,9 @@ cudaError_t attention(const DecodeArgs& a, int li, bool self, const float* k_cur
                   : Seg{nullptr, nullptr, nullptr, nullptr, nullptr, 0};
   p.out = a.attn;
   p.B = a.B;
-  p.LB = a.L * a.B;
-  p.row0 = li * a.B;
+  p.LB = a.L * (a.B / a.chain);
+  p.row0 = li * (a.B / a.chain);
+  p.chain = a.chain;
   p.H = a.H;
   p.Hkv = a.Hkv;
   p.hd = a.hd;
@@ -509,6 +559,7 @@ cudaError_t run_layer(const DecodeArgs& a, int li, int out_li, cudaStream_t s) {
 
 cudaError_t run_layers(const DecodeArgs& a, int layer0, int n_layers, cudaStream_t s) {
   if (a.hd % 8 || a.hd > 256 || a.H % a.Hkv || a.F % a.ftile || a.ftile % 16 ||
+      a.chain < 1 || a.B % a.chain ||
       a.D * sizeof(float) > 48 * 1024 || a.ftile * sizeof(float) > 48 * 1024)
     return cudaErrorInvalidValue;
   for (int i = 0; i < n_layers; ++i) T5G_CHECK(run_layer(a, layer0 + i, i, s));

@@ -15,8 +15,12 @@ values) are those of the JAX engine:
      logits is EOG;
   4. text-guard and target-duration budgets, and the buffer's end.
 
-Draws come from an explicit ``torch.Generator``; greedy decoding
-(``top_k=1``) is token-equal to the JAX engine.
+Draws are step-indexed: the draws of step s come from a generator seeded
+from (seed, s) alone (:func:`step_generator`, the counterpart of the JAX
+engine's ``fold_in(rng, step)``), so any pass that samples step s -- the
+sequential loop or a speculative verify pass (decode/speculative.py) --
+draws the same numbers for each row. Greedy decoding (``top_k=1``) is
+token-equal to the JAX engine.
 """
 
 from __future__ import annotations
@@ -35,13 +39,15 @@ from ..ops import sampling
 
 PyTree = Any
 INT32_MAX = 2 ** 31 - 1
+_U64 = 2 ** 64 - 1
 
 
 def resolve_kv_mode(cfg: VoiceConfig, dcfg: DecodeConfig, prompt_len: int,
                     gen_len: int, device: torch.device) -> str:
     """Concrete KV-cache strategy: "auto" takes the paged cache on CUDA when
     prompt + generation fit the sliding window (so sliding == full and
-    length-only masking is exact), the dense cache otherwise."""
+    length-only masking is exact), the dense cache otherwise. The paged
+    modes ("paged", "paged_f8", "paged_i8") raise when they do not fit."""
     dims = cfg.backbone.decoder
     ps = t5gemma.PAGE_SIZE
     total = t5gemma._pad_to(prompt_len, ps) + t5gemma._pad_to(gen_len, ps)
@@ -49,11 +55,7 @@ def resolve_kv_mode(cfg: VoiceConfig, dcfg: DecodeConfig, prompt_len: int,
     if mode == "auto":
         fits = total <= dims.sliding_window
         return "paged" if (device.type == "cuda" and fits) else "dense"
-    if mode == "paged_f8":
-        raise NotImplementedError(
-            "kv_cache='paged_f8' is not ported yet (ROADMAP Queue 2 item 5, "
-            "the one-segment paged kernel with float8 pages)")
-    if mode in ("paged", "paged_i8"):
+    if mode in ("paged", "paged_f8", "paged_i8"):
         if total > dims.sliding_window:
             raise ValueError(
                 f"kv_cache={mode!r} needs prompt+gen ({total}) <= "
@@ -148,15 +150,19 @@ def _adjust_logits(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step: int,
 
 
 def prefill(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens,
-            prompt, prompt_lens, target_totals) -> LoopState:
+            prompt, prompt_lens, target_totals,
+            cache_slack: int = 0) -> LoopState:
     """Encode the text, build the cross K/V, and prefill the prompt into the
     KV cache; returns the loop state at step 0. ``x`` [B, Tx], ``prompt``
-    [B, P] and the [B] lengths/targets are int32 tensors on the device."""
+    [B, P] and the [B] lengths/targets are int32 tensors on the device.
+    ``cache_slack`` widens the cache and the token buffer by that many slots
+    past ``max_frames`` (a speculative verify pass writes a (k+1)-token
+    block whose tail may reach past it)."""
     s = cfg.special
     dims = cfg.backbone.decoder
     dev = x.device
     b, p_max = prompt.shape
-    max_steps = dcfg.max_frames
+    max_steps = dcfg.max_frames + cache_slack
     t_max = p_max + 1 + max_steps
     cdt = voice.compute_dtype(cfg)
 
@@ -202,7 +208,7 @@ def prefill(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens,
             cache=cache)
     else:
         store = paged_attn.KV_STORE_DTYPES[
-            "i8" if kv_mode == "paged_i8" else "bf16"]
+            {"paged_f8": "f8", "paged_i8": "i8"}.get(kv_mode, "bf16")]
         cache = t5gemma.init_paged_cache(dims, b, p_max + 1, max_steps,
                                          x.shape[1], store_dtype=store,
                                          device=dev)
@@ -264,10 +270,23 @@ def _candidate_sample(cfg: VoiceConfig, dcfg: DecodeConfig, logits,
     return token, argmax_tok.to(torch.int32)
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of decode step ``step``: seeded from (seed, step)
+    alone, so its draws do not depend on which pass samples the step. The
+    pair is mixed by splitmix64, so that every bit of the 64-bit seed (the
+    CPU generator reads only the low 32) depends on both."""
+    z = ((((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+         + 0x9E3779B97F4A7C15) & _U64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _U64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _U64
+    return torch.Generator(device=device).manual_seed(z ^ (z >> 31))
+
+
 def sample_step_token(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step: int,
-                      prev_token, consec_silence,
-                      generator: Optional[torch.Generator]):
-    """One step's guarded sampling -> (token [B], argmax_tok [B])."""
+                      prev_token, consec_silence, seed: int):
+    """One step's guarded sampling -> (token [B], argmax_tok [B]), drawn
+    from :func:`step_generator` (seed, step)."""
+    generator = step_generator(seed, step, logits.device)
     if dcfg.top_k and dcfg.top_k > 0 and not (0.0 < dcfg.min_p < 1.0):
         return _candidate_sample(cfg, dcfg, logits, step, prev_token,
                                  consec_silence, generator)
@@ -280,8 +299,7 @@ def sample_step_token(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step: int,
 
 
 def _make_body(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x_lens,
-               prompt_lens, target_totals,
-               generator: Optional[torch.Generator]):
+               prompt_lens, target_totals, seed: int):
     s = cfg.special
     eog = cfg.eog_inference
     dims = cfg.backbone.decoder
@@ -297,7 +315,7 @@ def _make_body(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x_lens,
         logits = voice.predict_head(params["head"], st.last_hidden)[:, 0]
         token, argmax_tok = sample_step_token(
             cfg, dcfg, logits, st.step, st.prev_token, st.consec_silence,
-            generator)
+            seed)
         token = apply_stop_rules(cfg, token, argmax_tok, st.step,
                                  text_budget, time_budget, max_steps)
 
@@ -352,13 +370,14 @@ def _make_body(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x_lens,
 @torch.inference_mode()
 def decode_tokens(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x,
                   x_lens, prompt, prompt_lens, target_totals,
-                  generator: Optional[torch.Generator]) -> DecodeOutputs:
+                  seed: int) -> DecodeOutputs:
     """Full batched synthesis of audio tokens (all inputs int32 tensors on
-    the device where the model runs)."""
+    the device where the model runs); step s draws from
+    :func:`step_generator` (``seed``, s)."""
     state = prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
                     target_totals)
     body = _make_body(params, cfg, dcfg, x_lens, prompt_lens, target_totals,
-                      generator)
+                      seed)
     while state.step < dcfg.max_frames and not bool(state.done.all()):
         state = body(state)
     gen_lens = torch.where(state.done, state.gen_lens, state.step)

@@ -7,9 +7,10 @@ Run: python -m t5gemma_tts_tpu_torch.inference.cli --model_dir <hf dir> \
 Runs on ``cuda`` unless ``--device cpu`` is given. ``--quantize int8``
 serves with W8A8 decode weights (the decode-layer and W8A8 kernels);
 ``--quantize int4`` is the batch-1 latency mode (int4 decode-layer and head
-weights: the decode-layer kernels' int4 variant and the W4A8 kernel). Not
-ported yet, and so refused with the ROADMAP entry that will bring them:
-``--kv_cache paged_f8``, ``--reference_speech`` (the codec encoder) and
+weights: the decode-layer kernels' int4 variant and the W4A8 kernel).
+``--kv_cache paged_f8`` stores float8 e4m3 pages (the paged attention
+kernel's e4m3 variant). Not ported yet, and so refused with the ROADMAP
+entry that will bring them: ``--reference_speech`` (the codec encoder) and
 real XCodec2 weights (the codec converter; ``--random_codec`` works).
 """
 
@@ -68,9 +69,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    if args.kv_cache == "paged_f8":
-        raise NotImplementedError(
-            "--kv_cache paged_f8 is not ported yet (ROADMAP Queue 2 item 5)")
     if args.reference_speech and str(args.reference_speech).lower() not in {
             "none", "null"}:
         raise NotImplementedError(

@@ -201,13 +201,11 @@ class TTSPipeline:
         def dev_i32(a):
             return torch.from_numpy(a).to(dev)
 
-        gen = torch.Generator(device=dev).manual_seed(
-            dcfg.seed if seed is None else seed)
         stime = time.time()
         out = engine.decode_tokens(
             self.params, cfg, dataclasses.replace(dcfg, max_frames=max_frames),
             dev_i32(x), dev_i32(x_lens), dev_i32(prm), dev_i32(prm_lens),
-            dev_i32(targets), gen)
+            dev_i32(targets), dcfg.seed if seed is None else seed)
         tokens = out.tokens.cpu().numpy()
         gen_lens = out.gen_lens.cpu().numpy()
         elapsed = time.time() - stime

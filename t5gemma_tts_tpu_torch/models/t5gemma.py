@@ -12,15 +12,20 @@ Two decode caches:
   ``kv_cache="auto"`` takes on the CPU or when prompt + generation exceed
   the sliding window;
 - the paged cache (:class:`PagedDecoderCache`, :func:`paged_prefill`,
-  :func:`paged_decode_step`), whose attention reads go through
-  ``ops/fused_attn.batch_paged_attention``: on the card the hand-written
-  CUDA kernel, twice per layer.
+  :func:`paged_decode_step`), bf16, float8 e4m3 or int8 pages, whose
+  attention reads go through ``ops/fused_attn.batch_paged_attention``: on
+  the card the hand-written CUDA kernel, twice per layer.
+
+The speculative verify pass runs S tokens per row at once: over the dense
+cache through :func:`decoder_forward` (an S-token block at ``cache_pos``),
+over the paged cache through :func:`paged_decode_multi`.
 
 Projections go through ``ops/quant.q_matmul``: plain weights multiply as
 they are, int8 ``QuantWeight`` leaves (``quantize_params_for_decode``) take
 the W8A8 product and int4 ``Int4Weight`` leaves the W4A8 product. With W8A8
-or int4 decoder weights the paged decode step runs all layers through
-``ops/megakernel.decode_stack`` instead of the layer loop.
+or int4 decoder weights over bf16 or int8 pages the paged decode step (and
+the verify pass) runs all layers through ``ops/megakernel.decode_stack``
+instead of the layer loop.
 
 Unlike the JAX package, the caches are updated in place (the step writes
 one token per layer into preallocated buffers instead of returning copies).
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 
 from ..config import ModuleDims
 from ..ops import fused_attn, megakernel
+from ..ops import paged_attn
 from ..ops import rope as rope_ops
 from ..ops.paged_attn import identity_page_indices
 from ..ops.quant import Int4Weight, QuantWeight, map_weight
@@ -301,14 +307,17 @@ def decoder_forward(params: PyTree, dims: ModuleDims, *, inputs_embeds,
                     cache: Optional[DecoderCache] = None,
                     cache_pos: Optional[torch.Tensor] = None):
     """Decoder stack. Without ``cache``: full-sequence forward. With
-    ``cache``: prefill (``cache_pos`` None, writes the first T slots) or one
-    step (``cache_pos`` [B], each row writes its own slot), attending over
-    the whole cache; the cache is updated in place and returned."""
+    ``cache``: prefill (``cache_pos`` None, writes the first T slots) or a
+    step of T tokens (``cache_pos`` [B]: row b writes slots cache_pos[b]
+    .. cache_pos[b] + T - 1), attending over the whole cache; the cache is
+    updated in place and returned."""
     h = _embed_scale(inputs_embeds, dims)
     cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
                                           dims)
     eps = dims.rms_norm_eps
-    rows = torch.arange(h.shape[0], device=h.device)
+    rows = torch.arange(h.shape[0], device=h.device)[:, None]
+    if cache_pos is not None:
+        slots = cache_pos[:, None] + torch.arange(h.shape[1], device=h.device)
     for li, sliding in enumerate(dims.sliding_flags):
         lp = layer_params(params["layers"], li)
         bias = self_sliding_bias if sliding else self_full_bias
@@ -323,8 +332,8 @@ def decoder_forward(params: PyTree, dims: ModuleDims, *, inputs_embeds,
                 ck[:, :, :t] = k.to(ck.dtype)
                 cv[:, :, :t] = v.to(cv.dtype)
             else:
-                ck[rows, :, cache_pos] = k[:, :, 0].to(ck.dtype)
-                cv[rows, :, cache_pos] = v[:, :, 0].to(cv.dtype)
+                ck[rows, :, slots] = k.transpose(1, 2).to(ck.dtype)
+                cv[rows, :, slots] = v.transpose(1, 2).to(cv.dtype)
             k, v = ck.to(h.dtype), cv.to(h.dtype)
         out = gqa_attention(q, k, v, bias, dims.q_scale,
                             dims.attn_logit_softcap)
@@ -357,8 +366,8 @@ class PagedDecoderCache:
 
     ``pending_k/v`` [L, B, Hkv, hd] (bf16) hold the newest token's K/V; the
     next step flushes them into slot max(step - 1, 0) of gen_k/v before it
-    reads the cache. With int8 pages each slab has a per-token f32 scale
-    plane [Hkv, L*B, T]. ``page_indices`` holds each region's [L, B, pages]
+    reads the cache. Pages are bf16, float8 e4m3, or int8 with a per-token
+    f32 scale plane [Hkv, L*B, T] for each slab. ``page_indices`` holds each region's [L, B, pages]
     page table into the slab's [Hkv, L*B*T/128, 128, hd] view.
     """
 
@@ -486,14 +495,18 @@ def paged_prefill(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     return rms_norm(h, params["final_norm"], eps), cache
 
 
-def _flush_pending(buf, pending, scale_buf, slot: int):
-    """Write the pending [L, B, Hkv, hd] block into gen slot ``slot``."""
+def _flush_block(buf, pending, scale_buf, start: int):
+    """Write a pending [L, B, S, Hkv, hd] bf16 block into gen slots
+    start .. start + S - 1 (int8 pages: quantized per token, with its
+    scale-plane block)."""
     hkv, lb, _, hd = buf.shape
+    s_len = pending.shape[2]
     if scale_buf is not None:
         pending, sc = fused_attn.quantize_kv(pending)
-        scale_buf[:, :, slot] = sc.permute(2, 0, 1).reshape(hkv, lb)
-    buf[:, :, slot] = pending.permute(2, 0, 1, 3).reshape(hkv, lb, hd).to(
-        buf.dtype)
+        scale_buf[:, :, start:start + s_len] = sc.permute(3, 0, 1, 2).reshape(
+            hkv, lb, s_len)
+    buf[:, :, start:start + s_len] = pending.permute(3, 0, 1, 2, 4).reshape(
+        hkv, lb, s_len, hd).to(buf.dtype)
 
 
 def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
@@ -510,7 +523,8 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     ``batch_paged_attention`` call. The new token's K/V become the pending
     block (bf16). ``prompt_lengths``/``enc_lengths`` are int32 [B].
 
-    When ``megakernel.supports`` the decoder's (W8A8 or int4) layers, one
+    When ``megakernel.supports`` the decoder's (W8A8 or int4) layers and
+    the pages (bf16 or int8; float8 pages take the loop), one
     ``decode_stack`` call replaces the layer loop: the hidden state enters
     it in f32 and stays f32 across the layers, and its unrounded k/v come
     back as the new pending block."""
@@ -519,17 +533,18 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
                                           dims)
     slot = max(step - 1, 0)
-    _flush_pending(cache.gen_k, cache.pending_k, cache.gen_k_scale, slot)
-    _flush_pending(cache.gen_v, cache.pending_v, cache.gen_v_scale, slot)
+    _flush_block(cache.gen_k, cache.pending_k[:, :, None], cache.gen_k_scale,
+                 slot)
+    _flush_block(cache.gen_v, cache.pending_v[:, :, None], cache.gen_v_scale,
+                 slot)
     gen_lengths = torch.full((b,), step, dtype=torch.int32, device=h.device)
     if megakernel.supports(params["layers"], dims, cache):
         return _decode_step_stacked(params, dims, h, cos, sin, q_cos, q_sin,
                                     cache, prompt_lengths, gen_lengths,
                                     enc_lengths)
 
-    prompt_kp, prompt_vp = _pages_view(cache.prompt_k), _pages_view(cache.prompt_v)
-    gen_kp, gen_vp = _pages_view(cache.gen_k), _pages_view(cache.gen_v)
-    cross_kp, cross_vp = _pages_view(cache.cross_k), _pages_view(cache.cross_v)
+    prompt_kp, prompt_vp, gen_kp, gen_vp, cross_kp, cross_vp = _page_views(
+        cache)
     prompt_s = (_scale_pages_view(cache.prompt_k_scale),
                 _scale_pages_view(cache.prompt_v_scale))
     gen_s = (_scale_pages_view(cache.gen_k_scale),
@@ -576,6 +591,132 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     cache.pending_k = torch.stack(k_new).to(torch.bfloat16)
     cache.pending_v = torch.stack(v_new).to(torch.bfloat16)
     return h, cache
+
+
+def _page_views(cache: PagedDecoderCache):
+    """(prompt k, prompt v, gen k, gen v, cross k, cross v) page views."""
+    return tuple(_pages_view(x) for x in (
+        cache.prompt_k, cache.prompt_v, cache.gen_k, cache.gen_v,
+        cache.cross_k, cache.cross_v))
+
+
+def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
+                       position_ids, pm_decoder_positions,
+                       cache: PagedDecoderCache, pending_k, pending_v,
+                       flush_start: int, step: int, prompt_lengths,
+                       enc_lengths):
+    """One S-token verify pass over the paged cache (speculative decoding).
+
+    ``inputs_embeds`` [B, S, D] and ``position_ids`` [B, S] are the chain;
+    ``pending_k/v`` [L, B, S, Hkv, hd] bf16 the previous pass's chain K/V,
+    flushed first into gen slots ``flush_start`` .. ``flush_start + S - 1``
+    (slots past the accepted prefix hold K/V that the next flush overwrites
+    before the visible length reaches them; prefill's ``cache_slack`` keeps
+    the block inside the slab). Every chain position sees the same segment
+    lengths (prompt; generation = ``step``), so the segments run once over
+    B * S pseudo-rows, and each position attends causally to its own chain
+    prefix.
+
+    With W8A8 or int4 decoder weights over bf16 or int8 pages
+    (``megakernel.supports``) the pass is one ``decode_stack(chain=S)``
+    call. int8 pages run only there: without such weights ``paged_i8``
+    raises. Otherwise (bf16 weights, or float8 pages) each layer runs the
+    one-segment kernel over the prompt and the generation pages
+    (``paged_flash_parts``), joins the chain through
+    ``merge_attention_parts_chain`` and takes cross attention through
+    ``paged_gqa_attention``.
+
+    Returns (hidden [B, S, D], cache, chain_k, chain_v) with chain_k/v
+    [L, B, S, Hkv, hd] bf16, the next pass's pending block."""
+    b, s_len, _ = inputs_embeds.shape
+    h = _embed_scale(inputs_embeds, dims)
+    cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
+                                          dims)
+    _flush_block(cache.gen_k, pending_k, cache.gen_k_scale, flush_start)
+    _flush_block(cache.gen_v, pending_v, cache.gen_v_scale, flush_start)
+    quant = cache.gen_k.dtype == torch.int8
+    fused = megakernel.supports(params["layers"], dims, cache)
+    if quant and not fused:
+        raise ValueError(
+            "the paged_i8 verify pass runs only through the megakernel path "
+            "(ops/megakernel.decode_stack with int8 or int4 decode weights): "
+            "the one-segment kernel has no int8 scale planes")
+
+    def rep(x):            # [B, ...] -> [B*S, ...], chain-position-major
+        return x.repeat_interleave(s_len, dim=0)
+
+    gen_lengths = torch.full((b * s_len,), step, dtype=torch.int32,
+                             device=h.device)
+    prompt_rep, enc_rep = rep(prompt_lengths), rep(enc_lengths)
+    eps, hd = dims.rms_norm_eps, dims.head_dim
+    if fused:
+        flat = (lambda t: t.reshape(b * s_len, hd))  # noqa: E731
+        qc, qs = (q_cos, q_sin) if q_cos is not None else (cos, sin)
+        kv_scales = None
+        if quant:
+            kv_scales = (cache.prompt_k_scale, cache.prompt_v_scale,
+                         cache.gen_k_scale, cache.gen_v_scale,
+                         cache.cross_k_scale, cache.cross_v_scale)
+        h3, k_new, v_new = megakernel.decode_stack(
+            params["layers"], dims,
+            h=h.reshape(b * s_len, dims.hidden_size).float(),
+            cos=flat(cos), sin=flat(sin), qcos=flat(qc), qsin=flat(qs),
+            plens=prompt_rep, glens=gen_lengths, elens=enc_rep,
+            prompt_k=cache.prompt_k, prompt_v=cache.prompt_v,
+            gen_k=cache.gen_k, gen_v=cache.gen_v, cross_k=cache.cross_k,
+            cross_v=cache.cross_v, kv_scales=kv_scales, chain=s_len)
+        h3 = rms_norm(h3, params["final_norm"], eps)
+        chain = (dims.num_layers, b, s_len, dims.num_kv_heads, hd)
+        return (h3.reshape(b, s_len, -1).to(h.dtype), cache,
+                k_new.reshape(chain).to(torch.bfloat16),
+                v_new.reshape(chain).to(torch.bfloat16))
+
+    prompt_kp, prompt_vp, gen_kp, gen_vp, cross_kp, cross_vp = _page_views(
+        cache)
+    tables = cache.page_indices
+    cap = dims.attn_logit_softcap
+    n_heads = dims.num_heads
+    k_new, v_new = [], []
+    for li in range(dims.num_layers):
+        lp = layer_params(params["layers"], li)
+        hn = rms_norm(h, lp["pre_self_attn_norm"], eps)
+        q, k, v = _qkv_proj(lp["self_attn"], hn, dims)   # [B, H|Hkv, S, hd]
+        q = rope_ops.apply_rope(q, cos, sin)
+        k = rope_ops.apply_rope(k, cos, sin)
+        qv = (q.float() * dims.q_scale).transpose(1, 2)  # [B, S, H, hd]
+        k_c, v_c = k.transpose(1, 2), v.transpose(1, 2)  # [B, S, Hkv, hd]
+        q2 = qv.reshape(b * s_len, n_heads, hd)
+        parts = [paged_attn.paged_flash_parts(
+                     q2, kp, vp, lens, rep(tables[name][li]),
+                     attn_logits_soft_cap=cap)
+                 for kp, vp, lens, name in (
+                     (prompt_kp, prompt_vp, prompt_rep, "prompt"),
+                     (gen_kp, gen_vp, gen_lengths, "gen"))]
+        attn = paged_attn.merge_attention_parts_chain(
+            parts, qv, k_c, v_c, cap, h.dtype, store_dtype=cache.gen_k.dtype)
+        a = _mm(attn.reshape(b, s_len, -1), lp["self_attn"]["o"])
+        h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
+
+        hn = rms_norm(h, lp["pre_cross_attn_norm"], eps)
+        cq = _split_heads(_mm(hn, lp["cross_attn"]["q"]), n_heads, hd)
+        if q_cos is not None:
+            cq = rope_ops.apply_rope(cq, q_cos, q_sin)
+        cq2 = (cq.float() * dims.q_scale).transpose(1, 2).reshape(
+            b * s_len, n_heads, hd)
+        cattn = paged_attn.paged_gqa_attention(
+            cq2, cross_kp, cross_vp, enc_rep,
+            page_indices=rep(tables["cross"][li]), attn_logits_soft_cap=cap,
+            out_dtype=h.dtype)
+        a = _mm(cattn.reshape(b, s_len, -1), lp["cross_attn"]["o"])
+        h = h + rms_norm(a, lp["post_cross_attn_norm"], eps)
+
+        m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
+        h = h + rms_norm(m, lp["post_ff_norm"], eps)
+        k_new.append(k_c)
+        v_new.append(v_c)
+    h = rms_norm(h, params["final_norm"], eps)
+    return (h, cache, torch.stack(k_new).to(torch.bfloat16),
+            torch.stack(v_new).to(torch.bfloat16))
 
 
 def _decode_step_stacked(params, dims, h, cos, sin, q_cos, q_sin, cache,

@@ -15,7 +15,8 @@ counts kernel launches.
 Semantics carried over from the TPU kernel: logits in f32, soft cap before
 the length mask, mask value -0.7 * f32max with masked probabilities 0,
 segment A clamped to at least one token, int8 pages dequantized per token
-as ``int8 * scale``, output ``acc / (l if l > 0 else 1)``. A segment's
+as ``int8 * scale``, float8 e4m3 pages widened to f32 (no scales), output
+``acc / (l if l > 0 else 1)``. A segment's
 length must not exceed its pages per row times the page size.
 """
 
@@ -114,7 +115,7 @@ def batch_paged_attention(
     q: torch.Tensor,                 # [B, H, hd] f32, roped + pre-scaled
     k_cur: Optional[torch.Tensor],   # [B, Hkv, hd] in-flight K, or None
     v_cur: Optional[torch.Tensor],
-    a_k_pages: torch.Tensor,         # [Hkv, NPa, ps, hd] bf16 or int8
+    a_k_pages: torch.Tensor,         # [Hkv, NPa, ps, hd] bf16, f8 or int8
     a_v_pages: torch.Tensor,
     b_k_pages: Optional[torch.Tensor],   # [Hkv, NPb, ps, hd] or None
     b_v_pages: Optional[torch.Tensor],
@@ -150,6 +151,10 @@ def batch_paged_attention(
 
 
 batch_paged_attention.launches = 0
+
+
+# the C PageType of csrc/paged_pages.cuh
+PAGE_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -189,7 +194,11 @@ def _launch(q, k_cur, v_cur, a_k, a_v, b_k, b_v, a_len, b_len, a_idx, b_idx,
     if h % hkv or hd % 8 or hd > 256:
         raise ValueError(f"unsupported heads/head_dim H={h} Hkv={hkv} hd={hd}")
     quant = a_ks is not None
-    page_dtype = torch.int8 if quant else torch.bfloat16
+    page_dtype = torch.int8 if quant else a_k.dtype
+    page_type = PAGE_TYPES.get(page_dtype)
+    if page_type is None or (page_dtype == torch.int8) != quant:
+        raise ValueError(f"pages of dtype {a_k.dtype}: bf16, float8_e4m3fn, "
+                         f"or int8 with scale planes")
     _check("q", q, dev, torch.float32, (b, h, hd))
     segs = [(a_k, a_v, a_ks, a_vs, a_len, a_idx)]
     if b_k is not None:
@@ -232,7 +241,7 @@ def _launch(q, k_cur, v_cur, a_k, a_v, b_k, b_v, a_len, b_len, a_idx, b_idx,
             b_idx.shape[1] if has_b else 0, b_k.shape[1] if has_b else 0,
             out.data_ptr(), b, h, hkv, hd, ps,
             float(soft_cap) if soft_cap is not None else 0.0,
-            int(include_current), int(quant), stream)
+            int(include_current), page_type, stream)
     if err != 0:
         raise RuntimeError(f"batch_paged_attention kernel launch failed: "
                            f"CUDA error {err}")

@@ -2,12 +2,13 @@
 their plain PyTorch version.
 
 Counterpart of ``t5gemma_tts_tpu/ops/megakernel.py`` for W8A8 weights and
-for its w4 variant (int4 weights, the batch-1 latency mode), ``chain=1``:
-:func:`supports`, :func:`decode_layer` (one layer) and
-:func:`decode_stack` (all layers). On a CUDA tensor both launch
-``csrc/decode_layer.cu`` (built with nvcc at first use, see
-ops/cuda_build.py; ``decode_stack`` is one host call per decode step) or
-raise; on a CPU tensor they run :func:`decode_layer_plain`.
+for its w4 variant (int4 weights, the batch-1 latency mode), with its
+``chain`` variant (the speculative verify pass): :func:`supports`,
+:func:`decode_layer` (one layer) and :func:`decode_stack` (all layers). On
+a CUDA tensor both launch ``csrc/decode_layer.cu`` (built with nvcc at
+first use, see ops/cuda_build.py; ``decode_stack`` is one host call per
+decode step or verify pass) or raise; on a CPU tensor they run
+:func:`decode_layer_plain`.
 ``.launches`` on each wrapper counts calls into the CUDA library.
 
 What a layer computes (the TPU kernel's semantics, all in f32; the hidden
@@ -33,8 +34,17 @@ state is never rounded between layers):
 
 Slabs are the cache's identity layout ``[Hkv, L*B, T, hd]`` (layer li, row
 b is slab row ``li * B + b``), bf16 or int8 with per-token f32 scale planes
-``[Hkv, L*B, T]``. The TPU kernel's 32-row batch padding, its int8-KV
-``batch % 8`` gate and its tiled weight layouts have no counterpart here.
+``[Hkv, L*B, T]``.
+
+``chain = S > 1``: h and the per-row inputs carry ``B * S`` pseudo-rows, the
+S chain positions of each cache row in order; pseudo-row b reads the slabs
+of cache row ``b // S``, and its in-flight part is its chain prefix
+j = 0 .. i (i = b mod S): positions j < i store-rounded as the cache holds
+them (bf16, with int8 pages also the per-token quantize-dequantize) and
+dotted with the bf16-rounded q, position i raw with the raw q.
+
+The TPU kernel's 32-row batch padding, its int8-KV ``batch % 8`` gate and
+its tiled weight layouts have no counterpart here.
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .fused_attn import MASK_VALUE, _check
+from .fused_attn import MASK_VALUE, _check, quantize_kv
 from .quant import (Int4Weight, QuantWeight, int4_levels, int_matmul_exact,
                     quantize_act_plain)
 
@@ -130,14 +140,15 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
-def _segment_blocks(slab, scale, lens, li: int, b: int):
+def _segment_blocks(slab, scale, lens, li: int, chain: int):
     """Yield (k, k_scale, v, v_scale, valid) per 128-token block of one
-    segment for all rows: k/v [B, Hkv, TBLOCK, hd] f32, scales
+    segment for all (pseudo-)rows: k/v [B, Hkv, TBLOCK, hd] f32, scales
     [B, Hkv, TBLOCK] or None, valid [B, TBLOCK]."""
     k_slab, v_slab = slab
     ks_slab, vs_slab = scale if scale is not None else (None, None)
     t = k_slab.shape[2]
-    rows = slice(li * b, (li + 1) * b)
+    b = lens.shape[0]
+    rows = li * (b // chain) + torch.arange(b, device=lens.device) // chain
     pages = t // TBLOCK
     nblocks = int((lens.max().clamp_min(0) + TBLOCK - 1) // TBLOCK)
     col = torch.arange(TBLOCK, device=lens.device)
@@ -154,12 +165,24 @@ def _segment_blocks(slab, scale, lens, li: int, b: int):
         yield k, ks, v, vs, valid
 
 
+def _store_round(x: torch.Tensor, int8_pages: bool) -> torch.Tensor:
+    """A fresh k or v [..., hd] f32 as the cache gives it back: bf16, and
+    with int8 pages the per-token quantize-dequantize."""
+    xb = x.to(torch.bfloat16).float()
+    if not int8_pages:
+        return xb
+    levels, scale = quantize_kv(xb)
+    return levels.float() * scale[..., None]
+
+
 def slab_attention_plain(q, segments, soft_cap: Optional[float], li: int,
-                         k_cur=None, v_cur=None) -> torch.Tensor:
+                         k_cur=None, v_cur=None, chain: int = 1
+                         ) -> torch.Tensor:
     """The decode layer's attention, block by block as the kernel walks it.
     q [B, H, hd] f32 (roped, scaled); ``segments`` a list of
     ((k_slab, v_slab), scales or None, lengths [B]); k_cur/v_cur
-    [B, Hkv, hd] f32 or None -> [B, H * hd] f32."""
+    [B, Hkv, hd] f32 or None (with ``chain``, pseudo-row b folds in the
+    chain prefix of its cache row) -> [B, H * hd] f32."""
     b, h, hd = q.shape
     hkv = segments[0][0][0].shape[0]
     g = h // hkv
@@ -173,7 +196,8 @@ def slab_attention_plain(q, segments, soft_cap: Optional[float], li: int,
         return x if soft_cap is None else torch.tanh(x / soft_cap) * soft_cap
 
     for slab, scale, lens in segments:
-        for k, ks, v, vs, valid in _segment_blocks(slab, scale, lens, li, b):
+        for k, ks, v, vs, valid in _segment_blocks(slab, scale, lens, li,
+                                                   chain):
             raw = torch.einsum("bkgh,bkth->bkgt", qb, k)
             if ks is not None:
                 raw = raw * ks[:, :, None, :]
@@ -189,19 +213,32 @@ def slab_attention_plain(q, segments, soft_cap: Optional[float], li: int,
             acc = acc * alpha + blk
             m = m_new
     if k_cur is not None:
-        cur = capped((qf * k_cur[:, :, None, :]).sum(dim=-1, keepdim=True))
-        m_new = torch.maximum(m, cur)
-        pc = torch.exp(cur - m_new)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + pc
-        acc = acc * alpha + pc * v_cur[:, :, None, :]
+        rows = torch.arange(b, device=q.device)
+        base, pos_in = rows - rows % chain, rows % chain
+        int8_pages = segments[0][1] is not None
+        for j in range(chain):
+            use = (j <= pos_in)[:, None, None, None]
+            self_ = (j == pos_in)[:, None, None, None]
+            ck, cv = k_cur[base + j], v_cur[base + j]
+            if chain > 1:
+                own = self_[..., 0]
+                ck = torch.where(own, ck, _store_round(ck, int8_pages))
+                cv = torch.where(own, cv, _store_round(cv, int8_pages))
+            qj = torch.where(self_, qf, qb)
+            cur = capped((qj * ck[:, :, None, :]).sum(dim=-1, keepdim=True))
+            m_new = torch.maximum(m, cur)
+            pc = torch.exp(cur - m_new)
+            alpha = torch.exp(m - m_new)
+            l = torch.where(use, l * alpha + pc, l)
+            acc = torch.where(use, acc * alpha + pc * cv[:, :, None, :], acc)
+            m = torch.where(use, m_new, m)
     out = acc / torch.where(l > 0.0, l, 1.0)
     return out.reshape(b, h * hd)
 
 
 def decode_layer_plain(params_layers, dims, *, h, cos, sin, qcos, qsin, li,
                        plens, glens, elens, prompt_k, prompt_v, gen_k, gen_v,
-                       cross_k, cross_v, kv_scales=None):
+                       cross_k, cross_v, kv_scales=None, chain: int = 1):
     """Whole-tensor PyTorch version of one layer (same arguments as
     :func:`decode_layer`) -> (h [B, D], k_new [B, Hkv, hd],
     v_new [B, Hkv, hd]), all f32."""
@@ -223,7 +260,7 @@ def decode_layer_plain(params_layers, dims, *, h, cos, sin, qcos, qsin, li,
     attn = slab_attention_plain(
         q, [((prompt_k, prompt_v), _pair(sc[0], sc[1]), plens),
             ((gen_k, gen_v), _pair(sc[2], sc[3]), glens)],
-        cap, li, k_new, v_new)
+        cap, li, k_new, v_new, chain)
     a8, sa = quantize_act_plain(attn)
     h = h + _rms(_w8a8(a8, sa, w_o, li), n1, eps)
 
@@ -232,7 +269,7 @@ def decode_layer_plain(params_layers, dims, *, h, cos, sin, qcos, qsin, li,
     attn = slab_attention_plain(
         cq * dims.q_scale,
         [((cross_k, cross_v), _pair(sc[4], sc[5]), elens.clamp_min(1))],
-        cap, li)
+        cap, li, chain=chain)
     a8, sa = quantize_act_plain(attn)
     h = h + _rms(_w8a8(a8, sa, w_co, li), n3, eps)
 
@@ -274,18 +311,18 @@ def _pair(a, b):
 
 def decode_layer(params_layers, dims, *, h, cos, sin, qcos, qsin, li: int,
                  plens, glens, elens, prompt_k, prompt_v, gen_k, gen_v,
-                 cross_k, cross_v, kv_scales=None):
+                 cross_k, cross_v, kv_scales=None, chain: int = 1):
     """Decoder layer ``li`` of the stacked int8 or int4 layer tree.
 
     h [B, D]; cos/sin/qcos/qsin [B, hd] f32; plens/glens/elens [B] int32;
-    slabs the cache's [Hkv, L*B, T, hd] buffers, with ``kv_scales`` the six
-    [Hkv, L*B, T] scale planes (prompt k, prompt v, gen k, gen v, cross k,
-    cross v) when the pages are int8. Returns (h [B, D], k_new [B, Hkv, hd],
-    v_new [B, Hkv, hd]), all f32."""
+    slabs the cache's [Hkv, L*Bc, T, hd] buffers (Bc = B / chain cache
+    rows), with ``kv_scales`` the six [Hkv, L*Bc, T] scale planes (prompt
+    k, prompt v, gen k, gen v, cross k, cross v) when the pages are int8.
+    Returns (h [B, D], k_new [B, Hkv, hd], v_new [B, Hkv, hd]), all f32."""
     args = dict(h=h, cos=cos, sin=sin, qcos=qcos, qsin=qsin, plens=plens,
                 glens=glens, elens=elens, prompt_k=prompt_k,
                 prompt_v=prompt_v, gen_k=gen_k, gen_v=gen_v, cross_k=cross_k,
-                cross_v=cross_v, kv_scales=kv_scales)
+                cross_v=cross_v, kv_scales=kv_scales, chain=chain)
     if h.device.type == "cpu":
         return decode_layer_plain(params_layers, dims, li=li, **args)
     if h.device.type != "cuda":
@@ -300,14 +337,14 @@ decode_layer.launches = 0
 
 def decode_stack(params_layers, dims, *, h, cos, sin, qcos, qsin, plens,
                  glens, elens, prompt_k, prompt_v, gen_k, gen_v, cross_k,
-                 cross_v, kv_scales=None):
+                 cross_v, kv_scales=None, chain: int = 1):
     """All decoder layers in order (same arguments as :func:`decode_layer`
     without ``li``) -> (h [B, D], k_new [L, B, Hkv, hd], v_new), f32. On
     the card this is one call into the CUDA library."""
     args = dict(h=h, cos=cos, sin=sin, qcos=qcos, qsin=qsin, plens=plens,
                 glens=glens, elens=elens, prompt_k=prompt_k,
                 prompt_v=prompt_v, gen_k=gen_k, gen_v=gen_v, cross_k=cross_k,
-                cross_v=cross_v, kv_scales=kv_scales)
+                cross_v=cross_v, kv_scales=kv_scales, chain=chain)
     if h.device.type == "cpu":
         return decode_stack_plain(params_layers, dims, **args)
     if h.device.type != "cuda":
@@ -338,7 +375,7 @@ class _DecodeArgs(ctypes.Structure):
                                       "qbuf", "attn", "dout")]
                 + [(n, _i32) for n in ("B", "D", "H", "Hkv", "hd", "F", "L",
                                        "ftile", "Tp", "Tg", "Tx",
-                                       "kv_quant", "w4")]
+                                       "kv_quant", "w4", "chain")]
                 + [(n, ctypes.c_float) for n in ("eps", "soft_cap",
                                                  "q_scale")])
 
@@ -357,9 +394,12 @@ def _bind(name: str):
 
 def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
             elens, prompt_k, prompt_v, gen_k, gen_v, cross_k, cross_v,
-            kv_scales) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            kv_scales, chain
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     dev = h.device
     b, d = h.shape
+    if chain < 1 or b % chain:
+        raise ValueError(f"{b} rows do not hold whole chains of {chain}")
     n_heads, hkv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
     f, n_layers = dims.intermediate_size, dims.num_layers
     ho, nkv = n_heads * hd, hkv * hd
@@ -381,7 +421,8 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
     slabs = (prompt_k, prompt_v, gen_k, gen_v, cross_k, cross_v)
     for i, s in enumerate(slabs):
         _check(f"slab {i}", s, dev, torch.int8 if quant else torch.bfloat16)
-        if s.shape[0] != hkv or s.shape[1] != n_layers * b or s.shape[3] != hd:
+        if (s.shape[0] != hkv or s.shape[1] != n_layers * (b // chain)
+                or s.shape[3] != hd):
             raise ValueError(f"slab {i} has shape {tuple(s.shape)}")
         if s.shape[2] % TBLOCK or s.data_ptr() % 16:
             raise ValueError(f"slab {i} must hold whole pages, 16-byte aligned")
@@ -423,7 +464,7 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
         **{k: v.data_ptr() for k, v in ws.items()},
         B=b, D=d, H=n_heads, Hkv=hkv, hd=hd, F=f, L=n_layers, ftile=ft,
         Tp=prompt_k.shape[2], Tg=gen_k.shape[2], Tx=cross_k.shape[2],
-        kv_quant=int(quant), w4=int(w4), eps=dims.rms_norm_eps,
+        kv_quant=int(quant), w4=int(w4), chain=chain, eps=dims.rms_norm_eps,
         soft_cap=dims.attn_logit_softcap or 0.0, q_scale=dims.q_scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

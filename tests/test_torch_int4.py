@@ -405,7 +405,7 @@ def test_int4_greedy_token_traces_equal(setup, kv_cache, head_bits):
     got = teng.decode_tokens(
         tparams, setup["tcfg"], td,
         *(torch.from_numpy(a) for a in setup["inputs"]),
-        torch.Generator().manual_seed(0))
+        0)
     # the CPU runs the plain versions: no kernel was launched
     assert _kernel_counts() == before
     want_lens = np.asarray(want.gen_lens)
@@ -484,7 +484,7 @@ def test_int4_greedy_traces_part_only_after_a_rounding_flip(
         tconfig.DecodeConfig(top_k=1, kv_cache="paged_i8",
                              max_frames=MAX_FRAMES),
         *(torch.from_numpy(a) for a in setup["inputs"]),
-        torch.Generator().manual_seed(0))
+        0)
     tokens, lens = got.tokens.numpy(), got.gen_lens.numpy()
     first = []
     for r in range(len(want_lens)):
@@ -584,7 +584,7 @@ def test_int4_step_takes_the_decode_layer_path(setup, monkeypatch):
         tparams, setup["tcfg"],
         tconfig.DecodeConfig(top_k=1, kv_cache="paged_i8", max_frames=8),
         *(torch.from_numpy(a) for a in setup["inputs"]),
-        torch.Generator().manual_seed(0))
+        0)
     assert calls["stack"] == out.steps and calls["attn"] == 0
     assert calls["w4"] >= out.steps
 

@@ -85,7 +85,7 @@ def test_int8_greedy_token_traces_equal(setup, kv_cache):
     got = teng.decode_tokens(
         setup["tparams"], setup["tcfg"], td,
         *(torch.from_numpy(a) for a in setup["inputs"]),
-        torch.Generator().manual_seed(0))
+        0)
     # the CPU runs the plain versions: no kernel was launched
     assert (tmk.decode_stack.launches, tquant.w8a8_matmul.launches) == before
     want_lens = np.asarray(want.gen_lens)
@@ -118,7 +118,7 @@ def test_int8_step_takes_the_decode_layer_path(setup, monkeypatch):
             setup["tparams"], setup["tcfg"],
             tconfig.DecodeConfig(top_k=1, kv_cache=kv_cache, max_frames=8),
             *(torch.from_numpy(a) for a in setup["inputs"]),
-            torch.Generator().manual_seed(0))
+            0)
         want = out.steps if kv_cache == "paged_i8" else 0
         assert calls == {"stack": want, "attn": 0}, (kv_cache, calls)
 
@@ -168,7 +168,9 @@ def test_cli_serves_int8(tmp_path):
 
     from test_torch_pipeline import _offline_tokenizer
 
-    cfg = tiny_voice_config()
+    from test_torch_pipeline import _wide_window_cfg
+
+    cfg = _wide_window_cfg()       # the paged caches fit its window
     params = jvoice.init_params(jax.random.PRNGKey(0), cfg)
     model_dir, tok_dir = str(tmp_path / "model"), str(tmp_path / "tok")
     _offline_tokenizer(tok_dir, cfg.text_vocab_size)
@@ -184,6 +186,14 @@ def test_cli_serves_int8(tmp_path):
     frames = np.load(os.path.join(out_dir, "generated_frames.npy"))
     assert sr == 44100 and len(frames) > 0
     assert len(wav) == len(frames) * 882 and np.isfinite(wav).all()
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
-        cli.main(["--device", "cpu", "--random_codec", "--quantize", "int8",
-                  "--kv_cache", "paged_f8"])
+    # float8 pages are served too: int8 weights over paged_f8 take the
+    # paged attention kernel's e4m3 variant (the decode layer takes no f8)
+    f8_dir = str(tmp_path / "out_f8")
+    cli.main(["--model_dir", model_dir,
+              "--target_text", "hello world this is a test",
+              "--target_duration", "0.4", "--output_dir", f8_dir,
+              "--random_codec", "--top_k", "4", "--lang", "en",
+              "--device", "cpu", "--quantize", "int8", "--kv_cache",
+              "paged_f8"])
+    wav, sr = audio_io.read_wav(os.path.join(f8_dir, "generated.wav"))
+    assert sr == 44100 and len(wav) > 0 and np.isfinite(wav).all()

@@ -125,11 +125,48 @@ def test_cli_end_to_end(tmp_path):
     assert len(wav) == len(frames) * 882 and np.isfinite(wav).all()
 
 
-@pytest.mark.parametrize("flags", [["--reference_speech", "prompt.wav"],
-                                   ["--quantize", "int4"],
-                                   ["--kv_cache", "paged_f8"]])
-def test_cli_refuses_unported_modes(flags):
-    from t5gemma_tts_tpu_torch.inference import cli
+def _wide_window_cfg():
+    bb = tiny_voice_config().backbone
+    bb = dataclasses.replace(
+        bb, encoder=dataclasses.replace(bb.encoder, sliding_window=1024),
+        decoder=dataclasses.replace(bb.decoder, sliding_window=1024))
+    return tiny_voice_config(backbone=bb)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--device", "cpu", "--random_codec", *flags])
+
+@pytest.fixture(scope="module")
+def exported_model(tmp_path_factory):
+    """A tiny exported model directory with an offline tokenizer, its
+    sliding window wide enough for the paged caches."""
+    pytest.importorskip("transformers")
+    pytest.importorskip("tokenizers")
+    root = tmp_path_factory.mktemp("cli_modes")
+    cfg = _wide_window_cfg()
+    params = jvoice.init_params(jax.random.PRNGKey(0), cfg)
+    model_dir, tok_dir = str(root / "model"), str(root / "tok")
+    _offline_tokenizer(tok_dir, cfg.text_vocab_size)
+    hf_export.export_hf(params, cfg, model_dir, dtype="float32",
+                        text_tokenizer_name=tok_dir)
+    return model_dir
+
+
+@pytest.mark.parametrize("flags,refusal", [
+    (["--reference_speech", "prompt.wav"],
+     "--reference_speech needs the codec encoder"),
+    (["--quantize", "int4"], None),
+    (["--kv_cache", "paged_f8"], None)])
+def test_cli_refuses_unported_modes(exported_model, tmp_path, flags, refusal):
+    """Each case runs on a loadable model: an unported mode fails on its own
+    refusal, and the ported ones (int4 weights, float8 pages) are served."""
+    from t5gemma_tts_tpu_torch.inference import audio_io, cli
+
+    argv = ["--model_dir", exported_model, "--target_text", "hello world",
+            "--target_duration", "0.4", "--output_dir", str(tmp_path),
+            "--random_codec", "--top_k", "4", "--lang", "en",
+            "--device", "cpu", *flags]
+    if refusal is not None:
+        with pytest.raises(NotImplementedError, match=refusal):
+            cli.main(argv)
+        return
+    cli.main(argv)
+    wav, sr = audio_io.read_wav(os.path.join(str(tmp_path), "generated.wav"))
+    assert sr == 44100 and len(wav) > 0 and np.isfinite(wav).all()
