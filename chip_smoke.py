@@ -14,15 +14,21 @@ Phases, in order; any failure exits non-zero before the result line:
    e4m3 pages, 5 pseudo-rows over one cache row, an empty row, hd 16), the
    int8 decode layer (B = 4), the int4 decode layer (B = 1 and 4) and the
    decode layer at chain 5 (int8 and int4, 1 and 2 cache rows), each with
-   bf16 and int8 pages; the W8A8 and W4A8 products are held here too, but
-   at each quantized main path's own shapes and weights, right after that
-   path's run (4b, 4c, 4d);
+   bf16 and int8 pages; the W8A16 product at an odd width (N = 1001, M =
+   1, 4, 5, 17, 260) and the v1 fused self-attention (hd 256 and 16, bf16
+   and e4m3 pages, soft cap 50 and none, empty prompt and generation
+   segments, layer offsets); the W8A8, W4A8 and W8A16 products are held
+   here too, but at each quantized main path's own shapes and weights,
+   right after that path's run (4b, 4c, 4d, 4f);
 3. reference: a tiny f32 model decoded greedily on the card (kernels) and on
    the CPU (plain versions) must give the same tokens and waveforms, with
    bf16 weights and paged pages, with int8 weights and int8 pages, and with
    int4 weights and int8 pages; and the same tokens from the speculative
    engine (k = 4) with int4 weights over bf16 pages (the decode layer's
    chain) and with f32 weights over e4m3 pages (the one-segment kernel);
+   then W8A16 weights over paged pages (a row may part only at a near-tie,
+   see ``near_tie_parting``), and f32 weights with T5G_FUSED_ATTN = 0 and 1
+   over paged pages and 1 over e4m3 pages;
 4. main path, bf16: TTSPipeline at the full width of the 2b-2b preset
    (seeded random bf16 weights, the full-width XCodec2 decoder) synthesizes
    four requests with the paged cache; the attention kernel's launch count
@@ -67,7 +73,21 @@ Phases, in order; any failure exits non-zero before the result line:
    (the two-segment kernel, e4m3: 2 x 26 launches per step), then the
    speculative decode drafted as in 4d (the one-segment kernel: 3 x 26
    launches per pass), with 4d's numbers, and both kernels at the run's
-   shapes against their plain versions.
+   shapes against their plain versions;
+4g. the bf16 batch of phase 4 with T5G_FUSED_ATTN=1: the v1 kernel runs
+   self-attention (26 launches a step) and the one-segment kernel cross
+   attention (26 a step), the two-segment kernel never; RTF, tokens/s and
+   ms per step beside phase 4's; its profile, and one step's 26 v1
+   launches at the run's shapes (bf16 and e4m3 pages) against the plain
+   version;
+4f. W8A16 serving: the route quantize_params_for_decode(fuse_for_decode(
+   params), act_bits=16) + TTSPipeline(fuse_matmuls=False), the same four
+   requests over bf16 pages; W8A16 launches must equal the plan's count
+   (w8a16_launches), the two-segment kernel 2 x 26 a step, decode_stack
+   never; then every W8A16 product of the run against its plain version,
+   its profile, and one step's 158 products at the run's shapes, each
+   with the library call torch._weight_int8pack_mm and a bf16 matmul over
+   the weight dequantized beforehand.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -76,7 +96,9 @@ line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -86,6 +108,7 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12         # H100 SXM, f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12       # H100 SXM, bf16 tensor cores, dense
 PEAK_INT8_OPS = 1979e12        # H100 SXM, int8 tensor cores, dense
 # The int8 decode layer against its plain version, relative Frobenius
 # error: the same arithmetic, sums in another order. An f32 difference
@@ -187,16 +210,18 @@ def attention_case(rng, *, b, h, hkv, hd, quant, a_lens, b_lens, pp_a, pp_b,
     return args
 
 
-def attention_bytes_ops(args, include_current) -> tuple:
+def attention_bytes_ops(args, include_current, clamp_a=True) -> tuple:
     """Bytes the function must move (each input read once, the output
-    written once; only the valid tokens of each segment count) and its
+    written once; only the valid tokens of each segment count, segment A
+    at least one with ``clamp_a``, as kernel 1 reads it) and its
     floating-point operations, for this call's data."""
     b, h, hd = args["q"].shape
     hkv = args["a_k_pages"].shape[0]
     elem = args["a_k_pages"].element_size()
     quant = args["a_k_scales"] is not None
-    tokens = int(args["a_lengths"].clamp_min(1).sum())
-    pages = int(((args["a_lengths"].clamp_min(1) + PAGE - 1) // PAGE).sum())
+    a_lens = args["a_lengths"].clamp_min(1 if clamp_a else 0)
+    tokens = int(a_lens.sum())
+    pages = int(((a_lens + PAGE - 1) // PAGE).sum())
     if args["b_lengths"] is not None:
         tokens += int(args["b_lengths"].sum())
         pages += int(((args["b_lengths"] + PAGE - 1) // PAGE).sum())
@@ -384,8 +409,9 @@ def run_products(run: dict) -> list:
     as (name, M, weight), on the run's own weights (layer 0 of a stack):
     the head's w1 and w2 at M = B (every decode step; a speculative run
     also at M = B x (k + 1), its ``head_rows``), the decoder's six layer
-    products in the prefill at M = B x (prompt width + 1), and cross K/V at
-    M = B x text width; M comes from the run's plan."""
+    products in the prefill at M = B x (prompt width + 1) and, with W8A16
+    weights (which take the layer loop), at every step at M = B, and cross
+    K/V at M = B x text width; M comes from the run's plan."""
     from t5gemma_tts_tpu_torch.models.t5gemma import layer_params
 
     params = run["pipe"].params
@@ -394,9 +420,13 @@ def run_products(run: dict) -> list:
     out = [(f"head {nm}", b, params["head"][nm])
            for b in run.get("head_rows", [run["batch"]])
            for nm in ("w1", "w2")]
+    step_rows = ([run["batch"]]
+                 if getattr(lay["mlp"]["down"], "act_bits", 8) == 16 else [])
     for blk, names in (("self_attn", ("qkv", "o")), ("cross_attn", ("q", "o")),
                        ("mlp", ("gate_up", "down"))):
         out += [(f"prefill {blk}.{nm}", rows, lay[blk][nm]) for nm in names]
+        out += [(f"step {blk}.{nm}", m, lay[blk][nm])
+                for m in step_rows for nm in names]
     out += [(f"cross_attn.{nm} (cross K/V)", run["cross_rows"],
              lay["cross_attn"][nm]) for nm in ("k", "v")]
     return out
@@ -969,6 +999,300 @@ def chain_step_timing(pipe, card: str, steps: int, enc_len: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 2: slice 5's kernels, the W8A16 product and the v1 fused attention
+# ---------------------------------------------------------------------------
+
+W8A16_REL_FRO = 1e-5   # f32 output: exact products, f32 sums in another order
+
+
+def bf16_ulp(x):
+    """One bf16 unit in the last place at each element's magnitude."""
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(tiny))) - 7)
+
+
+def check_w8a16(name, x, w) -> float:
+    """Kernel 6 against its plain version on ``x`` and ``w``: f32 output
+    within W8A16_REL_FRO (relative Frobenius); bf16 output equal to the
+    kernel's own f32 output rounded to bf16, and within one bf16 ulp (at
+    the larger of the two magnitudes) of the plain version's, beyond the
+    two f32 sums' own difference (an output near 0 sums to other f32
+    values in another order, and that difference is many ulp of its own
+    magnitude).
+    Returns the f32 output's max abs error."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    got = quant.w8a16_matmul(x, w, torch.float32)
+    want = quant.w8a16_matmul_plain(x, w, torch.float32)
+    gb = quant.w8a16_matmul(x, w, torch.bfloat16).float()
+    wb = quant.w8a16_matmul_plain(x, w, torch.bfloat16).float()
+    torch.cuda.synchronize()
+    rel = rel_fro(got, want)
+    own = torch.equal(gb, got.to(torch.bfloat16).float())
+    ulps = float(((gb - wb).abs() - (got - want).abs()).div(
+        bf16_ulp(torch.maximum(gb.abs(), wb.abs()))).max())
+    if not (rel <= W8A16_REL_FRO and own and ulps <= 1.0):
+        raise AssertionError(f"w8a16 {name}: f32 relative error {rel:.2e} "
+                             f"(tol {W8A16_REL_FRO:g}); bf16 = its f32 "
+                             f"rounded: {own}; bf16 {ulps:g} ulp beyond the "
+                             f"f32 difference (tol 1)")
+    return float((got - want).abs().max())
+
+
+def w8a16_cost(m, k, n, x_bytes=2, out_bytes=2) -> tuple:
+    """Bytes the W8A16 product must move (x, the int8 weights and their
+    f32 scales, the output) and its operations."""
+    return m * k * x_bytes + n * k + n * 4 + m * n * out_bytes, 2 * m * k * n
+
+
+def int8pack_call(x, w):
+    """The library yardstick for one W8A16 product (timing only):
+    ``torch._weight_int8pack_mm`` over bf16 x and bf16 scales, or None
+    with the reason where this build has no CUDA kernel for it."""
+    xb, sb = x.to(torch.bfloat16), w.scale.to(torch.bfloat16)
+    try:
+        torch._weight_int8pack_mm(xb, w.values, sb)
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError, NotImplementedError) as e:
+        return None, str(e).strip().splitlines()[0][:120]
+    return lambda: torch._weight_int8pack_mm(xb, w.values, sb), None
+
+
+def bf16_matmul_call(x, w):
+    """The bf16 yardstick (timing only): x @ the weight dequantized to
+    bf16 beforehand, twice the int8 bytes."""
+    xb = x.to(torch.bfloat16)
+    wd = (w.values.float() * w.scale[:, None]).to(torch.bfloat16).t()
+    return lambda: xb @ wd
+
+
+def w8a16_launches(layers: int, steps: int) -> int:
+    """Kernel 6's launches on the W8A16 main path: cross K/V (two a layer)
+    and the prefill's six layer products, then at every decode step the
+    six layer products and the head's w1 and w2."""
+    return 8 * layers + steps * (6 * layers + 2)
+
+
+def time_w8a16(calls, card: str, label: str, iters: int) -> dict:
+    """The W8A16 products ``calls`` [(x, weight), ...] timed as one graph
+    each way: the kernel, the plain version, the library call and the bf16
+    yardstick; times are means per call."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    n = len(calls)
+
+    def run(fns):
+        return lambda: [f() for f in fns]
+
+    kern = [lambda x=x, w=w: quant.w8a16_matmul(x, w) for x, w in calls]
+    plain = [lambda x=x, w=w: quant.w8a16_matmul_plain(x, w)
+             for x, w in calls]
+    lib = [int8pack_call(x, w) for x, w in calls]
+    out = {"ms": graph_ms(run(kern), iters) / n,
+           "eager_ms": cuda_ms(run(kern), iters) / n,
+           "plain_ms": cuda_ms(run(plain), iters) / n,
+           "library_ms": (graph_ms(run([f for f, _ in lib]), iters) / n
+                          if lib[0][0] is not None else None),
+           "bf16_ms": graph_ms(run([bf16_matmul_call(x, w)
+                                    for x, w in calls]), iters) / n}
+    costs = [w8a16_cost(x.shape[0], x.shape[1], w.n) for x, w in calls]
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        sum(c[0] for c in costs) / n, sum(c[1] for c in costs) / n,
+        PEAK_BF16_FLOPS)
+    lib_note = (f"{out['library_ms']:.4f} (torch._weight_int8pack_mm, bf16 "
+                f"scales, graph)" if out["library_ms"] is not None
+                else f"none (torch._weight_int8pack_mm: {lib[0][1]})")
+    print(f"[kernel] w8a16 {label}: kernel_ms={out['ms']:.4f} (graph; eager "
+          f"call {out['eager_ms']:.4f}) plain_ms={out['plain_ms']:.4f} "
+          f"bound_ms={out['bound_ms']:.5f} ({out['bound_by']}) library_ms="
+          f"{lib_note} bf16_matmul_ms={out['bf16_ms']:.4f} (x @ the weight "
+          f"dequantized to bf16 beforehand, graph) [{card}]")
+    return out
+
+
+def phase_w8a16_shapes(card: str) -> float:
+    """Kernel 6 against its plain version at an odd width (N = 1001) and a
+    depth that is no multiple of 32 or of the GEMV's slab (K = 2320) for
+    M = 1, 4, 5 (the GEMV), 17 and 260 (the tensor-core tile), f32 and bf16
+    activations."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    w = quant.quantize_weight(
+        torch.randn((2320, 1001), generator=g, device=dev) * 0.05,
+        act_bits=16)
+    worst = 0.0
+    for m in (1, 4, 5, 17, 260):
+        x = torch.randn((m, 2320), generator=g, device=dev) * 2.0
+        for xd in (x, x.to(torch.bfloat16)):
+            worst = max(worst, check_w8a16(f"odd N M={m}", xd, w))
+    print(f"[kernel] w8a16 odd N (K=2320, N=1001; M = 1, 4, 5, 17, 260; f32 "
+          f"and bf16 x): f32 within {W8A16_REL_FRO:g} relative, bf16 its f32 "
+          f"rounded and within 1 ulp, max_abs_err={worst:.3e} [{card}]")
+    return worst
+
+
+def phase_w8a16_products(card: str, run: dict, iters: int) -> float:
+    """Every W8A16 product of a main-path run (:func:`run_products`: the
+    head's w1 and w2 at M = B, the six layer products of the prefill at
+    M = B x (prompt width + 1), cross K/V at M = B x text width) against
+    its plain version on the run's weights, each timed."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst = 0.0
+    for name, m, w in run_products(run):
+        k = w.values.shape[-1]
+        x = (torch.randn((m, k), generator=gen, device=dev) * 2.0).to(
+            torch.bfloat16)
+        err = check_w8a16(name, x, w)
+        worst = max(worst, err)
+        time_w8a16([(x, w)], card, f"{run['tag']} {name} [{m}x{k}]x[{k}x"
+                   f"{w.n}]: max_abs_err={err:.3e} (f32 within "
+                   f"{W8A16_REL_FRO:g} relative, bf16 its f32 rounded and "
+                   f"within 1 ulp)", iters)
+    return worst
+
+
+def w8a16_step_timing(pipe, card: str, batch: int, iters: int) -> dict:
+    """One decode step's W8A16 products at the main path's shapes, on its
+    own weights: the six products of each of the 26 layers and the head's
+    w1 and w2, all at M = B, bf16 activations."""
+    from t5gemma_tts_tpu_torch.models.t5gemma import layer_params
+
+    dev = pipe.device
+    params = pipe.params
+    g = torch.Generator(device=dev).manual_seed(13)
+    xs = {}
+
+    def x_for(w):
+        k = w.values.shape[-1]
+        if k not in xs:
+            xs[k] = torch.randn((batch, k), generator=g, device=dev).to(
+                torch.bfloat16)
+        return xs[k], w
+
+    calls = []
+    layers = params["decoder"]["layers"]
+    for li in range(pipe.cfg.backbone.decoder.num_layers):
+        lay = layer_params(layers, li)
+        for blk, nm in (("self_attn", "qkv"), ("self_attn", "o"),
+                        ("cross_attn", "q"), ("cross_attn", "o"),
+                        ("mlp", "gate_up"), ("mlp", "down")):
+            calls.append(x_for(lay[blk][nm]))
+    calls += [x_for(params["head"][nm]) for nm in ("w1", "w2")]
+    worst = max(check_w8a16("main-path step", x, w)
+                for x, w in calls[:6] + calls[-2:])
+    out = time_w8a16(calls, card, f"main-path step (B={batch}, the 158 "
+                     f"products of one step: 6 x 26 layers + the head's "
+                     f"two; mean per launch)", iters)
+    out["max_abs_err"] = worst
+    return out
+
+
+def fused_args(args: dict) -> dict:
+    """An :func:`attention_case` (two segments, the in-flight token) as the
+    v1 kernel's arguments."""
+    return dict(q=args["q"], k_cur=args["k_cur"], v_cur=args["v_cur"],
+                prompt_k_pages=args["a_k_pages"],
+                prompt_v_pages=args["a_v_pages"],
+                gen_k_pages=args["b_k_pages"], gen_v_pages=args["b_v_pages"],
+                prompt_lengths=args["a_lengths"],
+                gen_lengths=args["b_lengths"],
+                prompt_page_indices=args["a_page_indices"],
+                gen_page_indices=args["b_page_indices"])
+
+
+def phase_fused_attention(card: str, iters: int) -> dict:
+    """The v1 fused self-attention (kernel 7) against its plain version at
+    the 2b-2b head shapes (hd 256, 8 query heads, 4 kv heads) and at hd 16
+    (G 2), bf16 and e4m3 pages, soft cap 50 and none, with a row of prompt
+    length 0 and a row of generation length 0, page tables at layer 1 of a
+    two-layer buffer. Tolerance as kernel 1."""
+    from t5gemma_tts_tpu_torch.ops import fused_attn as fa
+
+    rng = np.random.default_rng(14)
+    dev = torch.device("cuda")
+    worst = {}
+    for tag in ("bf16", "e4m3"):
+        for name, spec in (
+                (f"hd256/{tag}", dict(b=4, h=8, hkv=4, hd=256,
+                                      a_lens=[0, 128, 165, 256],
+                                      b_lens=[7, 0, 129, 320], pp_a=2,
+                                      pp_b=3)),
+                (f"hd16-g2/{tag}", dict(b=3, h=4, hkv=2, hd=16,
+                                        a_lens=[0, 100, 0],
+                                        b_lens=[7, 0, 0], pp_a=2, pp_b=2))):
+            base = attention_case(rng, device=dev, quant=False,
+                                  f8=tag == "e4m3", layers=2, li=1,
+                                  include_current=True, **spec)
+            args = fused_args(base)
+            for cap in (50.0, None):
+                got = fa.fused_decode_attention(**args,
+                                                attn_logits_soft_cap=cap)
+                want = fa.fused_decode_attention_plain(
+                    **args, attn_logits_soft_cap=cap)
+                torch.cuda.synchronize()
+                err = check_close(f"fused_decode_attention {name} cap {cap}",
+                                  got, want)
+                worst[tag] = max(worst.get(tag, 0.0), err)
+            k_ms = cuda_ms(lambda: fa.fused_decode_attention(
+                **args, attn_logits_soft_cap=50.0), iters)
+            p_ms = cuda_ms(lambda: fa.fused_decode_attention_plain(
+                **args, attn_logits_soft_cap=50.0), iters)
+            b_ms, by = bound_ms(*attention_bytes_ops(base, True, False))
+            print(f"[kernel] fused_decode_attention {name} (caps 50 and "
+                  f"none): max_abs_err={worst[tag]:.3e} (tol {TOL_ABS:g} abs"
+                  f" + {TOL_REL:g} rel) kernel_ms={k_ms:.4f} plain_ms="
+                  f"{p_ms:.4f} bound_ms={b_ms:.5f} ({by}) library_ms=none "
+                  f"(no PyTorch call computes soft-capped paged GQA) "
+                  f"[{card}]")
+    return worst
+
+
+def fused_step_timing(card: str, prompt_len: int, gen_len: int, batch: int,
+                      gen_slab: int, iters: int, f8: bool = False) -> dict:
+    """One decode step's 26 v1-kernel launches (self-attention of each
+    layer) at the main path's cache shapes, kernel against plain version."""
+    from t5gemma_tts_tpu_torch.ops import fused_attn as fa
+
+    rng = np.random.default_rng(15)
+    pp_b = gen_slab // PAGE
+    base = attention_case(
+        rng, device=torch.device("cuda"), b=batch, h=8, hkv=4, hd=256,
+        quant=False, f8=f8, a_lens=[prompt_len] * batch,
+        b_lens=[gen_len] * batch, pp_a=1, pp_b=pp_b, layers=MODEL_LAYERS,
+        li=0, include_current=True)
+    args = fused_args(base)
+    calls = [dict(args, prompt_page_indices=args["prompt_page_indices"]
+                  + li * batch,
+                  gen_page_indices=args["gen_page_indices"]
+                  + li * batch * pp_b) for li in range(MODEL_LAYERS)]
+    worst = max(check_close("v1 main-path shapes", fa.fused_decode_attention(
+        **a, attn_logits_soft_cap=50.0), fa.fused_decode_attention_plain(
+        **a, attn_logits_soft_cap=50.0)) for a in calls[:2])
+
+    def run(fn):
+        return lambda: [fn(**a, attn_logits_soft_cap=50.0) for a in calls]
+
+    n = len(calls)
+    out = {"ms": graph_ms(run(fa.fused_decode_attention), iters) / n,
+           "eager_ms": cuda_ms(run(fa.fused_decode_attention), iters) / n,
+           "plain_ms": cuda_ms(run(fa.fused_decode_attention_plain),
+                               iters) / n,
+           "max_abs_err": worst, "library_ms": None}
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        *attention_bytes_ops(base, True, False))
+    print(f"[kernel] fused_decode_attention main-path step (B={batch}, "
+          f"prompt {prompt_len}, gen {gen_len}, {'e4m3' if f8 else 'bf16'} "
+          f"pages; mean of {n} launches): kernel_ms={out['ms']:.4f} (graph; "
+          f"eager {out['eager_ms']:.4f}) plain_ms={out['plain_ms']:.4f} "
+          f"bound_ms={out['bound_ms']:.5f} ({out['bound_by']}) "
+          f"max_abs_err={worst:.3e} [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: the port's main path
 # ---------------------------------------------------------------------------
 
@@ -980,28 +1304,55 @@ def char_tokenizer(vocab: int):
 
 
 def build_pipeline(cfg, ccfg, device, seed, init_device=None, int8=False,
-                   int4=False):
+                   int4=False, w8a16=False):
     """A pipeline on ``device`` with seeded random weights, made on
     ``init_device`` (default: ``device``); ``int8`` / ``int4`` quantize its
-    decode weights on ``device``. The CPU's and the card's generators draw
-    different numbers from one seed, so two pipelines that must hold the
-    same weights make them on one device."""
+    decode weights on ``device``, and so does ``w8a16`` by the W8A16 route
+    (``quantize_params_for_decode(fuse_for_decode(params), act_bits=16)``,
+    then ``TTSPipeline(params, fuse_matmuls=False)``). The CPU's and the
+    card's generators draw different numbers from one seed, so two
+    pipelines that must hold the same weights make them on one device."""
     from t5gemma_tts_tpu_torch.codec.audio_tokenizer import AudioTokenizer
     from t5gemma_tts_tpu_torch.codec.model import init_decoder_params
+    from t5gemma_tts_tpu_torch.device import tree_to
     from t5gemma_tts_tpu_torch.inference.pipeline import TTSPipeline
     from t5gemma_tts_tpu_torch.models import voice
+    from t5gemma_tts_tpu_torch.models.t5gemma import fuse_for_decode
+    from t5gemma_tts_tpu_torch.ops.quant import quantize_params_for_decode
 
     init_device = init_device or device
     params = voice.init_params(seed, cfg, device=init_device)
     cparams = init_decoder_params(seed + 1, ccfg, device=init_device)
+    if w8a16:
+        params = quantize_params_for_decode(fuse_for_decode(
+            tree_to(params, torch.device(device))), act_bits=16)
     return TTSPipeline(params, cfg, char_tokenizer(cfg.text_vocab_size),
                        AudioTokenizer(cparams, ccfg, device=device),
-                       device=device, int8=int8, int4=int4)
+                       fuse_matmuls=not w8a16, device=device, int8=int8,
+                       int4=int4)
+
+
+@contextlib.contextmanager
+def attn_mode(mode):
+    """``T5G_FUSED_ATTN`` set to ``mode`` (None: left as it is) for the
+    block, then restored; an error inside propagates."""
+    old = os.environ.get("T5G_FUSED_ATTN")
+    if mode is not None:
+        os.environ["T5G_FUSED_ATTN"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("T5G_FUSED_ATTN", None)
+        else:
+            os.environ["T5G_FUSED_ATTN"] = old
 
 
 def phase_reference(devices=("cpu", "cuda"), weights="f32",
-                    kv_cache="paged") -> None:
-    """Tiny f32 model: greedy paged decode on the card == on the CPU."""
+                    kv_cache="paged", mode=None) -> dict:
+    """Tiny f32 model: greedy paged decode on the card == on the CPU, with
+    ``T5G_FUSED_ATTN`` = ``mode`` where given. Returns the card run's
+    kernel launches."""
     from t5gemma_tts_tpu_torch.codec.model import tiny_codec_config
     from t5gemma_tts_tpu_torch.config import (
         DecodeConfig, backbone_preset, tiny_voice_config)
@@ -1017,24 +1368,79 @@ def phase_reference(devices=("cpu", "cuda"), weights="f32",
     reqs = [Request(target_text=t, target_duration=d, lang="en")
             for t, d in (("hello world", 0.4), ("a test of the port", 0.6))]
     dcfg = DecodeConfig(top_k=1, kv_cache=kv_cache)
-    out = {}
+    out, logits, tokens = {}, {}, {}
     for device in devices:
         pipe = build_pipeline(cfg, tiny_codec_config(), device, seed=0,
                               init_device="cpu", int8=weights == "int8",
-                              int4=weights == "int4")
-        out[device] = pipe.synthesize_batch(reqs, dcfg, seed=0, quiet=True)
-    worst = 0.0
-    for rc, rg in zip(out[devices[0]], out[devices[-1]]):
-        if not np.array_equal(rc.gen_frames, rg.gen_frames):
+                              int4=weights == "int4",
+                              w8a16=weights == "w8a16")
+        logits[device], tokens[device] = {}, {}
+        with attn_mode(mode):
+            out[device], _, launches = _counted(lambda: _recorded(
+                lambda: pipe.synthesize_batch(reqs, dcfg, seed=0,
+                                              quiet=True),
+                logits[device], tokens[device]))
+    worst, partings = 0.0, []
+    for r, (rc, rg) in enumerate(zip(out[devices[0]], out[devices[-1]])):
+        if np.array_equal(rc.gen_frames, rg.gen_frames):
+            worst = max(worst, float(np.abs(rc.wav - rg.wav).max()))
+        elif weights == "w8a16":
+            partings.append(near_tie_parting(
+                r, *(logits[d] for d in devices), *(tokens[d]
+                                                    for d in devices)))
+        else:
             raise AssertionError(f"greedy tokens differ: cpu {rc.gen_frames} "
                                  f"cuda {rg.gen_frames}")
-        worst = max(worst, float(np.abs(rc.wav - rg.wav).max()))
     if worst > 1e-4:
         raise AssertionError(f"tiny wav differs from the CPU by {worst:.3e}")
-    print(f"[reference] tiny {weights}-weight greedy {kv_cache} decode: "
-          f"tokens equal on card and CPU "
+    mode_note = f" T5G_FUSED_ATTN={mode}" if mode is not None else ""
+    equal = len(out[devices[-1]]) - len(partings)
+    print(f"[reference] tiny {weights}-weight greedy {kv_cache}{mode_note} "
+          f"decode: tokens equal on card and CPU for {equal} of "
+          f"{len(out[devices[-1]])} rows "
           f"({[len(r.gen_frames) for r in out[devices[-1]]]} frames), "
-          f"wav max abs diff {worst:.3e} (tol 1e-4)")
+          f"wav max abs diff {worst:.3e} over those (tol 1e-4)"
+          f"{''.join('; ' + p for p in partings)}; card launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def near_tie_parting(row, cpu_logits, card_logits, cpu_tokens,
+                     card_tokens) -> str:
+    """Where a W8A16 row's card stream parts from its CPU stream, held to
+    the parting protocol: the product rounds f32 activations to bf16, so an
+    activation that the two devices compute one f32 rounding apart next to
+    a bf16 rounding midpoint rounds to neighbouring values, and the flip
+    grows through the later layers. Before the parting step the two
+    devices' logits agree within a flip cascade's bound
+    (REL_FRO_TOL_STACK); at it the CPU's margin between its token and the
+    card's is within the gap between the devices' logits there (a
+    near-tie). Returns the report."""
+    steps = sorted(set(cpu_tokens) & set(card_tokens))
+    parted = [s for s in steps
+              if int(cpu_tokens[s][row]) != int(card_tokens[s][row])]
+    if not parted:
+        raise AssertionError(f"w8a16 row {row}: the frames differ but no "
+                             f"sampled token does")
+    t = parted[0]
+
+    def rel(s):
+        c = cpu_logits[s][row]
+        return float((card_logits[s][row].cpu() - c).norm() / c.norm())
+
+    before = max((rel(s) for s in steps if s < t), default=0.0)
+    a, b = int(cpu_tokens[t][row]), int(card_tokens[t][row])
+    ls, lp = cpu_logits[t][row], card_logits[t][row].cpu()
+    margin, gap = float(ls[a] - ls[b]), float((lp - ls).abs().max())
+    if before > REL_FRO_TOL_STACK or margin > gap:
+        raise AssertionError(f"w8a16 row {row} parts at step {t}: logits "
+                             f"{before:.2e} apart before it (tol "
+                             f"{REL_FRO_TOL_STACK:g}); CPU margin {margin:.3e}"
+                             f" against a logit gap of {gap:.3e}")
+    return (f"row {row} parts at step {t} at a near-tie: the devices' logits "
+            f"apart by at most {before:.2e} (relative) before it; there the "
+            f"CPU puts its token {a} {margin:.3e} above the card's {b}, "
+            f"and their logits lie up to {gap:.3e} apart")
 
 
 def planned_inputs(pipe, reqs):
@@ -1112,7 +1518,9 @@ def _counters():
             "decode_stack": mk.decode_stack,
             "decode_layer": mk.decode_layer,
             "w8a8_matmul": quant.w8a8_matmul,
-            "w4a8_matmul": quant.w4a8_matmul}
+            "w4a8_matmul": quant.w4a8_matmul,
+            "w8a16_matmul": quant.w8a16_matmul,
+            "fused_decode_attention": fa.fused_decode_attention}
 
 
 def _counted(fn):
@@ -1129,17 +1537,21 @@ def _counted(fn):
     return out, wall, {k: c.launches for k, c in counters.items()}
 
 
-def _recorded(fn, store):
+def _recorded(fn, store, tokens=None):
     """``fn()`` with the logits of every sampled step kept in ``store``
     (step -> [B, V] f32 on the device; a step sampled twice keeps its last
-    logits, those of the emitted token)."""
+    logits, those of the emitted token) and, with ``tokens``, the sampled
+    tokens there (step -> [B])."""
     from t5gemma_tts_tpu_torch.decode import engine
 
     sample = engine._candidate_sample
 
     def recording(cfg, dcfg, logits, step, *a, **k):
         store[int(step)] = logits.float().clone()
-        return sample(cfg, dcfg, logits, step, *a, **k)
+        out = sample(cfg, dcfg, logits, step, *a, **k)
+        if tokens is not None:
+            tokens[int(step)] = out[0].clone()
+        return out
 
     engine._candidate_sample = recording
     try:
@@ -1279,24 +1691,29 @@ DURATIONS = (2.0, 2.5, 3.0, 4.0)
 
 
 def phase_main_path(card: str, seed: int, weights: str = "bf16",
-                    batch: int = 4, pipe=None) -> dict:
+                    batch: int = 4, pipe=None, mode=None) -> dict:
     """Requests through TTSPipeline at 2b-2b: the four requests, or with
-    ``batch=1`` the 4.0 s one alone; bf16 weights and bf16 pages, or W8A8
-    (``weights="int8"``) or int4 (``"int4"``) weights and int8 pages.
-    ``pipe`` reuses a pipeline built for the same weights. The launch counts
-    are set to 0 just before the run and read just after."""
+    ``batch=1`` the 4.0 s one alone; bf16 or W8A16 (``weights="w8a16"``)
+    weights and bf16 pages, or W8A8 (``"int8"``) or int4 (``"int4"``)
+    weights and int8 pages; ``mode`` sets ``T5G_FUSED_ATTN`` for the run
+    (bf16 weights, mode 1: the v1 attention). ``pipe`` reuses a pipeline
+    built for the same weights. The launch counts are set to 0 just before
+    the run and read just after."""
     from t5gemma_tts_tpu_torch.codec.model import XCodec2Config
     from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
     from t5gemma_tts_tpu_torch.inference.pipeline import Request
 
     cfg = VoiceConfig()                      # 2b-2b preset, bf16
     ccfg = XCodec2Config()                   # full-width decoder
-    kv_cache = "paged" if weights == "bf16" else "paged_i8"
+    kv_cache = "paged" if weights in ("bf16", "w8a16") else "paged_i8"
     tag = weights if batch == 4 else f"{weights} b{batch}"
+    if mode is not None:
+        tag += f" mode {mode}"
     if pipe is None:
         t0 = time.time()
         pipe = build_pipeline(cfg, ccfg, "cuda", seed,
-                              int8=weights == "int8", int4=weights == "int4")
+                              int8=weights == "int8", int4=weights == "int4",
+                              w8a16=weights == "w8a16")
         torch.cuda.synchronize()
         print(f"[main/{tag}] 2b-2b pipeline built on the card in "
               f"{time.time() - t0:.3f}s ({n_params(pipe.params) / 1e9:.2f} B "
@@ -1307,19 +1724,29 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
     dcfg = DecodeConfig(kv_cache=kv_cache, seed=seed)
 
     torch.cuda.reset_peak_memory_stats()
-    results, wall, launches = _counted(
-        lambda: pipe.synthesize_batch(reqs, dcfg, seed=seed))
+    with attn_mode(mode):
+        results, wall, launches = _counted(
+            lambda: pipe.synthesize_batch(reqs, dcfg, seed=seed))
 
     steps = results[0].steps
     layers = cfg.backbone.decoder.num_layers
     n = launches
-    if weights == "bf16":
-        ok = (n["batch_paged_attention"] == 2 * layers * steps
-              and n["decode_stack"] == n["w8a8_matmul"] == 0
-              and n["w4a8_matmul"] == n["paged_flash_parts"] == 0)
+    unquantized = (n["decode_stack"] == n["w8a8_matmul"] == 0
+                   and n["w4a8_matmul"] == 0)
+    if mode == "1":                  # v1 self-attention, one-segment cross
+        ok = (unquantized and n["w8a16_matmul"] == 0
+              and n["fused_decode_attention"] == layers * steps
+              and n["paged_flash_parts"] == layers * steps
+              and n["batch_paged_attention"] == 0)
+    elif weights in ("bf16", "w8a16"):
+        w16 = w8a16_launches(layers, steps) if weights == "w8a16" else 0
+        ok = (unquantized and n["w8a16_matmul"] == w16
+              and n["batch_paged_attention"] == 2 * layers * steps
+              and n["paged_flash_parts"] == n["fused_decode_attention"] == 0)
     else:
         ok = (n["decode_stack"] == steps and n["batch_paged_attention"] == 0
-              and n["decode_layer"] == n["paged_flash_parts"] == 0)
+              and n["decode_layer"] == n["paged_flash_parts"] == 0
+              and n["w8a16_matmul"] == n["fused_decode_attention"] == 0)
         if weights == "int8":        # the head's w1 and w2
             ok = ok and n["w8a8_matmul"] >= 2 * steps and n["w4a8_matmul"] == 0
         else:                        # the head's w1 (int8) and w2 (int4)
@@ -1385,8 +1812,9 @@ def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
     t0 = time.time()
     run()
     wall_ms = (time.time() - t0) * 1e3       # without the profiler's cost
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the rows read are kernels, and recording every
+    # host op of a layer loop would add tens of seconds to the run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     rows = []
     for e in prof.key_averages():
@@ -1444,7 +1872,11 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind}")
-    t0 = time.time()
+    start = t0 = time.time()
+
+    def stamp(label):
+        print(f"[time] {label} done at {time.time() - start:.1f}s")
+
     logs = cuda_build.build(verbose=True)
     print(f"[device] built {sorted(cuda_build.SOURCES)} in "
           f"{time.time() - t0:.1f}s")
@@ -1454,17 +1886,26 @@ def main(argv=None) -> int:
                 print(f"[device] {name}: {line.strip()}")
 
     cfg = VoiceConfig()
+    stamp("1 (build)")
     worst_attn = phase_kernel(card, args.iters)
     worst_parts = phase_paged_parts(card, args.iters)
     worst_layer = phase_decode_layer(card, cfg, args.iters)
     worst_layer4 = phase_decode_layer(card, cfg, args.iters, int4=True)
     worst_chain = phase_chain_layer(card, cfg, args.iters)
+    worst16 = phase_w8a16_shapes(card)
+    worst_fused = phase_fused_attention(card, args.iters)
+    stamp("2 (kernels)")
     phase_reference()
     phase_reference(weights="int8", kv_cache="paged_i8")
     phase_reference(weights="int4", kv_cache="paged_i8")
     phase_spec_reference("int4", "paged")
     phase_spec_reference("f32", "paged_f8")
+    phase_reference(weights="w8a16")
+    phase_reference(mode="0")
+    phase_reference(mode="1")
+    ref_f8 = phase_reference(kv_cache="paged_f8", mode="1")
     step_iters = max(args.iters // 4, 2)
+    stamp("3 (references)")
 
     main = phase_main_path(card, args.seed)
     phase_profile(main["pipe"], card, main["enc_lens"])
@@ -1472,8 +1913,25 @@ def main(argv=None) -> int:
         card, prompt_len=1, gen_len=main["steps"] // 2,
         enc_lens=main["enc_lens"], gen_slab=main["gen_slab"],
         iters=step_iters)
-    pipe16 = main.pop("pipe")          # phase 4e runs it over float8 pages
+    pipe16 = main.pop("pipe")          # phases 4g and 4e run it again
 
+    # 4g: the same batch with the v1 self-attention (T5G_FUSED_ATTN=1)
+    main1 = phase_main_path(card, args.seed, pipe=pipe16, mode="1")
+    main1.pop("pipe")
+    print(f"[main/bf16 mode 1 vs mode 2] RTF {main1['rtf']:.3f}x vs "
+          f"{main['rtf']:.3f}x; tokens/s {main1['tokens_per_s']:.2f} vs "
+          f"{main['tokens_per_s']:.2f}; ms per step {main1['step_ms']:.2f} "
+          f"vs {main['step_ms']:.2f} [{card}]")
+    with attn_mode("1"):
+        phase_profile(pipe16, card, main1["enc_lens"], weights="bf16 mode 1")
+    fused_timing = fused_step_timing(
+        card, prompt_len=1, gen_len=main1["steps"] // 2, batch=4,
+        gen_slab=main1["gen_slab"], iters=step_iters)
+    fused_timing_f8 = fused_step_timing(
+        card, prompt_len=1, gen_len=main1["steps"] // 2, batch=4,
+        gen_slab=main1["gen_slab"], iters=step_iters, f8=True)
+
+    stamp("4 and 4g (bf16)")
     main8 = phase_main_path(card, args.seed, "int8")
     worst8 = phase_products(card, main8, args.iters)
     phase_profile(main8["pipe"], card, main8["enc_lens"], kv_cache="paged_i8",
@@ -1482,6 +1940,7 @@ def main(argv=None) -> int:
                                 main8["enc_lens"], main8["gen_slab"],
                                 iters=step_iters)
 
+    stamp("4b (int8)")
     # 4c: int4 at batch 1, against int8 at batch 1 on the same request, in
     # turns (int8, int4, int4, int8)
     pipe8 = main8.pop("pipe")
@@ -1514,6 +1973,7 @@ def main(argv=None) -> int:
                                 main4["enc_lens"], main4["gen_slab"],
                                 iters=step_iters)
 
+    stamp("4c (int4 b1)")
     # 4d: speculative int4 at batch 1 (the JAX bench's probe), then every
     # quantized product of that run and one verify pass's decode_stack
     spec4 = phase_speculative(card, pipe4, "int4 b1", "auto", args.seed)
@@ -1525,6 +1985,7 @@ def main(argv=None) -> int:
     del pipe4
     torch.cuda.empty_cache()
 
+    stamp("4d (speculative int4)")
     # 4e: bf16 weights over float8 pages at batch 1: sequential (kernel 1,
     # e4m3) and speculative (the one-segment kernel)
     spec8 = phase_speculative(card, pipe16, "bf16 b1", "paged_f8", args.seed)
@@ -1540,6 +2001,16 @@ def main(argv=None) -> int:
     del pipe16
     torch.cuda.empty_cache()
 
+    stamp("4e (bf16 over e4m3)")
+    # 4f: W8A16 serving, the four requests at batch 4 over bf16 pages; then
+    # every W8A16 product of the run and one decode step's products
+    main16 = phase_main_path(card, args.seed, "w8a16")
+    worst16 = max(worst16, phase_w8a16_products(card, main16, args.iters))
+    phase_profile(main16["pipe"], card, main16["enc_lens"], weights="w8a16")
+    timing16 = w8a16_step_timing(main16.pop("pipe"), card, 4, step_iters)
+    torch.cuda.empty_cache()
+
+    stamp("4f (w8a16)")
     src = "t5gemma_tts_tpu_torch/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
@@ -1595,6 +2066,24 @@ def main(argv=None) -> int:
              launches=spec8["launches"]["paged_flash_parts"],
              max_abs_err=max(worst_parts, parts_timing["max_abs_err"]),
              **{k: parts_timing[k] for k in keys}),
+        dict(name="w8a16_matmul", route="cuda",
+             source=src + "w8a16_matmul.cu",
+             replaces="t5gemma_tts_tpu/ops/quant.py:78",
+             launches=main16["launches"]["w8a16_matmul"],
+             max_abs_err=max(worst16, timing16["max_abs_err"]),
+             **{k: timing16[k] for k in keys},
+             bf16_matmul_ms=timing16["bf16_ms"]),
+        dict(name="fused_decode_attention", route="cuda",
+             source=src + "fused_decode_attention.cu",
+             replaces="t5gemma_tts_tpu/ops/fused_attn.py:97",
+             launches=main1["launches"]["fused_decode_attention"],
+             max_abs_err=max(worst_fused["bf16"],
+                             fused_timing["max_abs_err"]),
+             **{k: fused_timing[k] for k in keys},
+             e4m3=dict(launches=ref_f8["fused_decode_attention"],
+                       max_abs_err=max(worst_fused["e4m3"],
+                                       fused_timing_f8["max_abs_err"]),
+                       **{k: fused_timing_f8[k] for k in keys[:4]})),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -13,8 +13,9 @@ Two decode caches:
   the sliding window;
 - the paged cache (:class:`PagedDecoderCache`, :func:`paged_prefill`,
   :func:`paged_decode_step`), bf16, float8 e4m3 or int8 pages, whose
-  attention reads go through ``ops/fused_attn.batch_paged_attention``: on
-  the card the hand-written CUDA kernel, twice per layer.
+  attention reads go through the kernel that ``T5G_FUSED_ATTN`` picks
+  (:func:`_fused_attn_mode`): by default ``ops/fused_attn.
+  batch_paged_attention``, twice per layer.
 
 The speculative verify pass runs S tokens per row at once: over the dense
 cache through :func:`decoder_forward` (an S-token block at ``cache_pos``),
@@ -25,7 +26,8 @@ they are, int8 ``QuantWeight`` leaves (``quantize_params_for_decode``) take
 the W8A8 product and int4 ``Int4Weight`` leaves the W4A8 product. With W8A8
 or int4 decoder weights over bf16 or int8 pages the paged decode step (and
 the verify pass) runs all layers through ``ops/megakernel.decode_stack``
-instead of the layer loop.
+instead of the layer loop; W8A16 leaves (``act_bits=16``) take the layer
+loop.
 
 Unlike the JAX package, the caches are updated in place (the step writes
 one token per layer into preallocated buffers instead of returning copies).
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -509,6 +512,33 @@ def _flush_block(buf, pending, scale_buf, start: int):
         hkv, lb, s_len, hd).to(buf.dtype)
 
 
+def _fused_attn_mode(cache: PagedDecoderCache) -> int:
+    """The paged decode step's attention kernels, by ``T5G_FUSED_ATTN`` (the
+    JAX package's selector, with its meanings):
+
+    - 0: self-attention as two ``paged_flash_parts`` launches (prompt and
+      generation pages) joined with the in-flight token by
+      ``merge_attention_parts``; cross attention ``paged_gqa_attention``;
+    - 1: self-attention ``fused_decode_attention`` (the v1 kernel); cross
+      attention ``paged_gqa_attention``;
+    - 2: ``batch_paged_attention`` for both;
+    - 3 (default): ``megakernel.decode_stack`` where ``megakernel.supports``
+      holds, else 2.
+
+    int8 pages force 2 unless the mode is 3, as in the JAX package: only
+    kernel 1 and the decode layer read scale planes. The JAX gates
+    ``head_dim % 128`` and ``num_heads % 8`` are Mosaic's tiling limits and
+    are not carried over; neither is its rule off the TPU (modes 1 and 2
+    run as 0 there): here every mode runs as asked, through its kernels on
+    the card and their plain versions on the CPU."""
+    mode = int(os.environ.get("T5G_FUSED_ATTN", "3"))
+    if mode not in (0, 1, 2, 3):
+        raise ValueError(f"T5G_FUSED_ATTN must be 0, 1, 2 or 3, got {mode}")
+    if cache.gen_k.dtype == torch.int8 and mode != 3:
+        return 2
+    return mode
+
+
 def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
                       position_ids, pm_decoder_positions,
                       cache: PagedDecoderCache, step: int, prompt_lengths,
@@ -519,12 +549,13 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     (on the first step slot 0 gets zeros, invisible at gen length 0), then
     runs the layers: self-attention over the prompt pages, the ``step``
     generated tokens and the in-flight token (unrounded), and
-    cross-attention over the encoder pages, each one
-    ``batch_paged_attention`` call. The new token's K/V become the pending
-    block (bf16). ``prompt_lengths``/``enc_lengths`` are int32 [B].
+    cross-attention over the encoder pages, through the kernels of the
+    attention mode (:func:`_fused_attn_mode`; by default one
+    ``batch_paged_attention`` call each). The new token's K/V become the
+    pending block (bf16). ``prompt_lengths``/``enc_lengths`` are int32 [B].
 
-    When ``megakernel.supports`` the decoder's (W8A8 or int4) layers and
-    the pages (bf16 or int8; float8 pages take the loop), one
+    In mode 3, when ``megakernel.supports`` the decoder's (W8A8 or int4)
+    layers and the pages (bf16 or int8; float8 pages take the loop), one
     ``decode_stack`` call replaces the layer loop: the hidden state enters
     it in f32 and stays f32 across the layers, and its unrounded k/v come
     back as the new pending block."""
@@ -538,10 +569,13 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     _flush_block(cache.gen_v, cache.pending_v[:, :, None], cache.gen_v_scale,
                  slot)
     gen_lengths = torch.full((b,), step, dtype=torch.int32, device=h.device)
-    if megakernel.supports(params["layers"], dims, cache):
-        return _decode_step_stacked(params, dims, h, cos, sin, q_cos, q_sin,
-                                    cache, prompt_lengths, gen_lengths,
-                                    enc_lengths)
+    mode = _fused_attn_mode(cache)
+    if mode == 3:
+        if megakernel.supports(params["layers"], dims, cache):
+            return _decode_step_stacked(params, dims, h, cos, sin, q_cos,
+                                        q_sin, cache, prompt_lengths,
+                                        gen_lengths, enc_lengths)
+        mode = 2
 
     prompt_kp, prompt_vp, gen_kp, gen_vp, cross_kp, cross_vp = _page_views(
         cache)
@@ -562,12 +596,27 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         q = rope_ops.apply_rope(q, cos, sin)
         k = rope_ops.apply_rope(k, cos, sin)
         qv = q[:, :, 0].float() * dims.q_scale
-        attn = fused_attn.batch_paged_attention(
-            qv, k[:, :, 0], v[:, :, 0], prompt_kp, prompt_vp, gen_kp, gen_vp,
-            prompt_lengths, gen_lengths, tables["prompt"][li],
-            tables["gen"][li], *prompt_s, *gen_s,
-            attn_logits_soft_cap=cap, include_current=True).to(h.dtype)
-        a = _mm(attn.reshape(b, 1, -1), lp["self_attn"]["o"])
+        k_cur, v_cur = k[:, :, 0], v[:, :, 0]
+        p_idx, g_idx = tables["prompt"][li], tables["gen"][li]
+        if mode == 2:
+            attn = fused_attn.batch_paged_attention(
+                qv, k_cur, v_cur, prompt_kp, prompt_vp, gen_kp, gen_vp,
+                prompt_lengths, gen_lengths, p_idx, g_idx, *prompt_s,
+                *gen_s, attn_logits_soft_cap=cap, include_current=True)
+        elif mode == 1:
+            attn = fused_attn.fused_decode_attention(
+                qv, k_cur, v_cur, prompt_kp, prompt_vp, gen_kp, gen_vp,
+                prompt_lengths, gen_lengths, p_idx, g_idx,
+                attn_logits_soft_cap=cap)
+        else:
+            parts = [paged_attn.paged_flash_parts(
+                         qv, kp, vp, lens, idx, attn_logits_soft_cap=cap)
+                     for kp, vp, lens, idx in (
+                         (prompt_kp, prompt_vp, prompt_lengths, p_idx),
+                         (gen_kp, gen_vp, gen_lengths, g_idx))]
+            attn = paged_attn.merge_attention_parts(parts, qv, k_cur, v_cur,
+                                                    cap, torch.float32)
+        a = _mm(attn.to(h.dtype).reshape(b, 1, -1), lp["self_attn"]["o"])
         h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
 
         hn = rms_norm(h, lp["pre_cross_attn_norm"], eps)
@@ -576,11 +625,16 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         if q_cos is not None:
             cq = rope_ops.apply_rope(cq, q_cos, q_sin)
         cqv = cq[:, :, 0].float() * dims.q_scale
-        cattn = fused_attn.batch_paged_attention(
-            cqv, None, None, cross_kp, cross_vp, None, None, enc_lengths,
-            None, tables["cross"][li], None, *cross_s, None, None,
-            attn_logits_soft_cap=cap).to(h.dtype)
-        a = _mm(cattn.reshape(b, 1, -1), lp["cross_attn"]["o"])
+        if mode == 2:
+            cattn = fused_attn.batch_paged_attention(
+                cqv, None, None, cross_kp, cross_vp, None, None, enc_lengths,
+                None, tables["cross"][li], None, *cross_s, None, None,
+                attn_logits_soft_cap=cap)
+        else:
+            cattn = paged_attn.paged_gqa_attention(
+                cqv, cross_kp, cross_vp, enc_lengths,
+                page_indices=tables["cross"][li], attn_logits_soft_cap=cap)
+        a = _mm(cattn.to(h.dtype).reshape(b, 1, -1), lp["cross_attn"]["o"])
         h = h + rms_norm(a, lp["post_cross_attn_norm"], eps)
 
         m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
@@ -618,9 +672,10 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     prefix.
 
     With W8A8 or int4 decoder weights over bf16 or int8 pages
-    (``megakernel.supports``) the pass is one ``decode_stack(chain=S)``
-    call. int8 pages run only there: without such weights ``paged_i8``
-    raises. Otherwise (bf16 weights, or float8 pages) each layer runs the
+    (``megakernel.supports``), in attention mode 3 or over int8 pages (the
+    JAX rule), the pass is one ``decode_stack(chain=S)`` call. int8 pages
+    run only there: without such weights ``paged_i8`` raises. Otherwise
+    (bf16 or W8A16 weights, float8 pages, or modes 0-2) each layer runs the
     one-segment kernel over the prompt and the generation pages
     (``paged_flash_parts``), joins the chain through
     ``merge_attention_parts_chain`` and takes cross attention through
@@ -635,7 +690,8 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     _flush_block(cache.gen_k, pending_k, cache.gen_k_scale, flush_start)
     _flush_block(cache.gen_v, pending_v, cache.gen_v_scale, flush_start)
     quant = cache.gen_k.dtype == torch.int8
-    fused = megakernel.supports(params["layers"], dims, cache)
+    fused = ((_fused_attn_mode(cache) == 3 or quant)
+             and megakernel.supports(params["layers"], dims, cache))
     if quant and not fused:
         raise ValueError(
             "the paged_i8 verify pass runs only through the megakernel path "

@@ -24,7 +24,9 @@ SOURCES = {"batch_paged_attention": "batch_paged_attention.cu",
            "w8a8_matmul": "w8a8_matmul.cu",
            "w4a8_matmul": "w4a8_matmul.cu",
            "decode_layer": "decode_layer.cu",
-           "paged_flash_parts": "paged_flash_parts.cu"}
+           "paged_flash_parts": "paged_flash_parts.cu",
+           "w8a16_matmul": "w8a16_matmul.cu",
+           "fused_decode_attention": "fused_decode_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -1,23 +1,28 @@
-"""Two-segment paged decode attention: the hand-written CUDA kernel and its
-plain PyTorch version.
+"""Fused paged decode attention: the hand-written CUDA kernels and their
+plain PyTorch versions.
 
-Counterpart of ``t5gemma_tts_tpu/ops/fused_attn.py``: :func:`quantize_kv` and
-:func:`batch_paged_attention`. The decode step calls the latter twice per
-layer: self-attention (A = prompt pages, B = generation pages, plus the
-in-flight token) and cross-attention (A = encoder pages alone).
+Counterpart of ``t5gemma_tts_tpu/ops/fused_attn.py``: :func:`quantize_kv`,
+:func:`batch_paged_attention` (the decode step's attention mode 2, called
+twice per layer: self-attention with A = prompt pages, B = generation pages
+plus the in-flight token, and cross-attention with A = encoder pages alone)
+and :func:`fused_decode_attention` (mode 1's self-attention, the v1 kernel).
 
-On a CUDA tensor the wrapper launches ``csrc/batch_paged_attention.cu``
-(built with nvcc at first use, see ops/cuda_build.py) or raises; on a CPU
-tensor it runs :func:`batch_paged_attention_plain`, which computes the same
-function with whole-tensor PyTorch ops. ``batch_paged_attention.launches``
-counts kernel launches.
+On a CUDA tensor the wrappers launch ``csrc/batch_paged_attention.cu`` /
+``csrc/fused_decode_attention.cu`` (built with nvcc at first use, see
+ops/cuda_build.py) or raise; on a CPU tensor they run
+:func:`batch_paged_attention_plain` / :func:`fused_decode_attention_plain`,
+which compute the same functions with whole-tensor PyTorch ops.
+``.launches`` on each wrapper counts kernel launches.
 
 Semantics carried over from the TPU kernel: logits in f32, soft cap before
 the length mask, mask value -0.7 * f32max with masked probabilities 0,
 segment A clamped to at least one token, int8 pages dequantized per token
 as ``int8 * scale``, float8 e4m3 pages widened to f32 (no scales), output
 ``acc / (l if l > 0 else 1)``. A segment's
-length must not exceed its pages per row times the page size.
+length must not exceed its pages per row times the page size. The v1
+kernel computes the same function over a prompt and a generation segment
+and the in-flight token, but reads no page of an empty prompt segment (no
+clamp) and takes bf16 or e4m3 pages only.
 """
 
 from __future__ import annotations
@@ -71,6 +76,29 @@ def _segment(qg, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
     return logits, valid, v
 
 
+def _attend(qg, parts, k_cur, v_cur, soft_cap) -> torch.Tensor:
+    """Softmax attention of ``qg`` [B, Hkv, G, hd] over the segments'
+    (logits, valid, values) and, when ``k_cur`` is given, the in-flight
+    token -> acc / l [B, Hkv, G, hd] f32 (l replaced by 1 where it is 0)."""
+    logits = torch.cat([p[0] for p in parts], dim=-1)
+    valid = torch.cat([p[1] for p in parts], dim=-1)
+    values = torch.cat([p[2] for p in parts], dim=2)
+    logits = torch.where(valid, logits, MASK_VALUE)
+    if k_cur is not None:
+        cur = torch.einsum("bkgh,bkh->bkg", qg, k_cur.float())
+        if soft_cap is not None:
+            cur = torch.tanh(cur / soft_cap) * soft_cap
+        logits = torch.cat([logits, cur[..., None]], dim=-1)
+        valid = torch.cat(
+            [valid, torch.ones_like(valid[..., :1])], dim=-1)
+        values = torch.cat([values, v_cur.float()[:, :, None]], dim=2)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(logits - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgt,bkth->bkgh", p, values)
+    return acc / torch.where(l > 0.0, l, 1.0)
+
+
 def batch_paged_attention_plain(
     q, k_cur, v_cur, a_k_pages, a_v_pages, b_k_pages, b_v_pages,
     a_lengths, b_lengths, a_page_indices, b_page_indices,
@@ -91,23 +119,8 @@ def batch_paged_attention_plain(
         parts.append(_segment(qg, b_k_pages, b_v_pages, b_k_scales,
                               b_v_scales, b_lengths, b_page_indices,
                               attn_logits_soft_cap))
-    logits = torch.cat([p[0] for p in parts], dim=-1)
-    valid = torch.cat([p[1] for p in parts], dim=-1)
-    values = torch.cat([p[2] for p in parts], dim=2)
-    logits = torch.where(valid, logits, MASK_VALUE)
-    if include_current:
-        cur = torch.einsum("bkgh,bkh->bkg", qg, k_cur.float())
-        if attn_logits_soft_cap is not None:
-            cur = torch.tanh(cur / attn_logits_soft_cap) * attn_logits_soft_cap
-        logits = torch.cat([logits, cur[..., None]], dim=-1)
-        valid = torch.cat(
-            [valid, torch.ones_like(valid[..., :1])], dim=-1)
-        values = torch.cat([values, v_cur.float()[:, :, None]], dim=2)
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(logits - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bkgt,bkth->bkgh", p, values)
-    out = acc / torch.where(l > 0.0, l, 1.0)
+    out = _attend(qg, parts, k_cur if include_current else None, v_cur,
+                  attn_logits_soft_cap)
     return out.reshape(b, h, hd)
 
 
@@ -151,6 +164,64 @@ def batch_paged_attention(
 
 
 batch_paged_attention.launches = 0
+
+
+def fused_decode_attention_plain(
+    q, k_cur, v_cur, prompt_k_pages, prompt_v_pages, gen_k_pages,
+    gen_v_pages, prompt_lengths, gen_lengths, prompt_page_indices,
+    gen_page_indices, *, attn_logits_soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Whole-tensor PyTorch version of the v1 kernel (same arguments as
+    :func:`fused_decode_attention`) -> [B, H, hd] f32."""
+    b, h, hd = q.shape
+    hkv = prompt_k_pages.shape[0]
+    qg = q.float().reshape(b, hkv, h // hkv, hd)
+    parts = [_segment(qg, k, v, None, None, lens, idx, attn_logits_soft_cap)
+             for k, v, lens, idx in (
+                 (prompt_k_pages, prompt_v_pages, prompt_lengths,
+                  prompt_page_indices),
+                 (gen_k_pages, gen_v_pages, gen_lengths, gen_page_indices))]
+    return _attend(qg, parts, k_cur, v_cur,
+                   attn_logits_soft_cap).reshape(b, h, hd)
+
+
+def fused_decode_attention(
+    q: torch.Tensor,                     # [B, H, hd] f32, roped + pre-scaled
+    k_cur: torch.Tensor,                 # [B, Hkv, hd] in-flight K
+    v_cur: torch.Tensor,
+    prompt_k_pages: torch.Tensor,        # [Hkv, NPp, ps, hd] bf16 or f8
+    prompt_v_pages: torch.Tensor,
+    gen_k_pages: torch.Tensor,           # [Hkv, NPg, ps, hd]
+    gen_v_pages: torch.Tensor,
+    prompt_lengths: torch.Tensor,        # [B] int32
+    gen_lengths: torch.Tensor,           # [B] int32
+    prompt_page_indices: torch.Tensor,   # [B, PPp] int32
+    gen_page_indices: torch.Tensor,      # [B, PPg] int32
+    *,
+    attn_logits_soft_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """Self-attention over prompt pages + generation pages + the in-flight
+    token in one flash pass -> [B, H, hd] f32, normalized (the JAX v1
+    kernel). Pages are bf16 or float8 e4m3; int8 pages raise."""
+    args = (q, k_cur, v_cur, prompt_k_pages, prompt_v_pages, gen_k_pages,
+            gen_v_pages, prompt_lengths, gen_lengths, prompt_page_indices,
+            gen_page_indices)
+    for pages in args[3:7]:
+        if pages.dtype not in (torch.bfloat16, torch.float8_e4m3fn):
+            raise ValueError(f"fused_decode_attention: pages of dtype "
+                             f"{pages.dtype} (bf16 or float8_e4m3fn; int8 "
+                             f"pages take batch_paged_attention)")
+    if q.device.type == "cpu":
+        return fused_decode_attention_plain(
+            *args, attn_logits_soft_cap=attn_logits_soft_cap)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_decode_attention: no kernel for {q.device}")
+    out = _launch_fused(*args, soft_cap=attn_logits_soft_cap)
+    fused_decode_attention.launches += 1
+    return out
+
+
+fused_decode_attention.launches = 0
 
 
 # the C PageType of csrc/paged_pages.cuh
@@ -244,5 +315,59 @@ def _launch(q, k_cur, v_cur, a_k, a_v, b_k, b_v, a_len, b_len, a_idx, b_idx,
             int(include_current), page_type, stream)
     if err != 0:
         raise RuntimeError(f"batch_paged_attention kernel launch failed: "
+                           f"CUDA error {err}")
+    return out
+
+
+def _bind_fused():
+    from . import cuda_build
+
+    fn = cuda_build.load("fused_decode_attention").t5g_fused_decode_attention
+    if fn.argtypes is None:
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = ([vp] * 3 + [vp] * 4 + [i32, i64] + [vp] * 4
+                       + [i32, i64] + [vp] + [i32] * 5
+                       + [ctypes.c_float, i32, vp])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_fused(q, k_cur, v_cur, p_k, p_v, g_k, g_v, p_len, g_len, p_idx,
+                  g_idx, *, soft_cap):
+    dev = q.device
+    b, h, hd = q.shape
+    hkv, _, ps, _ = p_k.shape
+    if h % hkv or hd % 8 or hd > 256:
+        raise ValueError(f"unsupported heads/head_dim H={h} Hkv={hkv} hd={hd}")
+    _check("q", q, dev, torch.float32, (b, h, hd))
+    segs = []
+    for pre, k, v, ln, idx in (("prompt", p_k, p_v, p_len, p_idx),
+                               ("gen", g_k, g_v, g_len, g_idx)):
+        _check(f"{pre}_k_pages", k, dev, p_k.dtype)
+        _check(f"{pre}_v_pages", v, dev, p_k.dtype, k.shape)
+        if k.shape[0] != hkv or k.shape[2] != ps or k.shape[3] != hd:
+            raise ValueError(f"{pre}_k_pages shape {tuple(k.shape)} mismatch")
+        if k.data_ptr() % 16 or v.data_ptr() % 16:
+            raise ValueError(f"{pre} pages must be 16-byte aligned")
+        _check(f"{pre}_lengths", ln, dev, torch.int32, (b,))
+        _check(f"{pre}_page_indices", idx, dev, torch.int32)
+        if idx.ndim != 2 or idx.shape[0] != b:
+            raise ValueError(f"{pre}_page_indices must be [B, PP]")
+        segs += [k.data_ptr(), v.data_ptr(), ln.data_ptr(), idx.data_ptr(),
+                 idx.shape[1], k.shape[1]]
+    k_cur = k_cur.float().contiguous()
+    v_cur = v_cur.float().contiguous()
+    _check("k_cur", k_cur, dev, torch.float32, (b, hkv, hd))
+    _check("v_cur", v_cur, dev, torch.float32, (b, hkv, hd))
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    fn = _bind_fused()
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(), *segs,
+                 out.data_ptr(), b, h, hkv, hd, ps,
+                 float(soft_cap) if soft_cap is not None else 0.0,
+                 PAGE_TYPES[p_k.dtype],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_decode_attention kernel launch failed: "
                            f"CUDA error {err}")
     return out

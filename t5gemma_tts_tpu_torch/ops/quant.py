@@ -6,6 +6,9 @@ Counterpart of ``t5gemma_tts_tpu/ops/quant.py``:
   per-row absmax int8 activations (:func:`quantize_act`), and the int8 x
   int8 product with exact int32 accumulation and an f32 rescale
   ``(f32(acc[m, n]) * sx[m]) * sw[n]`` (:func:`w8a8_matmul`);
+- W8A16 (``act_bits=16``): the same int8 weights against bf16 activations,
+  ``f32(bf16(x) @ levels) * s[n]`` with f32 accumulation
+  (:func:`w8a16_matmul`; the JAX ``_qmm_2d`` / ``_qmm_kernel``);
 - W4A8, the batch-1 latency mode: per-output-channel absmax int4 weights
   (levels -7..7, scale ``absmax / 7``; :func:`quantize_weight_int4_lanes`,
   the levels and scales of the JAX ``quantize_weight_lanes4``) and the same
@@ -15,11 +18,12 @@ Counterpart of ``t5gemma_tts_tpu/ops/quant.py``:
   per-(K-group, channel) scales, plain PyTorch only, as the JAX package has
   no kernel for it.
 
-On a CUDA tensor :func:`w8a8_matmul`, :func:`w4a8_matmul` and
-:func:`quantize_act` launch the hand-written kernels of
-``csrc/w8a8_matmul.cu`` / ``csrc/w4a8_matmul.cu`` (built with nvcc at first
-use, see ops/cuda_build.py) or raise; on a CPU tensor they run their plain
-versions. ``.launches`` on each wrapper counts kernel launches.
+On a CUDA tensor :func:`w8a8_matmul`, :func:`w4a8_matmul`,
+:func:`w8a16_matmul` and :func:`quantize_act` launch the hand-written
+kernels of ``csrc/w8a8_matmul.cu`` / ``csrc/w4a8_matmul.cu`` /
+``csrc/w8a16_matmul.cu`` (built with nvcc at first use, see
+ops/cuda_build.py) or raise; on a CPU tensor they run their plain versions.
+``.launches`` on each wrapper counts kernel launches.
 
 Layout. The levels and scales are bit-identical to the JAX package's, but
 the port stores a weight channel-major: ``QuantWeight.values [..., N, K]``
@@ -28,8 +32,6 @@ contiguous, which is what the weight-streaming kernels read), with no
 padding of N. The JAX ``[..., K, N_pad]`` layouts, their
 ``tiled_n``/``tiled_k`` re-tilings and the lanes4 ``l4n``/``l4k`` nibble
 pairings (TPU DMA and Mosaic constraints) are translated by ``bridge.py``.
-W8A16 (``act_bits=16``) is not ported and raises ``NotImplementedError``
-naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,14 +46,13 @@ from .fused_attn import _check, absmax_scale
 
 PyTree = Any
 log = logging.getLogger(__name__)
-_W8A16 = "W8A16 (act_bits=16) is not ported yet (ROADMAP Queue 2 item 6)"
 
 
 class QuantWeight(NamedTuple):
     values: torch.Tensor   # int8 [..., N, K] (K contiguous)
     scale: torch.Tensor    # f32  [..., N]
     n: int                 # output width (== values.shape[-2])
-    act_bits: int = 8      # 8 = W8A8; 16 (W8A16) is not ported
+    act_bits: int = 8      # 8 = W8A8; 16 = W8A16 (bf16 activations)
 
 
 class Int4Weight(NamedTuple):
@@ -82,11 +83,17 @@ def map_weight(w: Weight,
     return w._replace(values=fn(w.values), scale=fn(w.scale))
 
 
+def _check_act_bits(act_bits: int) -> None:
+    if act_bits not in (8, 16):
+        raise ValueError(f"act_bits must be 8 (W8A8) or 16 (W8A16), got "
+                         f"{act_bits}")
+
+
 def quantize_weight(w: torch.Tensor, act_bits: int = 8) -> QuantWeight:
     """Per-output-channel absmax int8 quantization of ``w [..., K, N]``
-    (the JAX ``quantize_weight`` levels and scales, stored [..., N, K])."""
-    if act_bits != 8:
-        raise NotImplementedError(_W8A16)
+    (the JAX ``quantize_weight`` levels and scales, stored [..., N, K]);
+    ``act_bits`` only picks the product (8: W8A8, 16: W8A16)."""
+    _check_act_bits(act_bits)
     wf = w.float()
     scale = absmax_scale(wf.abs().amax(dim=-2))                # [..., N]
     q = torch.round(wf / scale[..., None, :]).clamp(-127, 127).to(torch.int8)
@@ -239,16 +246,43 @@ def w4a8_matmul(x: torch.Tensor, w: Int4Weight,
 w4a8_matmul.launches = 0
 
 
+def w8a16_matmul_plain(x: torch.Tensor, w: QuantWeight,
+                       out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """x [M, K] -> ``(bf16(x) @ levels) * s`` [M, N] in ``out_dtype``
+    (default ``x.dtype``): x is rounded to bf16 first, as ``_qmm_2d`` does
+    for f32 x; the bf16 x int8 products are exact in f32 and summed in f32;
+    the scale multiplies the f32 sum."""
+    acc = x.to(torch.bfloat16).float() @ w.values.float().t()
+    return (acc * w.scale[None, :]).to(out_dtype or x.dtype)
+
+
+def w8a16_matmul(x: torch.Tensor, w: QuantWeight,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """W8A16 product of ``x [M, K]`` (f32 or bf16, rounded to bf16) and a
+    2-D :class:`QuantWeight` -> [M, N] in ``out_dtype`` (default
+    ``x.dtype``)."""
+    if x.device.type == "cpu":
+        return w8a16_matmul_plain(x, w, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"w8a16_matmul: no kernel for {x.device}")
+    out = _launch(x, w, out_dtype or x.dtype)
+    w8a16_matmul.launches += 1
+    return out
+
+
+w8a16_matmul.launches = 0
+
+
 def q_matmul(x: torch.Tensor, w) -> torch.Tensor:
     """Drop-in for ``x @ w`` over [..., K] activations: a plain tensor is
-    multiplied as is; a :class:`QuantWeight` takes the W8A8 product and an
-    :class:`Int4Weight` the W4A8 product, both back in ``x.dtype``."""
+    multiplied as is; a :class:`QuantWeight` takes the W8A8 product
+    (``act_bits=8``) or the W8A16 one (``act_bits=16``), and an
+    :class:`Int4Weight` the W4A8 product, all back in ``x.dtype``."""
     if isinstance(w, Int4Weight):
         product = w4a8_matmul
     elif isinstance(w, QuantWeight):
-        if w.act_bits != 8:
-            raise NotImplementedError(_W8A16)
-        product = w8a8_matmul
+        product = w8a16_matmul if w.act_bits == 16 else w8a8_matmul
     else:
         return x @ w
     *lead, k = x.shape
@@ -275,26 +309,28 @@ def _decoder_widths(params: PyTree) -> Optional[Tuple[int, int, int]]:
 
 def quantize_params_for_decode(params: PyTree, act_bits: int = 8,
                                weight_bits: int = 8,
-                               head_bits: Optional[int] = None) -> PyTree:
+                               head_bits: Optional[int] = None,
+                               quantize_encoder: bool = False) -> PyTree:
     """Quantize the matmuls the decode loop reads every step: the decoder's
     stacked projections (cross K/V included) and the head's ``w1``/``w2``
-    go W8A8; the encoder stays as it is. Returns a new tree (the
-    quantization runs on the tensors' device).
+    become int8 :class:`QuantWeight`; the encoder stays as it is unless
+    ``quantize_encoder``. ``act_bits`` picks their product: 8 for W8A8, 16
+    for W8A16 (bf16 activations). Returns a new tree (the quantization
+    runs on the tensors' device).
 
     ``weight_bits=4`` is the batch-1 latency mode: the six decode-layer
     products (fused qkv, self o, cross q, cross o, gate_up, down) become
     :class:`Int4Weight`, and so does the head's ``w2`` unless
     ``head_bits=8`` (default: follow ``weight_bits``); cross K/V and the
-    head's ``w1`` stay W8A8. Where the decoder's widths do not fit the
-    decode-layer kernels (``megakernel.widths_fit``) it warns and quantizes
-    int8."""
+    head's ``w1`` stay int8 with ``act_bits``. Where the decoder's widths
+    do not fit the decode-layer kernels (``megakernel.widths_fit``) it
+    warns and quantizes int8."""
     if weight_bits not in (8, 4):
         raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
     head_bits = weight_bits if head_bits is None else head_bits
     if head_bits not in (8, 4):
         raise ValueError(f"head_bits must be 8 or 4, got {head_bits}")
-    if act_bits != 8:
-        raise NotImplementedError(_W8A16)
+    _check_act_bits(act_bits)
     from .megakernel import widths_fit   # megakernel imports this module
 
     widths = _decoder_widths(params)
@@ -305,11 +341,15 @@ def quantize_params_for_decode(params: PyTree, act_bits: int = 8,
                     widths)
         weight_bits = 8
 
-    def stacked(leaf, quantize, cls):
+    def int8(w):
+        return quantize_weight(w, act_bits)
+
+    def stacked(leaf, quantize):
         # one layer at a time: the f32 temporaries stay one layer's size
         parts = [quantize(leaf[i]) for i in range(leaf.shape[0])]
-        return cls(*(torch.stack(t) for t in zip(*(p[:2] for p in parts))),
-                   leaf.shape[-1])
+        return parts[0]._replace(**{
+            f: torch.stack([getattr(p, f) for p in parts])
+            for f in parts[0]._fields[:2]})
 
     def walk(tree, path):
         if isinstance(tree, dict):
@@ -322,11 +362,12 @@ def quantize_params_for_decode(params: PyTree, act_bits: int = 8,
             if top == "decoder" and tree.ndim == 3 and (
                     name in _W4_KEYS
                     or (name == "q" and "cross_attn" in path)):
-                return stacked(tree, quantize_weight_int4_lanes, Int4Weight)
-        if top == "decoder" and name in _QUANT_KEYS and tree.ndim == 3:
-            return stacked(tree, quantize_weight, QuantWeight)
+                return stacked(tree, quantize_weight_int4_lanes)
+        if (top == "decoder" or (quantize_encoder and top == "encoder")) \
+                and name in _QUANT_KEYS and tree.ndim == 3:
+            return stacked(tree, int8)
         if top == "head" and name in ("w1", "w2"):
-            return quantize_weight(tree)
+            return int8(tree)
         return tree
 
     return walk(params, ())
@@ -398,7 +439,8 @@ def q4_matmul(x: torch.Tensor, qw: Quant4Weight) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernels (csrc/w8a8_matmul.cu, csrc/w4a8_matmul.cu)
+# the CUDA kernels (csrc/w8a8_matmul.cu, csrc/w4a8_matmul.cu,
+# csrc/w8a16_matmul.cu)
 # ---------------------------------------------------------------------------
 
 
@@ -410,6 +452,8 @@ def _bind(lib: str, name: str):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         if name == "t5g_quantize_rows":
             fn.argtypes = [vp, i32, i32, i32, vp, vp, vp]
+        elif name == "t5g_w8a16_matmul":
+            fn.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp, i32, vp]
         else:
             fn.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp, i32, vp, vp,
                            vp]
@@ -418,8 +462,11 @@ def _bind(lib: str, name: str):
 
 
 def _launch(x: torch.Tensor, w: Weight, out_dtype: torch.dtype):
+    """The W8A8, W4A8 or W8A16 kernel, by the weight's format."""
     dev = x.device
     w4 = isinstance(w, Int4Weight)
+    a16 = not w4 and w.act_bits == 16
+    name = "w4a8_matmul" if w4 else ("w8a16_matmul" if a16 else "w8a8_matmul")
     wt = w.packed if w4 else w.values
     if x.ndim != 2 or wt.ndim != 2:
         raise ValueError("the quantized product takes x [M, K] and a 2-D "
@@ -437,22 +484,23 @@ def _launch(x: torch.Tensor, w: Weight, out_dtype: torch.dtype):
         raise ValueError(f"K={k}: the W4A8 kernel's int32 sums of 16 q x "
                          f"are exact up to K = 65536")
     x = x.contiguous()
-    _check("x", x, dev, x.dtype, (m, k))
+    if x.data_ptr() % 16:          # a view at an odd offset: the kernels
+        x = x.clone()              # load x 16 bytes at a time
     _check("weight", wt, dev, torch.int8, (n, k // 2 if w4 else k))
     _check("scale", w.scale, dev, torch.float32, (n,))
     if wt.data_ptr() % 16:
         raise ValueError("the weight must be 16-byte aligned")
-    x8 = torch.empty((m, k), dtype=torch.int8, device=dev)
-    sx = torch.empty((m,), dtype=torch.float32, device=dev)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    fn = (_bind("w4a8_matmul", "t5g_w4a8_matmul") if w4
-          else _bind("w8a8_matmul", "t5g_w8a8_matmul"))
+    args = [x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
+            wt.data_ptr(), w.scale.data_ptr(), n, out.data_ptr(),
+            int(out_dtype == torch.bfloat16)]
+    if not a16:                    # the int8 activations' workspace
+        x8 = torch.empty((m, k), dtype=torch.int8, device=dev)
+        sx = torch.empty((m,), dtype=torch.float32, device=dev)
+        args += [x8.data_ptr(), sx.data_ptr()]
+    fn = _bind(name, "t5g_" + name)
     with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
-                 wt.data_ptr(), w.scale.data_ptr(), n, out.data_ptr(),
-                 int(out_dtype == torch.bfloat16), x8.data_ptr(),
-                 sx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        name = "w4a8_matmul" if w4 else "w8a8_matmul"
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out

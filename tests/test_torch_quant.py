@@ -140,18 +140,24 @@ def test_quantize_params_through_bridge_equal_port(voice_params, tiled):
 
 
 def test_quantize_params_refuses_unported_modes():
-    """W8A16 (act_bits=16) is the one mode still refused, wherever it is
-    asked for; unknown bit widths are errors."""
+    """Bit widths other than those ported are errors: act_bits outside
+    {8, 16} and weight_bits outside {8, 4}. An act_bits=16 (W8A16) leaf
+    goes through q_matmul, as the W8A16 product."""
     w = torch.from_numpy(_weights(8, (64, 32)))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        tquant.quantize_params_for_decode({}, act_bits=16)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        tquant.quantize_params_for_decode({}, act_bits=16, weight_bits=4)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        tquant.quantize_weight(w, act_bits=16)
-    w16 = tquant.quantize_weight(w)._replace(act_bits=16)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        tquant.q_matmul(torch.ones((2, 64)), w16)
+    for bits in (4, 32):
+        with pytest.raises(ValueError, match="act_bits"):
+            tquant.quantize_params_for_decode({}, act_bits=bits)
+        with pytest.raises(ValueError, match="act_bits"):
+            tquant.quantize_params_for_decode({}, act_bits=bits,
+                                              weight_bits=4)
+        with pytest.raises(ValueError, match="act_bits"):
+            tquant.quantize_weight(w, act_bits=bits)
+    w16 = tquant.quantize_weight(w, act_bits=16)
+    x = torch.from_numpy(_weights(9, (2, 3, 64)))
+    got = tquant.q_matmul(x, w16)
+    assert got.shape == (2, 3, 32) and got.dtype == x.dtype
+    assert torch.equal(got.reshape(6, 32),
+                       tquant.w8a16_matmul_plain(x.reshape(6, 64), w16))
     with pytest.raises(ValueError, match="weight_bits"):
         tquant.quantize_params_for_decode({}, weight_bits=2)
 
