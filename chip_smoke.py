@@ -17,9 +17,13 @@ Phases, in order; any failure exits non-zero before the result line:
    bf16 and int8 pages; the W8A16 product at an odd width (N = 1001, M =
    1, 4, 5, 17, 260) and the v1 fused self-attention (hd 256 and 16, bf16
    and e4m3 pages, soft cap 50 and none, empty prompt and generation
-   segments, layer offsets); the W8A8, W4A8 and W8A16 products are held
-   here too, but at each quantized main path's own shapes and weights,
-   right after that path's run (4b, 4c, 4d, 4f);
+   segments, layer offsets); W8A8 and W4A8 at ragged shapes on both sides
+   of their route boundary (M = 2 ... 260, N = 1001 and 65541, K = 2304,
+   2320 and 9216), each timed on its route and on the GEMV route; the
+   W8A8, W4A8 and W8A16 products are held here too, but at each quantized
+   main path's own shapes and weights, right after that path's run (4b,
+   4c, 4d, 4f), W8A8 and W4A8 timed on both routes (``products`` in the
+   kernels' line);
 3. reference: a tiny f32 model decoded greedily on the card (kernels) and on
    the CPU (plain versions) must give the same tokens and waveforms, with
    bf16 weights and paged pages, with int8 weights and int8 pages, and with
@@ -432,62 +436,159 @@ def run_products(run: dict) -> list:
     return out
 
 
-def phase_products(card: str, run: dict, iters: int) -> dict:
+def check_product(label, m, w, gen) -> tuple:
+    """One W8A8 / W4A8 product on the card against its plain version, on
+    seeded inputs: the int32 part equal (integer rows holding 127, scale
+    1, against unit channel scales give f32(acc) on both sides), the int8
+    activation levels and scales equal, the f32 output within 1 ULP and the
+    bf16 output equal. Returns (x, max abs f32 error)."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    product, plain, _ = product_fns(w)
+    k = w.packed.shape[-1] * 2 if isinstance(w, quant.Int4Weight) \
+        else w.values.shape[-1]
+    xi = torch.randint(-127, 128, (m, k), generator=gen, device=dev)
+    xi[:, 0] = 127
+    unit = w._replace(scale=torch.ones_like(w.scale))
+    got = product(xi.float(), unit)
+    want = plain(xi.float(), unit)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label} M={m}: int32 part differs")
+    x = torch.randn((m, k), generator=gen, device=dev) * 2.0
+    x8, sx = quant.quantize_act(x)
+    w8, wsx = quant.quantize_act_plain(x)
+    if not (torch.equal(x8, w8) and torch.equal(sx, wsx)):
+        raise AssertionError(f"{label}: activation levels differ")
+    got = product(x, w, torch.float32)
+    want = plain(x, w, torch.float32)
+    ulps = ulp_diff(got, want)
+    gb = product(x.to(torch.bfloat16), w)
+    wb = plain(x.to(torch.bfloat16), w)
+    if ulps > 1 or not torch.equal(gb, wb):
+        raise AssertionError(f"{label}: {ulps} f32 ULP from the plain "
+                             f"version (tol 1), bf16 equal: "
+                             f"{torch.equal(gb, wb)}")
+    return x, float((got - want).abs().max())
+
+
+def time_routes(x, w, iters: int) -> tuple:
+    """(ms, previous_ms): the product's device time on the route its
+    wrapper takes and on the GEMV route of csrc/w8a8.cuh (the only route
+    before the tensor-core product), graph-timed in turns (route, GEMV,
+    GEMV, route); each the mean of its two turns."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    product = product_fns(w)[0]
+    call = lambda: product(x, w, torch.float32)  # noqa: E731
+    gemv = lambda: quant.gemv_route(x, w, torch.float32)  # noqa: E731
+    t = [graph_ms(call, iters), graph_ms(gemv, iters), graph_ms(gemv, iters),
+         graph_ms(call, iters)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def phase_products(card: str, run: dict, iters: int) -> tuple:
     """Every quantized product of a main-path run (:func:`run_products`)
     against its plain version, on the kernel its weight format takes
-    (W8A8 or W4A8): int32 part exact, f32 output within 1 ULP, bf16
-    output equal. Returns the largest f32 error by kernel."""
+    (W8A8 or W4A8; :func:`check_product`), timed on its route and on the
+    GEMV route (:func:`time_routes`) beside the library call. Returns the
+    largest f32 error by kernel and one record per product."""
     from t5gemma_tts_tpu_torch.ops import quant
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    worst = {}
+    worst, records = {}, {}
     for name, m, w in run_products(run):
         product, plain, w_bytes = product_fns(w)
         tag = "w4a8" if isinstance(w, quant.Int4Weight) else "w8a8"
         n = w.n
         k = w.packed.shape[-1] * 2 if tag == "w4a8" else w.values.shape[-1]
-        # the int32 part alone: integer rows holding 127 (scale 1) against
-        # unit channel scales give f32(acc) on both sides
-        xi = torch.randint(-127, 128, (m, k), generator=gen, device=dev)
-        xi[:, 0] = 127
-        unit = w._replace(scale=torch.ones_like(w.scale))
-        got = product(xi.float(), unit)
-        want = plain(xi.float(), unit)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"{tag} {run['tag']} {name} M={m}: int32 "
-                                 f"part differs")
-        x = torch.randn((m, k), generator=gen, device=dev) * 2.0
-        x8, sx = quant.quantize_act(x)
-        w8, wsx = quant.quantize_act_plain(x)
-        if not (torch.equal(x8, w8) and torch.equal(sx, wsx)):
-            raise AssertionError(f"{tag} {name}: activation levels differ")
-        got = product(x, w, torch.float32)
-        want = plain(x, w, torch.float32)
-        ulps = ulp_diff(got, want)
-        err = float((got - want).abs().max())
-        gb = product(x.to(torch.bfloat16), w)
-        wb = plain(x.to(torch.bfloat16), w)
-        if ulps > 1 or not torch.equal(gb, wb):
-            raise AssertionError(f"{tag} {name}: {ulps} f32 ULP from the "
-                                 f"plain version (tol 1), bf16 equal: "
-                                 f"{torch.equal(gb, wb)}")
+        x, err = check_product(f"{tag} {run['tag']} {name}", m, w, gen)
         worst[tag] = max(worst.get(tag, 0.0), err)
-        call = lambda: product(x, w, torch.float32)  # noqa: E731
-        k_ms, eager_ms = graph_ms(call, iters), cuda_ms(call, iters)
+        k_ms, prev_ms = time_routes(x, w, iters)
+        eager_ms = cuda_ms(lambda: product(x, w, torch.float32), iters)
         p_ms = cuda_ms(lambda: plain(x, w, torch.float32), iters)
         lib_ms = graph_ms(int_mm_call(x, w), iters)
         b_ms, by = bound_ms(*w8a8_cost(m, k, n, 4, 4, w_bytes), PEAK_INT8_OPS)
+        route = quant.product_plan(m, w)
+        records.setdefault(tag, []).append(dict(
+            run=run["tag"], name=name, M=m, K=k, N=n, ms=k_ms,
+            previous_ms=prev_ms, bound_ms=b_ms, library_ms=lib_ms,
+            route=route["route"], splits=route["splits"]))
         lib_note = ("torch._int_mm on the unpacked int8 levels + rescale, "
                     "twice the weight bytes" if tag == "w4a8"
                     else "torch._int_mm + rescale")
         print(f"[kernel] {tag} {run['tag']} {name} [{m}x{k}]x[{k}x{n}]: "
-              f"int32 part exact, "
-              f"max {ulps} f32 ULP (tol 1), max_abs_err={err:.3e}, bf16 "
-              f"equal; kernel_ms={k_ms:.4f} (graph; eager call "
-              f"{eager_ms:.4f}) plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} "
-              f"({by}) library_ms={lib_ms:.4f} ({lib_note}, graph) [{card}]")
+              f"int32 part exact, max_abs_err={err:.3e} (f32 within 1 "
+              f"ULP), bf16 equal; kernel_ms={k_ms:.4f} (graph, "
+              f"{route['route']}, plan {route}; eager call {eager_ms:.4f}) "
+              f"previous_ms={prev_ms:.4f} (the GEMV route, graph, in turns) "
+              f"plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({by}) "
+              f"library_ms={lib_ms:.4f} ({lib_note}, graph) [{card}]")
+    return worst, records
+
+
+def random_product_weight(int4: bool, n: int, k: int, gen):
+    """Seeded W8A8 or W4A8 weights of n channels of K levels on the card."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    scale = torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-3
+    lo = 7 if int4 else 127
+    q = torch.randint(-lo, lo + 1, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    if int4:
+        return quant.Int4Weight(quant.pack_int4(q), scale, n)
+    return quant.QuantWeight(q, scale, n)
+
+
+def phase_product_edges(card: str, iters: int) -> float:
+    """W8A8 and W4A8 at ragged shapes against their plain versions
+    (:func:`check_product`): M = 2, 5, 16, 17, 64, 65, 129, 260 on both
+    sides of the route boundary, at an odd N = 1001 with K = 2304 and K =
+    2320 (a multiple of 16, not of 32), at the head's N = 65541 and at K =
+    9216; each timed on its route and on the GEMV route. The W4A8
+    tensor-core route refuses K = 2320 (TMA needs the packed row's 1160
+    bytes a multiple of 16): there the wrapper must raise for M >= 2, and
+    M = 1 (the GEMV) is checked. Returns the largest f32 error by kernel."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ms_all = (2, 5, 16, 17, 64, 65, 129, 260)
+    cases = [(k, 1001, ms_all) for k in (2304, 2320)]
+    cases += [(2304, 65541, (2, 5, 16, 17, 65, 260)),
+              (9216, 1001, (5, 17, 65, 260))]
+    worst = {}
+    it = max(iters // 2, 2)
+    for int4 in (False, True):
+        tag = "w4a8" if int4 else "w8a8"
+        worst[tag] = 0.0
+        for k, n, ms in cases:
+            w = random_product_weight(int4, n, k, gen)
+            if int4 and k % 32:
+                x, err = check_product(f"{tag} edge", 1, w, gen)
+                worst[tag] = max(worst[tag], err)
+                for m in ms:
+                    try:
+                        product_fns(w)[0](torch.zeros((m, k), device=dev), w)
+                    except ValueError:
+                        continue
+                    raise AssertionError(f"{tag} K={k} M={m}: the tensor-core "
+                                         f"route must refuse this K")
+                print(f"[kernel] {tag} edge K={k} N={n}: M=1 (GEMV) equal to "
+                      f"the plain version, err={err:.3e}; M={list(ms)} refused "
+                      f"(ValueError) [{card}]")
+                continue
+            times = []
+            for m in ms:
+                x, err = check_product(f"{tag} edge K={k} N={n}", m, w, gen)
+                worst[tag] = max(worst[tag], err)
+                k_ms, prev_ms = time_routes(x, w, it)
+                times.append(f"M={m}: {k_ms:.4f}/{prev_ms:.4f}")
+            print(f"[kernel] {tag} edge K={k} N={n}: int32 part exact, f32 "
+                  f"within 1 ULP, bf16 equal at M={list(ms)}; ms on the "
+                  f"route / the GEMV route (graph, in turns): "
+                  f"{'; '.join(times)} [{card}]")
     return worst
 
 
@@ -1893,6 +1994,7 @@ def main(argv=None) -> int:
     worst_layer4 = phase_decode_layer(card, cfg, args.iters, int4=True)
     worst_chain = phase_chain_layer(card, cfg, args.iters)
     worst16 = phase_w8a16_shapes(card)
+    worst_edges = phase_product_edges(card, args.iters)
     worst_fused = phase_fused_attention(card, args.iters)
     stamp("2 (kernels)")
     phase_reference()
@@ -1933,7 +2035,7 @@ def main(argv=None) -> int:
 
     stamp("4 and 4g (bf16)")
     main8 = phase_main_path(card, args.seed, "int8")
-    worst8 = phase_products(card, main8, args.iters)
+    worst8, prod8 = phase_products(card, main8, args.iters)
     phase_profile(main8["pipe"], card, main8["enc_lens"], kv_cache="paged_i8",
                   weights="int8")
     timing8 = quant_step_timing(main8["pipe"], card, main8["steps"],
@@ -1966,7 +2068,8 @@ def main(argv=None) -> int:
           f"{pair('step_ms', '{:.2f}')}; tokens/s int4 "
           f"{pair('tokens_per_s', '{:.2f}')}; RTF int4 "
           f"{pair('rtf', '{:.3f}x')} [{card}]")
-    worst4 = phase_products(card, dict(main4, pipe=pipe4), args.iters)
+    worst4, prod4 = phase_products(card, dict(main4, pipe=pipe4),
+                                   args.iters)
     phase_profile(pipe4, card, main4["enc_lens"], kv_cache="paged_i8",
                   weights="int4")
     timing4 = quant_step_timing(pipe4, card, main4["steps"],
@@ -1977,7 +2080,7 @@ def main(argv=None) -> int:
     # 4d: speculative int4 at batch 1 (the JAX bench's probe), then every
     # quantized product of that run and one verify pass's decode_stack
     spec4 = phase_speculative(card, pipe4, "int4 b1", "auto", args.seed)
-    worst_spec4 = phase_products(card, spec4, args.iters)
+    worst_spec4, prod_spec4 = phase_products(card, spec4, args.iters)
     chain_timing = chain_step_timing(pipe4, card, spec4["steps"],
                                      spec4["enc_lens"][0], spec4["gen_slab"],
                                      iters=step_iters)
@@ -2032,9 +2135,13 @@ def main(argv=None) -> int:
              replaces="t5gemma_tts_tpu/ops/quant.py:140",
              launches=main8["launches"]["w8a8_matmul"],
              max_abs_err=max(worst8["w8a8"], worst4["w8a8"],
-                             worst_spec4["w8a8"],
+                             worst_spec4["w8a8"], worst_edges["w8a8"],
                              timing8["w8a8"]["max_abs_err"]),
-             **{k: timing8["w8a8"][k] for k in keys}),
+             **{k: timing8["w8a8"][k] for k in keys},
+             products=[dict(p, run=f"{ph} {p['run']}")
+                       for ph, r in (("4b", prod8), ("4c", prod4),
+                                     ("4d", prod_spec4))
+                       for p in r.get("w8a8", [])]),
         dict(name="decode_stack", route="cuda",
              source=src + "decode_layer.cu",
              replaces="t5gemma_tts_tpu/ops/megakernel.py:115",
@@ -2047,8 +2154,12 @@ def main(argv=None) -> int:
              replaces="t5gemma_tts_tpu/ops/quant.py:656",
              launches=main4["launches"]["w4a8_matmul"],
              max_abs_err=max(worst4["w4a8"], worst_spec4["w4a8"],
+                             worst_edges["w4a8"],
                              timing4["w4a8"]["max_abs_err"]),
-             **{k: timing4["w4a8"][k] for k in keys}),
+             **{k: timing4["w4a8"][k] for k in keys},
+             products=[dict(p, run=f"{ph} {p['run']}")
+                       for ph, r in (("4c", prod4), ("4d", prod_spec4))
+                       for p in r.get("w4a8", [])]),
         dict(name="decode_stack_int4", route="cuda",
              source=src + "decode_layer.cu",
              replaces="t5gemma_tts_tpu/ops/megakernel.py:115",

@@ -45,8 +45,9 @@
 // addresses) and multiply them with __dp4a against up to kMaxRows
 // activation rows at once, so each weight byte is read from device memory
 // once per group of kMaxRows rows. Larger M (prefill) runs the same kernel
-// over row groups (blockIdx.y), re-reading the weights from L2.
-// Tensor-core (wgmma s8) and TMA versions are later work.
+// over row groups (blockIdx.y), re-reading the weights from L2; the
+// standalone products take it only at small M, and the tensor-core product
+// of w8a8_tc.cuh (wgmma s8, TMA) above.
 
 #pragma once
 

@@ -8,10 +8,23 @@
 //
 // t5g_quantize_rows: x [M, K] f32/bf16 -> x8 [M, K] int8, sx [M] f32.
 // t5g_w8a8_matmul:   quantizes x's rows into the caller's workspace, then
-//                    out [M, N] = (f32(x8 @ w8^T) * sx) * sw, f32 or bf16.
-// The device code, its semantics and its bound are in w8a8.cuh.
+//                    out [M, N] = (f32(x8 @ w8^T) * sx) * sw, f32 or bf16:
+//                    the GEMV of w8a8.cuh for M <= 16 (the decode head: a
+//                    weight stream at about half its byte bound), the
+//                    tensor-core product of w8a8_tc.cuh above.
+// t5g_w8a8_plan:     the int32 [splits, M, N] scratch t5g_w8a8_matmul needs
+//                    (0: none; -1: a shape it refuses) and, in plan[6] when
+//                    not null, the tensor-core tiling
+//                    (w8a8_tc.cuh::tc_describe; zeros on the GEMV route).
+// t5g_w8a8_gemv:     the GEMV route at any M, int8 or (w4) packed int4
+//                    weights; no caller on the main path (a yardstick).
 
 #include "w8a8.cuh"
+#include "w8a8_tc.cuh"
+
+namespace {
+constexpr int kGemvRows = 16;   // the GEMV takes M <= 16, tensor cores above
+}
 
 extern "C" int t5g_quantize_rows(const void* x, int x_is_bf16, int M, int K, int8_t* x8,
                                  float* sx, void* stream) {
@@ -22,13 +35,35 @@ extern "C" int t5g_quantize_rows(const void* x, int x_is_bf16, int M, int K, int
   return static_cast<int>(e);
 }
 
-extern "C" int t5g_w8a8_matmul(const void* x, int x_is_bf16, int M, int K, const int8_t* w,
-                               const float* sw, int N, void* out, int out_is_bf16,
-                               int8_t* x8, float* sx, void* stream) {
+extern "C" int t5g_w8a8_plan(int M, int N, int K, int* plan) {
+  if (M <= kGemvRows) {
+    for (int i = 0; plan != nullptr && i < 6; ++i) plan[i] = 0;
+    return 0;
+  }
+  return t5g::tc_describe<false>(M, N, K, plan);
+}
+
+extern "C" int t5g_w8a8_gemv(const void* x, int x_is_bf16, int M, int K, const int8_t* w,
+                             const float* sw, int N, void* out, int out_is_bf16, int8_t* x8,
+                             float* sx, int w4, void* stream) {
   const int e = t5g_quantize_rows(x, x_is_bf16, M, K, x8, sx, stream);
   if (e != 0) return e;
   t5g::GemvArgs p{x8, sx, w, sw, out, M, N, K, K};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w4)
+    return static_cast<int>(out_is_bf16 ? t5g::launch_gemv<__nv_bfloat16, true>(p, s)
+                                        : t5g::launch_gemv<float, true>(p, s));
   return static_cast<int>(out_is_bf16 ? t5g::launch_gemv<__nv_bfloat16>(p, s)
                                       : t5g::launch_gemv<float>(p, s));
+}
+
+extern "C" int t5g_w8a8_matmul(const void* x, int x_is_bf16, int M, int K, const int8_t* w,
+                               const float* sw, int N, void* out, int out_is_bf16,
+                               int8_t* x8, float* sx, int32_t* part, void* stream) {
+  if (M <= kGemvRows)
+    return t5g_w8a8_gemv(x, x_is_bf16, M, K, w, sw, N, out, out_is_bf16, x8, sx, 0, stream);
+  const int e = t5g_quantize_rows(x, x_is_bf16, M, K, x8, sx, stream);
+  if (e != 0) return e;
+  return static_cast<int>(t5g::launch_tc<false>(x8, sx, w, sw, out, out_is_bf16, part, M, N,
+                                                K, static_cast<cudaStream_t>(stream)));
 }

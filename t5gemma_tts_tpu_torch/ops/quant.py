@@ -454,15 +454,55 @@ def _bind(lib: str, name: str):
             fn.argtypes = [vp, i32, i32, i32, vp, vp, vp]
         elif name == "t5g_w8a16_matmul":
             fn.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp, i32, vp]
+        elif name.endswith("_plan"):
+            fn.argtypes = [i32, i32, i32, vp]
+        elif name == "t5g_w8a8_gemv":
+            fn.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp, i32, vp, vp,
+                           i32, vp]
         else:
             fn.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp, i32, vp, vp,
-                           vp]
+                           vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x: torch.Tensor, w: Weight, out_dtype: torch.dtype):
-    """The W8A8, W4A8 or W8A16 kernel, by the weight's format."""
+def gemv_route(x: torch.Tensor, w: Weight,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The W8A8 / W4A8 product on the GEMV of ``csrc/w8a8.cuh`` at any M:
+    the route that the kernels take only for small M, kept callable so
+    that a measurement can time it beside the tensor-core route. No caller
+    on the main path; counts no launch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"gemv_route: no kernel for {x.device}")
+    if isinstance(w, QuantWeight) and w.act_bits == 16:
+        raise ValueError("gemv_route takes W8A8 or W4A8 weights")
+    return _launch(x, w, out_dtype or x.dtype, gemv=True)
+
+
+def product_plan(m: int, w: Weight) -> dict:
+    """How the card computes a W8A8 / W4A8 product of ``m`` rows with
+    ``w``: ``route`` "gemv" or "tensor_cores", and for the latter the
+    tiling of ``csrc/w8a8_tc.cuh`` (wgmma width ``ni``, row tiles, channel
+    tiles, K tiles, K splits, CTAs per SM). Builds the kernel library."""
+    w4 = isinstance(w, Int4Weight)
+    name = "w4a8" if w4 else "w8a8"
+    n = w.n
+    k = w.packed.shape[-1] * 2 if w4 else w.values.shape[-1]
+    plan = (ctypes.c_int * 6)()
+    splits = _bind(f"{name}_matmul", f"t5g_{name}_plan")(m, n, k,
+                                                         ctypes.byref(plan))
+    if splits < 0:
+        raise ValueError(f"{name}: the tensor-core route refuses K={k}")
+    keys = ("ni", "rowtiles", "ntiles", "ktiles", "splits", "per_sm")
+    out = dict(zip(keys, list(plan)))
+    out["route"] = "tensor_cores" if out["ni"] else "gemv"
+    return out
+
+
+def _launch(x: torch.Tensor, w: Weight, out_dtype: torch.dtype, *,
+            gemv: bool = False):
+    """The W8A8, W4A8 or W8A16 kernel, by the weight's format; ``gemv``
+    takes the GEMV route of a W8A8 / W4A8 product at any M."""
     dev = x.device
     w4 = isinstance(w, Int4Weight)
     a16 = not w4 and w.act_bits == 16
@@ -498,8 +538,24 @@ def _launch(x: torch.Tensor, w: Weight, out_dtype: torch.dtype):
         x8 = torch.empty((m, k), dtype=torch.int8, device=dev)
         sx = torch.empty((m,), dtype=torch.float32, device=dev)
         args += [x8.data_ptr(), sx.data_ptr()]
-    fn = _bind(name, "t5g_" + name)
     with torch.cuda.device(dev):
+        if gemv:
+            fn = _bind("w8a8_matmul", "t5g_w8a8_gemv")
+            args.append(int(w4))
+        else:
+            fn = _bind(name, "t5g_" + name)
+        if not (gemv or a16):
+            # the tensor-core route's split-K scratch, [splits, M, N] int32
+            splits = _bind(name, f"t5g_{name[:4]}_plan")(m, n, k, None)
+            if splits < 0:
+                raise ValueError(
+                    f"{name}: the tensor-core route refuses M={m}, K={k} "
+                    f"(K must be a multiple of {32 if w4 else 16}: TMA reads "
+                    f"the {'packed int4' if w4 else 'int8'} weight rows, "
+                    f"whose stride must be a multiple of 16 bytes)")
+            part = (torch.empty((splits, m, n), dtype=torch.int32,
+                                device=dev) if splits else None)
+            args.append(part.data_ptr() if part is not None else None)
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

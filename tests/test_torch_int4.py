@@ -173,6 +173,21 @@ def test_layer_params_and_tree_to_carry_int4():
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("m", [17, 65, 129])
+def test_w4a8_plain_matches_jax_at_tile_edges(m):
+    """The plain W4A8 product equals ``_w4a8_2d_xla`` at row counts one past
+    a tile of the card's routes (16, 64 and 128 rows), odd N, small K."""
+    rng = np.random.default_rng(30 + m)
+    x = (rng.standard_normal((m, 96)) * 1.5).astype(np.float32)
+    jw = jquant.quantize_weight_lanes4(jnp.asarray(_weights(31, (96, 77))),
+                                       k_major=False)
+    tw = bridge.params_from_jax(_np(jw), "cpu")
+    want = np.asarray(jquant._w4a8_2d_xla(jnp.asarray(x), jw))[:, :77]
+    got = tquant.w4a8_matmul_plain(torch.from_numpy(x), tw)
+    assert got.shape == (m, 77)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("m", [1, 4, 37])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_w4a8_plain_matches_jax(dtype, m):

@@ -39,21 +39,24 @@ def _smoke():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 4, 13, 65])
-def test_cuda_w4a8_matches_plain(m):
-    """The W4A8 kernel: its int32 part equal to the plain version's,
-    outputs within 1 f32 ULP (bf16: equal)."""
+@pytest.mark.parametrize("m", [1, 4, 5, 13, 16, 17, 64, 65, 129])
+@pytest.mark.parametrize("k,n", [(2304, 1000), (2304, 1001), (9216, 1000)])
+def test_cuda_w4a8_matches_plain(m, k, n):
+    """The W4A8 kernel, on both routes (the GEMV at one row, the tensor
+    cores above; N = 1001 odd, K = 9216 split over CTAs): its int32 part
+    equal to the plain version's, outputs within 1 f32 ULP (bf16:
+    equal)."""
     dev = _card()
     rng = np.random.default_rng(m)
     w = tquant.quantize_weight_int4_lanes(torch.from_numpy(
-        (rng.standard_normal((2304, 1000)) * 0.05).astype(np.float32)).to(dev))
-    xi = torch.from_numpy(rng.integers(-127, 128, (m, 2304)).astype(
+        (rng.standard_normal((k, n)) * 0.05).astype(np.float32)).to(dev))
+    xi = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(
         np.float32)).to(dev)
     xi[:, 0] = 127
     unit = w._replace(scale=torch.ones_like(w.scale))
     assert torch.equal(tquant.w4a8_matmul(xi, unit),
                        tquant.w4a8_matmul_plain(xi, unit))
-    x = torch.from_numpy((rng.standard_normal((m, 2304)) * 2).astype(
+    x = torch.from_numpy((rng.standard_normal((m, k)) * 2).astype(
         np.float32)).to(dev)
     for dtype in (torch.float32, torch.bfloat16):
         xd = x.to(dtype)
@@ -66,6 +69,22 @@ def test_cuda_w4a8_matches_plain(m):
                                             want.cpu().numpy(), maxulp=1)
         else:
             assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_w4a8_refuses_unaligned_packed_rows():
+    """K = 2320 packs a channel into 1160 bytes, no multiple of 16: the
+    tensor-core route's TMA cannot read such rows, so the wrapper raises
+    for M >= 2 (never falling back); one row takes the GEMV."""
+    dev = _card()
+    w = tquant.quantize_weight_int4_lanes(torch.from_numpy(
+        (np.random.default_rng(5).standard_normal((2320, 64)) * 0.05)
+        .astype(np.float32)).to(dev))
+    x = torch.ones((2, 2320), device=dev)
+    with pytest.raises(ValueError, match="refuses"):
+        tquant.w4a8_matmul(x, w)
+    assert torch.equal(tquant.w4a8_matmul(x[:1], w),
+                       tquant.w4a8_matmul_plain(x[:1], w))
 
 
 @pytest.mark.cuda

@@ -88,6 +88,20 @@ def test_w8a8_plain_matches_jax(dtype):
     assert torch.equal(lead.reshape(37, 200), got)
 
 
+@pytest.mark.parametrize("m", [17, 65, 129])
+def test_w8a8_plain_matches_jax_at_tile_edges(m):
+    """The plain W8A8 product equals ``_w8a8_2d_xla`` at row counts one past
+    a tile of the card's routes (16, 64 and 128 rows), odd N, small K."""
+    rng = np.random.default_rng(20 + m)
+    x = (rng.standard_normal((m, 96)) * 1.5).astype(np.float32)
+    jw = jquant.quantize_weight(jnp.asarray(_weights(21, (96, 77))))
+    tw = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, jw), "cpu")
+    want = np.asarray(jquant._w8a8_2d_xla(jnp.asarray(x), jw))[:, :77]
+    got = tquant.w8a8_matmul_plain(torch.from_numpy(x), tw)
+    assert got.shape == (m, 77)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_q_matmul_plain_tensor_is_matmul():
     x = torch.from_numpy(_weights(4, (3, 5, 64)))
     w = torch.from_numpy(_weights(5, (64, 32)))
@@ -171,16 +185,19 @@ def test_layer_params_slices_quant_weights():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 4, 13, 260])
-def test_cuda_w8a8_matches_plain(m):
-    """The W8A8 kernel on the card: int8 levels and scales equal to the
-    plain version's, outputs within 1 f32 ULP (bf16: equal)."""
+@pytest.mark.parametrize("m", [1, 4, 5, 13, 16, 17, 64, 129, 260])
+@pytest.mark.parametrize("k,n", [(2304, 1000), (2304, 1001), (9216, 1000)])
+def test_cuda_w8a8_matches_plain(m, k, n):
+    """The W8A8 kernel on the card, on both routes (the GEMV up to 16 rows,
+    the tensor cores above; N = 1001 odd, K = 9216 split over CTAs): int8
+    levels and scales equal to the plain version's, outputs within 1 f32
+    ULP (bf16: equal). tests/test_torch_w8a8_cuda.py holds the same
+    without JAX, for a machine that has a card and no JAX."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     rng = np.random.default_rng(m)
-    w = tquant.quantize_weight(torch.from_numpy(_weights(7, (2304, 1000)))
-                               .cuda())
-    x = torch.from_numpy((rng.standard_normal((m, 2304)) * 2).astype(
+    w = tquant.quantize_weight(torch.from_numpy(_weights(7, (k, n))).cuda())
+    x = torch.from_numpy((rng.standard_normal((m, k)) * 2).astype(
         np.float32)).cuda()
     x8, sx = tquant.quantize_act(x)
     w8, wsx = tquant.quantize_act_plain(x)
