@@ -10,11 +10,15 @@ Phases, in order; any failure exits non-zero before the result line:
 2. kernel: each kernel against its plain PyTorch version on the card at the
    2b-2b shapes, with its error, time, plain time, bound and library time:
    the two-segment paged attention (bf16, int8 and e4m3 pages, self and
-   cross forms, a small odd shape), the one-segment paged kernel (bf16 and
-   e4m3 pages, 5 pseudo-rows over one cache row, an empty row, hd 16), the
-   int8 decode layer (B = 4), the int4 decode layer (B = 1 and 4) and the
-   decode layer at chain 5 (int8 and int4, 1 and 2 cache rows), each with
-   bf16 and int8 pages; the W8A16 product at an odd width (N = 1001, M =
+   cross forms, a small odd shape, and the edges of its split plan: empty
+   splits, one split a row, the most splits), the one-segment paged kernel
+   (bf16 and e4m3 pages, 5 pseudo-rows over one cache row, an empty row,
+   hd 16), the int8 decode layer (B = 4), the int4 decode layer (B = 1 and
+   4), each also at the edges of its split plan (a length past the slab,
+   36 rows, one row), and the decode layer at chain 5 (int8 and int4, 1
+   and 2 cache rows), each with bf16 and int8 pages; the decode layer's
+   six GEMVs bit for bit against the GEMV it ran before, both timed; the
+   W8A16 product at an odd width (N = 1001, M =
    1, 4, 5, 17, 260) and the v1 fused self-attention (hd 256 and 16, bf16
    and e4m3 pages, soft cap 50 and none, empty prompt and generation
    segments, layer offsets); W8A8 and W4A8 at ragged shapes on both sides
@@ -39,9 +43,10 @@ Phases, in order; any failure exits non-zero before the result line:
    must be 2 x 26 x decode steps; it prints steps, tokens/s and RTF;
 5. profile: device time by kernel (torch.profiler) over a prefill and 32
    decode steps of that batch, and the device's idle share;
-6. step timing: one decode step's 52 attention launches replayed at the
-   main path's cache shapes, kernel against plain version, beside their
-   bound;
+6. step timing: one decode step's 52 attention launches at the main
+   path's cache shapes, graph-replayed and eager, kernel against plain
+   version, beside their bound, with each split plan (a wave of CTAs at
+   least);
 4b. main path, int8 serving: TTSPipeline(int8=True) at full 2b-2b width and
    depth, int8 pages, the same four requests; decode_stack must run once
    per decode step, the attention kernel of phase 4 never, W8A8 at least
@@ -50,8 +55,9 @@ Phases, in order; any failure exits non-zero before the result line:
    layer products of the prefill at M = 4 x 65 and cross K/V at M = 4 x
    text width, the rows taken from the run's plan; int32 part exact), its
    profile (phase 5) and its step timing (phase 6): one decode_stack call
-   at the main path's cache shapes and the step's two head products, each
-   against its plain version;
+   at the main path's cache shapes (its device time by part: split
+   attention, merge + quantize, GEMVs, norms, RoPE, GeGLU) and the step's
+   two head products, each against its plain version;
 4c. main path, int4 batch-1 latency: TTSPipeline(int4=True) at full 2b-2b
    width and depth, int8 pages, one 4.0 s request at batch 1; decode_stack
    must run once per decode step, the attention kernel never, W4A8 at least
@@ -81,9 +87,9 @@ Phases, in order; any failure exits non-zero before the result line:
 4g. the bf16 batch of phase 4 with T5G_FUSED_ATTN=1: the v1 kernel runs
    self-attention (26 launches a step) and the one-segment kernel cross
    attention (26 a step), the two-segment kernel never; RTF, tokens/s and
-   ms per step beside phase 4's; its profile, and one step's 26 v1
-   launches at the run's shapes (bf16 and e4m3 pages) against the plain
-   version;
+   ms per step beside phase 4's; its profile, one step's 26 v1
+   launches at the run's shapes (bf16 and e4m3 pages) and its 26
+   one-segment cross-attention launches, each against the plain version;
 4f. W8A16 serving: the route quantize_params_for_decode(fuse_for_decode(
    params), act_bits=16) + TTSPipeline(fuse_matmuls=False), the same four
    requests over bf16 pages; W8A16 launches must equal the plan's count
@@ -291,7 +297,65 @@ def phase_kernel(card: str, iters: int) -> dict:
         print(f"[kernel] batch_paged_attention {name}: max_abs_err={err:.3e} "
               f"(tol {TOL_ABS:g} abs + {TOL_REL:g} rel) kernel_ms={k_ms:.4f} "
               f"plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} library_ms=none "
-              f"(no PyTorch call computes soft-capped paged GQA) [{card}]")
+              f"(no PyTorch call computes soft-capped paged GQA) "
+              f"{plan_note(attention_plan(args))} [{card}]")
+    for page in worst:
+        worst[page] = max(worst[page], phase_kernel_splits(card, rng, page))
+    return worst
+
+
+def attention_plan(args) -> tuple:
+    """Kernel 1's (chunk, splits, CTAs) for one call's arguments."""
+    from t5gemma_tts_tpu_torch.ops import fused_attn as fa
+
+    chunk, splits = fa.batch_attention_plan(
+        args["a_k_pages"], args["a_page_indices"], args["b_page_indices"])
+    b = args["q"].shape[0]
+    return chunk, splits, b * args["a_k_pages"].shape[0] * splits
+
+
+def plan_note(plan) -> str:
+    return f"plan chunk={plan[0]} splits={plan[1]} ctas={plan[2]}"
+
+
+def phase_kernel_splits(card: str, rng, page: str) -> float:
+    """Kernel 1 at the edges of its split plan against its plain version
+    (bf16, int8 or e4m3 ``page``s, 2b-2b heads): lengths 0, 1, 127, 128,
+    129, 255, 256 that leave splits empty or end on a chunk or page edge;
+    a batch of 36 cross rows over one page (one split a row); one row over
+    one encoder page (chunk 2: the most splits a main path plans) and its
+    self-attention over a prompt page and four generation pages."""
+    from t5gemma_tts_tpu_torch.ops import fused_attn as fa
+
+    dev = torch.device("cuda")
+    big = dict(h=8, hkv=4, hd=256, quant=page == "i8", f8=page == "f8",
+               layers=1, li=0)
+    cases = [
+        ("edges", dict(big, b=4, a_lens=[0, 1, 127, 128], b_lens=[129, 0, 255,
+                                                                 256],
+                       pp_a=2, pp_b=2, include_current=True)),
+        ("one-split", dict(big, b=36, a_lens=list(range(1, 128, 4))[:36]
+                           + [128] * 4, b_lens=None, pp_a=1, pp_b=0,
+                           include_current=False)),
+        ("widest-cross", dict(big, b=1, a_lens=[45], b_lens=None, pp_a=1,
+                              pp_b=0, include_current=False)),
+        ("widest-self", dict(big, b=1, a_lens=[1], b_lens=[225], pp_a=1,
+                             pp_b=4, include_current=True))]
+    worst = 0.0
+    for name, spec in cases:
+        spec["a_lens"] = spec["a_lens"][:spec["b"]]
+        args = attention_case(rng, device=dev, **spec)
+        cur = spec["include_current"]
+        got = fa.batch_paged_attention(**args, attn_logits_soft_cap=50.0,
+                                       include_current=cur)
+        want = fa.batch_paged_attention_plain(
+            **args, attn_logits_soft_cap=50.0, include_current=cur)
+        torch.cuda.synchronize()
+        err = check_close(f"split {name}/{page}", got, want)
+        worst = max(worst, err)
+        print(f"[kernel] batch_paged_attention split edge {name}/{page}: "
+              f"max_abs_err={err:.3e} (tol {TOL_ABS:g} abs + {TOL_REL:g} "
+              f"rel) {plan_note(attention_plan(args))} [{card}]")
     return worst
 
 
@@ -300,7 +364,8 @@ def main_path_step_timing(card: str, prompt_len: int, gen_len: int,
                           f8: bool = False) -> dict:
     """One decode step's 52 launches (self + cross for each of 26 layers)
     at the main path's cache shapes (bf16 pages, or e4m3 with ``f8``),
-    kernel against plain version."""
+    kernel (graph-replayed, and eager) against plain version, with the
+    split plans, which must fill a wave."""
     from t5gemma_tts_tpu_torch.ops import fused_attn as fa
 
     rng = np.random.default_rng(1)
@@ -341,18 +406,35 @@ def main_path_step_timing(card: str, prompt_len: int, gen_len: int,
                 **a, attn_logits_soft_cap=50.0, include_current=cur)
             worst = max(worst, check_close("main-path shapes", got, want))
     n = 2 * MODEL_LAYERS
-    k_ms = cuda_ms(step(fa.batch_paged_attention), iters) / n
+    k_ms = graph_ms(step(fa.batch_paged_attention), iters) / n
+    eager_ms = cuda_ms(step(fa.batch_paged_attention), iters) / n
     p_ms = cuda_ms(step(fa.batch_paged_attention_plain), iters) / n
     sb, sf = attention_bytes_ops(self_args, True)
     cb, cf = attention_bytes_ops(cross_args, False)
     b_ms, by = bound_ms((sb + cb) / 2, (sf + cf) / 2)
+    splits = {"self": attention_plan(self_args),
+              "cross": attention_plan(cross_args)}
     print(f"[kernel] main-path step (B={b}, prompt {prompt_len}, gen "
           f"{gen_len}, enc {list(enc_lens)}, {'e4m3' if f8 else 'bf16'} "
           f"pages; mean of {n} launches): "
-          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} "
-          f"({by}) max_abs_err={worst:.3e} [{card}]")
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-            "max_abs_err": worst}
+          f"kernel_ms={k_ms:.4f} (graph; eager {eager_ms:.4f}) plain_ms="
+          f"{p_ms:.4f} bound_ms={b_ms:.5f} ({by}) max_abs_err={worst:.3e}; "
+          f"self {plan_note(splits['self'])}, cross "
+          f"{plan_note(splits['cross'])} [{card}]")
+    check_wave("batch_paged_attention", splits)
+    return {"ms": k_ms, "eager_ms": eager_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": by, "max_abs_err": worst,
+            "splits": splits}
+
+
+def check_wave(name: str, splits: dict) -> None:
+    """A split-KV launch at a main path's shapes must fill one wave."""
+    from t5gemma_tts_tpu_torch.ops.fused_attn import WAVE
+
+    for form, plan in splits.items():
+        if plan[2] < WAVE:
+            raise AssertionError(f"{name} {form}: {plan[2]} CTAs, less than "
+                                 f"one wave of {WAVE}")
 
 
 # ---------------------------------------------------------------------------
@@ -687,8 +769,12 @@ def decode_layer_bytes(dims, args, w_bytes=1.0, chain=1) -> int:
 def phase_decode_layer(card: str, cfg, iters: int,
                        int4: bool = False) -> float:
     """The int8 (``int4``: int4) decode layer against its plain version at
-    2b-2b width, bf16 and int8 pages (a two-layer stack, layer 1): B = 4
-    (int4: B = 1 and 4)."""
+    2b-2b width, bf16 and int8 pages (a two-layer stack, layer 1), timed:
+    B = 4 (int4: B = 1 and 4). Then, checked only, the edges of the split
+    plan: lengths 0, 255, 256 and one past the 256-token generation slab
+    (which re-reads its last page), encoder lengths 1, 16, 128, 129; 36
+    rows (one cross split a row); one row over a 640-token self capacity
+    and one encoder page (the most splits a main path plans)."""
     import dataclasses
 
     from t5gemma_tts_tpu_torch.ops import megakernel as mk
@@ -698,16 +784,21 @@ def phase_decode_layer(card: str, cfg, iters: int,
                                layer_types=())
     layers = random_quant_layers(dims, 2, dev, seed=4 + int4, int4=int4)
     weights = "int4" if int4 else "int8"
-    shapes = [(4, [0, 5, 129, 300], [1, 29, 44, 130])]
+    cases = [("", 4, [0, 5, 129, 300], [1, 29, 44, 130], 384, True)]
     if int4:
-        shapes.insert(0, (1, [129], [44]))
+        cases.insert(0, ("", 1, [129], [44], 384, True))
+    cases += [("split edges ", 4, [0, 255, 256, 300], [1, 16, 128, 129], 256,
+               False),
+              ("one cross split ", 36, [(7 * i) % 129 for i in range(36)],
+               [1 + (11 * i) % 128 for i in range(36)], 128, False),
+              ("widest split ", 1, [225], [45], 512, False)]
     worst = 0.0
-    for b, gen_lens, enc_lens in shapes:
+    for label, b, gen_lens, enc_lens, gen_slab, timed in cases:
         for quant in (False, True):
             tag = "i8" if quant else "bf16"
             args = decode_layer_inputs(dims, b, quant, prompt=37,
                                        gen_lens=gen_lens, enc_lens=enc_lens,
-                                       gen_slab=384, device=dev,
+                                       gen_slab=gen_slab, device=dev,
                                        seed=5 + quant + 10 * (b != 4))
             got = mk.decode_layer(layers, dims, li=1, **args)
             want = mk.decode_layer_plain(layers, dims, li=1, **args)
@@ -717,10 +808,23 @@ def phase_decode_layer(card: str, cfg, iters: int,
             if (errs[0] > REL_FRO_TOL_H or errs[1] > REL_FRO_TOL_KV
                     or errs[2] > REL_FRO_TOL_KV):
                 raise AssertionError(
-                    f"{weights} decode layer B={b} {tag}: relative error "
-                    f"{errs} (h, k, v) exceeds "
+                    f"{weights} decode layer {label}B={b} {tag}: relative "
+                    f"error {errs} (h, k, v) exceeds "
                     f"{REL_FRO_TOL_H}/{REL_FRO_TOL_KV}")
             worst = max(worst, err)
+            plans = layer_plans(dims, args)
+            lens = "/".join(str(n) for n in gen_lens[:4])
+            elens = "/".join(str(n) for n in enc_lens[:4])
+            head = (f"[kernel] decode_layer {weights} {label}2b-2b B={b} "
+                    f"{tag} pages (prompt 37, gen {lens}, enc {elens}, gen "
+                    f"slab {gen_slab}): relative error h/k/v {errs[0]:.2e}/"
+                    f"{errs[1]:.2e}/{errs[2]:.2e} (tol {REL_FRO_TOL_H:g}/"
+                    f"{REL_FRO_TOL_KV:g}/{REL_FRO_TOL_KV:g}), max_abs_err="
+                    f"{err:.3e}; self {plan_note(plans['self'])}, cross "
+                    f"{plan_note(plans['cross'])}")
+            if not timed:
+                print(f"{head} [{card}]")
+                continue
             k_ms = graph_ms(lambda: mk.decode_layer(layers, dims, li=1,
                                                     **args), iters)
             p_ms = cuda_ms(lambda: mk.decode_layer_plain(layers, dims, li=1,
@@ -728,17 +832,21 @@ def phase_decode_layer(card: str, cfg, iters: int,
                            max(iters // 4, 2))
             b_ms, by = bound_ms(decode_layer_bytes(
                 dims, args, 0.5 if int4 else 1.0), 0)
-            lens = "/".join(str(n) for n in gen_lens)
-            elens = "/".join(str(n) for n in enc_lens)
-            print(f"[kernel] decode_layer {weights} 2b-2b B={b} {tag} pages "
-                  f"(prompt 37, gen {lens}, enc {elens}): relative error "
-                  f"h/k/v {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol "
-                  f"{REL_FRO_TOL_H:g}/{REL_FRO_TOL_KV:g}/{REL_FRO_TOL_KV:g})"
-                  f", max_abs_err={err:.3e}; kernel_ms={k_ms:.4f} (graph)"
-                  f" plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({by}) "
-                  f"library_ms=none (no PyTorch call computes a layer) "
-                  f"[{card}]")
+            print(f"{head}; kernel_ms={k_ms:.4f} (graph) plain_ms={p_ms:.4f}"
+                  f" bound_ms={b_ms:.5f} ({by}) library_ms=none (no PyTorch "
+                  f"call computes a layer) [{card}]")
     return worst
+
+
+def layer_plans(dims, args) -> dict:
+    """Kernel 2's self and cross (chunk, splits, CTAs) for one call."""
+    from t5gemma_tts_tpu_torch.ops import megakernel as mk
+
+    plans = mk.attention_plan(dims, args["prompt_k"], args["gen_k"],
+                              args["cross_k"])
+    pairs = args["prompt_k"].shape[0] * (args["prompt_k"].shape[1]
+                                         // dims.num_layers)
+    return {k: (c, n, pairs * n) for k, (c, n) in plans.items()}
 
 
 def product_timing(calls, card: str, label: str, iters: int) -> dict:
@@ -815,6 +923,7 @@ def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
     stack["bound_ms"], stack["bound_by"] = bound_ms(
         dims.num_layers * decode_layer_bytes(dims, args,
                                              0.5 if int4 else 1.0), 0)
+    stack["splits"] = layer_plans(dims, args)
     print(f"[kernel] decode_stack {weights} main-path step (B={b}, prompt 1, "
           f"gen {steps // 2}, enc {list(enc_lens)}, int8 pages, 26 layers): "
           f"relative error h/k/v {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
@@ -822,7 +931,13 @@ def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
           f"{stack['max_abs_err']:.3e}, "
           f"kernel_ms={stack['ms']:.4f} (graph; eager call "
           f"{stack['eager_ms']:.4f}) plain_ms={stack['plain_ms']:.4f} "
-          f"bound_ms={stack['bound_ms']:.5f} ({stack['bound_by']}) [{card}]")
+          f"bound_ms={stack['bound_ms']:.5f} ({stack['bound_by']}); self "
+          f"{plan_note(stack['splits']['self'])}, cross "
+          f"{plan_note(stack['splits']['cross'])} [{card}]")
+    check_wave("decode_stack", stack["splits"])
+    stack["parts"] = stack_breakdown(
+        lambda: mk.decode_stack(layers, dims, **args), card,
+        f"decode_stack {weights} B={b}")
 
     head = pipe.params["head"]
     g = torch.Generator(device=dev).manual_seed(7)
@@ -842,6 +957,59 @@ def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
             "w4a8": product_timing([(x2, head["w2"])], card,
                                    f"w4a8 int4 main-path step (head w2, "
                                    f"M={b}, bf16; int4 weights)", iters)}
+
+
+STACK_PARTS = (("split attention", "slab_"),
+               ("merge + quantize", "merge_quant"),
+               ("GEMVs", "gemv"),
+               ("norms", "residual_norm_quant"),
+               ("RoPE", "rope_kernel"),
+               ("GeGLU", "geglu_quant"))
+
+
+def stack_breakdown(fn, card: str, label: str) -> dict:
+    """Device time of one decode_stack call by part: the call captured in a
+    CUDA graph and replayed once under torch.profiler (an eager call if
+    the profiler sees no kernel of the replay), kernels grouped by name
+    (STACK_PARTS)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    source = "graph replay"
+    for run in (graph.replay, fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count,
+                 e.key) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(ms > 0 for ms, _, _ in rows):
+            break
+        source = "eager call"
+    parts = {name: {"ms": 0.0, "launches": 0} for name, _ in STACK_PARTS}
+    parts["other"] = {"ms": 0.0, "launches": 0}
+    for ms, count, key in rows:
+        name = next((n for n, pat in STACK_PARTS if pat in key), "other")
+        parts[name]["ms"] += ms
+        parts[name]["launches"] += count
+    total = sum(p["ms"] for p in parts.values())
+    print(f"[kernel] {label} by part ({source}, torch.profiler, one call): "
+          + "; ".join(f"{n} {p['ms']:.4f} ms x{p['launches']} "
+                      f"({100 * p['ms'] / max(total, 1e-9):.1f}%)"
+                      for n, p in parts.items())
+          + f"; total {total:.4f} ms [{card}]")
+    return {"source": source, "total_ms": total, **parts}
 
 
 # ---------------------------------------------------------------------------
@@ -989,6 +1157,43 @@ def parts_step_timing(card: str, prompt_len: int, gen_len: int, enc_len: int,
     return out
 
 
+def cross_parts_timing(card: str, enc_lens, iters: int) -> dict:
+    """One decode step's 26 one-segment launches of mode 1's cross
+    attention (phase 4g: paged_gqa_attention over the encoder pages, bf16)
+    at the batch's shapes, kernel (graph-replayed) against plain
+    version."""
+    from t5gemma_tts_tpu_torch.ops import paged_attn as pa
+
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    pp = -(-max(enc_lens) // PAGE)
+    base = parts_case(rng, rows=len(enc_lens), s_len=1, h=8, hkv=4, hd=256,
+                      lens=list(enc_lens), pp=pp, dtype=torch.bfloat16,
+                      layers=MODEL_LAYERS, li=0, device=dev)
+    calls = [dict(base, page_indices=base["page_indices"]
+                  + li * len(enc_lens) * pp) for li in range(MODEL_LAYERS)]
+    worst = max(check_parts("4g cross shapes", pa.paged_flash_parts(
+        **a, attn_logits_soft_cap=50.0), pa.paged_flash_parts_plain(
+        **a, attn_logits_soft_cap=50.0)) for a in calls[:2])
+
+    def run(fn):
+        return lambda: [fn(**a, attn_logits_soft_cap=50.0) for a in calls]
+
+    n = len(calls)
+    out = {"ms": graph_ms(run(pa.paged_flash_parts), iters) / n,
+           "eager_ms": cuda_ms(run(pa.paged_flash_parts), iters) / n,
+           "plain_ms": cuda_ms(run(pa.paged_flash_parts_plain), iters) / n,
+           "max_abs_err": worst, "library_ms": None}
+    out["bound_ms"], out["bound_by"] = bound_ms(*parts_bytes_ops(base, 1))
+    print(f"[kernel] paged_flash_parts 4g cross-attention shapes (B="
+          f"{len(enc_lens)}, enc {list(enc_lens)}, bf16 pages; mean of {n} "
+          f"launches): kernel_ms={out['ms']:.4f} (graph; eager "
+          f"{out['eager_ms']:.4f}) plain_ms={out['plain_ms']:.4f} "
+          f"bound_ms={out['bound_ms']:.5f} ({out['bound_by']}) "
+          f"max_abs_err={worst:.3e} [{card}]")
+    return out
+
+
 def chain_layer_inputs(dims, rows, s_len, quant, device, seed, layers=None,
                        gen=(129, 5), enc=(44, 9), gen_slab=384):
     """Inputs of one decode-layer call at chain ``s_len`` over ``rows``
@@ -1089,13 +1294,16 @@ def chain_step_timing(pipe, card: str, steps: int, enc_len: int,
     out["bound_ms"], out["bound_by"] = bound_ms(
         dims.num_layers * decode_layer_bytes(dims, args, 0.5 if int4 else 1.0,
                                              chain=s_len), 0)
+    out["splits"] = layer_plans(dims, args)
     print(f"[kernel] decode_stack {'int4' if int4 else 'int8'} chain {s_len}"
           f" verify pass at main-path shapes (1 row x {s_len}, prompt 1, gen "
           f"{steps // 2}, enc {enc_len}, bf16 pages, 26 layers): relative "
           f"error h/k/v {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol "
           f"{REL_FRO_TOL_STACK:g}), kernel_ms={out['ms']:.4f} (graph) "
           f"plain_ms={out['plain_ms']:.4f} bound_ms={out['bound_ms']:.5f} "
-          f"({out['bound_by']}) [{card}]")
+          f"({out['bound_by']}); self {plan_note(out['splits']['self'])}, "
+          f"cross {plan_note(out['splits']['cross'])} [{card}]")
+    check_wave("decode_stack chain", out["splits"])
     return out
 
 
@@ -2032,6 +2240,7 @@ def main(argv=None) -> int:
     fused_timing_f8 = fused_step_timing(
         card, prompt_len=1, gen_len=main1["steps"] // 2, batch=4,
         gen_slab=main1["gen_slab"], iters=step_iters, f8=True)
+    cross_timing = cross_parts_timing(card, main1["enc_lens"], step_iters)
 
     stamp("4 and 4g (bf16)")
     main8 = phase_main_path(card, args.seed, "int8")
@@ -2125,10 +2334,12 @@ def main(argv=None) -> int:
                              timing_f8["max_abs_err"]),
              ms=timing["ms"], plain_ms=timing["plain_ms"],
              bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
-             library_ms=None,
+             library_ms=None, eager_ms=timing["eager_ms"],
+             splits=timing["splits"],
              e4m3=dict(launches=spec8["seq_launches"]["batch_paged_attention"],
                        max_abs_err=max(worst_attn["f8"],
                                        timing_f8["max_abs_err"]),
+                       splits=timing_f8["splits"],
                        **{k: timing_f8[k] for k in keys[:4]})),
         dict(name="w8a8_matmul", route="cuda",
              source=src + "w8a8_matmul.cu",
@@ -2148,7 +2359,9 @@ def main(argv=None) -> int:
              launches=main8["launches"]["decode_stack"],
              max_abs_err=max(worst_layer,
                              timing8["decode_stack"]["max_abs_err"]),
-             **{k: timing8["decode_stack"][k] for k in keys}),
+             **{k: timing8["decode_stack"][k] for k in keys},
+             splits=timing8["decode_stack"]["splits"],
+             parts=timing8["decode_stack"]["parts"]),
         dict(name="w4a8_matmul", route="cuda",
              source=src + "w4a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:656",
@@ -2167,16 +2380,22 @@ def main(argv=None) -> int:
              max_abs_err=max(worst_layer4,
                              timing4["decode_stack"]["max_abs_err"]),
              **{k: timing4["decode_stack"][k] for k in keys},
+             splits=timing4["decode_stack"]["splits"],
+             parts=timing4["decode_stack"]["parts"],
              chain5=dict(launches=spec4["launches"]["decode_stack"],
                          max_abs_err=max(*worst_chain.values(),
                                          chain_timing["max_abs_err"]),
+                         splits=chain_timing["splits"],
                          **{k: chain_timing[k] for k in keys[:4]})),
         dict(name="paged_flash_parts", route="cuda",
              source=src + "paged_flash_parts.cu",
              replaces="t5gemma_tts_tpu/ops/paged_attn.py:122",
              launches=spec8["launches"]["paged_flash_parts"],
-             max_abs_err=max(worst_parts, parts_timing["max_abs_err"]),
-             **{k: parts_timing[k] for k in keys}),
+             max_abs_err=max(worst_parts, parts_timing["max_abs_err"],
+                             cross_timing["max_abs_err"]),
+             **{k: parts_timing[k] for k in keys},
+             cross_4g=dict(launches=main1["launches"]["paged_flash_parts"],
+                           **{k: cross_timing[k] for k in keys})),
         dict(name="w8a16_matmul", route="cuda",
              source=src + "w8a16_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:78",

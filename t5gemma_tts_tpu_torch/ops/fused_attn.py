@@ -14,6 +14,11 @@ ops/cuda_build.py) or raise; on a CPU tensor they run
 which compute the same functions with whole-tensor PyTorch ops.
 ``.launches`` on each wrapper counts kernel launches.
 
+The two-segment kernel is split-KV: :func:`batch_attention_plan` cuts the
+segments' capacity (pages per row x page size, never the lengths, so the
+launch needs no host sync and a CUDA graph captures it) into chunks of one
+CTA each (:func:`split_plan`), and a second kernel merges a row's partials.
+
 Semantics carried over from the TPU kernel: logits in f32, soft cap before
 the length mask, mask value -0.7 * f32max with masked probabilities 0,
 segment A clamped to at least one token, int8 pages dequantized per token
@@ -33,6 +38,31 @@ from typing import Optional, Tuple
 import torch
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+WAVE = 132       # CTAs of one wave: one on each of an H100's SMs
+
+
+def split_plan(pairs: int, capacity: int, page: int) -> Tuple[int, int]:
+    """(chunk, splits) of a split-KV attention launch: ``pairs`` (row, kv
+    head) pairs over ``capacity`` tokens of whole ``page``-token pages. The
+    chunk is the largest divisor of the page, halving from the page, at
+    which ``pairs * splits`` CTAs fill one wave (or the smallest halving);
+    the splits cover the capacity exactly once and never straddle a page."""
+    chunk = page
+    while chunk % 2 == 0 and pairs * (capacity // chunk) < WAVE:
+        chunk //= 2
+    return chunk, capacity // chunk
+
+
+def batch_attention_plan(a_k_pages: torch.Tensor,
+                         a_page_indices: torch.Tensor,
+                         b_page_indices: Optional[torch.Tensor]
+                         ) -> Tuple[int, int]:
+    """The two-segment kernel's (chunk, splits) for one call, from shapes
+    alone: B x Hkv pairs over both segments' pages per row."""
+    hkv, _, ps, _ = a_k_pages.shape
+    b, pp_a = a_page_indices.shape
+    pp_b = 0 if b_page_indices is None else b_page_indices.shape[1]
+    return split_plan(b * hkv, (pp_a + pp_b) * ps, ps)
 
 
 def absmax_scale(amax: torch.Tensor, levels: float = 127.0) -> torch.Tensor:
@@ -251,7 +281,7 @@ def _bind():
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = ([vp] * 3 + [vp] * 6 + [i32, i64] + [vp] * 6
-                       + [i32, i64] + [vp] + [i32] * 5
+                       + [i32, i64] + [vp] * 4 + [i32] * 7
                        + [ctypes.c_float, i32, i32, vp])
         fn.restype = ctypes.c_int
     return fn
@@ -296,8 +326,15 @@ def _launch(q, k_cur, v_cur, a_k, a_v, b_k, b_v, a_len, b_len, a_idx, b_idx,
         _check("v_cur", v_cur, dev, torch.float32, (b, hkv, hd))
     else:
         k_cur = v_cur = None
-    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
     has_b = b_k is not None
+    chunk, splits = batch_attention_plan(a_k, a_idx, b_idx if has_b else None)
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    # the split partials (acc [B, Hkv, splits, G, hd], then m and l), one
+    # allocation addressed by offsets (views would cost host time per call)
+    n_ml = b * h * splits
+    part = torch.empty((n_ml * (hd + 2),), dtype=torch.float32, device=dev)
+    acc_ptr = part.data_ptr()
+    m_ptr = acc_ptr + 4 * n_ml * hd
     fn = _bind()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -310,7 +347,8 @@ def _launch(q, k_cur, v_cur, a_k, a_v, b_k, b_v, a_len, b_len, a_idx, b_idx,
             b_len.data_ptr() if has_b else None,
             b_idx.data_ptr() if has_b else None,
             b_idx.shape[1] if has_b else 0, b_k.shape[1] if has_b else 0,
-            out.data_ptr(), b, h, hkv, hd, ps,
+            out.data_ptr(), acc_ptr, m_ptr, m_ptr + 4 * n_ml,
+            chunk, splits, b, h, hkv, hd, ps,
             float(soft_cap) if soft_cap is not None else 0.0,
             int(include_current), page_type, stream)
     if err != 0:

@@ -36,6 +36,13 @@ Slabs are the cache's identity layout ``[Hkv, L*B, T, hd]`` (layer li, row
 b is slab row ``li * B + b``), bf16 or int8 with per-token f32 scale planes
 ``[Hkv, L*B, T]``.
 
+On the card the attention is split-KV: :func:`attention_plan` cuts the
+slabs' capacity (never the lengths, so a launch needs no host sync and a
+CUDA graph captures it) into chunks of one CTA each, whose partials a merge
+kernel combines with the in-flight token. A first pass writes the logits
+and each chunk's maximum, so that the second rounds p relative to the
+running max of its 128-token block, as the plain version does.
+
 ``chain = S > 1``: h and the per-row inputs carry ``B * S`` pseudo-rows, the
 S chain positions of each cache row in order; pseudo-row b reads the slabs
 of cache row ``b // S``, and its in-flight part is its chain prefix
@@ -54,7 +61,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .fused_attn import MASK_VALUE, _check, quantize_kv
+from .fused_attn import MASK_VALUE, _check, quantize_kv, split_plan
 from .quant import (Int4Weight, QuantWeight, int4_levels, int_matmul_exact,
                     quantize_act_plain)
 
@@ -372,12 +379,28 @@ class _DecodeArgs(ctypes.Structure):
                 + [(n, _vp * 6) for n in ("w", "ws", "norms", "slab",
                                           "slab_scale")]
                 + [(n, _vp) for n in ("k_new", "v_new", "x8", "sx", "proj",
-                                      "qbuf", "attn", "dout")]
+                                      "qbuf", "dout", "attn_logits",
+                                      "part_cmax", "part_acc", "part_m",
+                                      "part_l")]
                 + [(n, _i32) for n in ("B", "D", "H", "Hkv", "hd", "F", "L",
                                        "ftile", "Tp", "Tg", "Tx",
-                                       "kv_quant", "w4", "chain")]
+                                       "kv_quant", "w4", "chain",
+                                       "chunk_self", "splits_self",
+                                       "chunk_cross", "splits_cross")]
                 + [(n, ctypes.c_float) for n in ("eps", "soft_cap",
                                                  "q_scale")])
+
+
+def attention_plan(dims, prompt_k: torch.Tensor, gen_k: torch.Tensor,
+                   cross_k: torch.Tensor) -> Dict[str, Tuple[int, int]]:
+    """(chunk, splits) of the layer's self and cross attention, from the
+    slabs' shapes alone ([Hkv, L*Bc, T, hd]: Bc x Hkv (cache row, kv head)
+    pairs over the prompt + generation capacity, and over the encoder's)."""
+    hkv, rows = prompt_k.shape[:2]
+    pairs = hkv * (rows // dims.num_layers)
+    return {"self": split_plan(pairs, prompt_k.shape[2] + gen_k.shape[2],
+                               TBLOCK),
+            "cross": split_plan(pairs, cross_k.shape[2], TBLOCK)}
 
 
 def _bind(name: str):
@@ -436,6 +459,8 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
     for x in lens:
         _check("lengths", x, dev, torch.int32, (b,))
 
+    plan = attention_plan(dims, prompt_k, gen_k, cross_k)
+    splits = max(plan["self"][1], plan["cross"][1])
     run = n_layers if li is None else 1
     hout = h.float().clone()
     k_new = torch.empty((run, b, hkv, hd), dtype=torch.float32, device=dev)
@@ -446,8 +471,18 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
         proj=torch.empty((b, max(ho + 2 * nkv, 2 * f)), dtype=torch.float32,
                          device=dev),
         qbuf=torch.empty((b, ho), dtype=torch.float32, device=dev),
-        attn=torch.empty((b, ho), dtype=torch.float32, device=dev),
-        dout=torch.empty((b, d), dtype=torch.float32, device=dev))
+        dout=torch.empty((b, d), dtype=torch.float32, device=dev),
+        part_acc=torch.empty((b // chain, hkv, splits,
+                              chain * (n_heads // hkv), hd),
+                             dtype=torch.float32, device=dev),
+        part_m=torch.empty((b // chain, hkv, splits, chain * (n_heads // hkv)),
+                           dtype=torch.float32, device=dev),
+        attn_logits=torch.empty(
+            (b // chain, hkv, chain * (n_heads // hkv),
+             max(prompt_k.shape[2] + gen_k.shape[2], cross_k.shape[2])),
+            dtype=torch.float32, device=dev))
+    ws["part_l"] = torch.empty_like(ws["part_m"])
+    ws["part_cmax"] = torch.empty_like(ws["part_m"])
     a = _DecodeArgs(
         h=hout.data_ptr(), cos=tabs[0].data_ptr(), sin=tabs[1].data_ptr(),
         qcos=tabs[2].data_ptr(), qsin=tabs[3].data_ptr(),
@@ -464,7 +499,10 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
         **{k: v.data_ptr() for k, v in ws.items()},
         B=b, D=d, H=n_heads, Hkv=hkv, hd=hd, F=f, L=n_layers, ftile=ft,
         Tp=prompt_k.shape[2], Tg=gen_k.shape[2], Tx=cross_k.shape[2],
-        kv_quant=int(quant), w4=int(w4), chain=chain, eps=dims.rms_norm_eps,
+        kv_quant=int(quant), w4=int(w4), chain=chain,
+        chunk_self=plan["self"][0], splits_self=plan["self"][1],
+        chunk_cross=plan["cross"][0], splits_cross=plan["cross"][1],
+        eps=dims.rms_norm_eps,
         soft_cap=dims.attn_logit_softcap or 0.0, q_scale=dims.q_scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -475,3 +513,4 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
     if err != 0:
         raise RuntimeError(f"decode layer kernels failed: CUDA error {err}")
     return hout, k_new, v_new
+
