@@ -18,10 +18,14 @@ Phases, in order; any failure exits non-zero before the result line:
    36 rows, one row), and the decode layer at chain 5 (int8 and int4, 1
    and 2 cache rows), each with bf16 and int8 pages; the decode layer's
    six GEMVs bit for bit against the GEMV it ran before, both timed; the
-   W8A16 product at an odd width (N = 1001, M =
-   1, 4, 5, 17, 260) and the v1 fused self-attention (hd 256 and 16, bf16
-   and e4m3 pages, soft cap 50 and none, empty prompt and generation
-   segments, layer offsets); W8A8 and W4A8 at ragged shapes on both sides
+   W8A16 product on the bf16 tensor cores from one row to two row tiles
+   (M = 1, 2, 4, 5, 16, 17, 260 at K = 2320 / N = 1001, K = 9216 and
+   N = 65541; up to 16 rows timed, with their plan) and the v1 fused
+   self-attention (hd 256 and
+   16, bf16 and e4m3 pages, soft cap 50 and none, empty prompt and
+   generation segments, layer offsets, and the edges of its split plan:
+   empty splits, one split a page, the most splits, every prompt empty);
+   W8A8 and W4A8 at ragged shapes on both sides
    of their route boundary (M = 2 ... 260, N = 1001 and 65541, K = 2304,
    2320 and 9216), each timed on its route and on the GEMV route; the
    W8A8, W4A8 and W8A16 products are held here too, but at each quantized
@@ -88,16 +92,19 @@ Phases, in order; any failure exits non-zero before the result line:
    self-attention (26 launches a step) and the one-segment kernel cross
    attention (26 a step), the two-segment kernel never; RTF, tokens/s and
    ms per step beside phase 4's; its profile, one step's 26 v1
-   launches at the run's shapes (bf16 and e4m3 pages) and its 26
-   one-segment cross-attention launches, each against the plain version;
+   launches at the run's shapes (bf16 and e4m3 pages, with their split
+   plan, which must fill a wave) and its 26 one-segment cross-attention
+   launches, each against the plain version;
 4f. W8A16 serving: the route quantize_params_for_decode(fuse_for_decode(
    params), act_bits=16) + TTSPipeline(fuse_matmuls=False), the same four
    requests over bf16 pages; W8A16 launches must equal the plan's count
    (w8a16_launches), the two-segment kernel 2 x 26 a step, decode_stack
-   never; then every W8A16 product of the run against its plain version,
-   its profile, and one step's 158 products at the run's shapes, each
-   with the library call torch._weight_int8pack_mm and a bf16 matmul over
-   the weight dequantized beforehand.
+   never; then every W8A16 product of the run against its plain version
+   (with its route and plan), its profile, one row per distinct product
+   shape of a step (route, plan, time, bound, bf16 yardstick) and one
+   step's 158 products at the run's
+   shapes, each with the library call torch._weight_int8pack_mm and a
+   bf16 matmul over the weight dequantized beforehand.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1419,55 +1426,89 @@ def time_w8a16(calls, card: str, label: str, iters: int) -> dict:
     return out
 
 
-def phase_w8a16_shapes(card: str) -> float:
-    """Kernel 6 against its plain version at an odd width (N = 1001) and a
-    depth that is no multiple of 32 or of the GEMV's slab (K = 2320) for
-    M = 1, 4, 5 (the GEMV), 17 and 260 (the tensor-core tile), f32 and bf16
-    activations."""
+def w8a16_plan_note(m, w) -> str:
+    """A W8A16 product's route and tiling (``quant.product_plan``)."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    p = quant.product_plan(m, w)
+    return (f"route {p['route']} ni={p['ni']} rowtiles={p['rowtiles']} "
+            f"ntiles={p['ntiles']} ktiles={p['ktiles']} splits={p['splits']}"
+            f" per_sm={p['per_sm']}")
+
+
+def phase_w8a16_shapes(card: str, iters: int) -> float:
+    """Kernel 6 against its plain version from one row to two row tiles
+    (M = 1, 2, 4, 5, 16, 17, 260): at an odd width (N = 1001) and a depth
+    that is no multiple of the 128-level K tile (K = 2320), at the main
+    path's K = 9216 (down) and at N = 65541 (the head's w2), f32 and bf16
+    activations and outputs; the bf16 products up to 16 rows timed, with
+    their plan."""
     from t5gemma_tts_tpu_torch.ops import quant
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
-    w = quant.quantize_weight(
-        torch.randn((2320, 1001), generator=g, device=dev) * 0.05,
-        act_bits=16)
     worst = 0.0
-    for m in (1, 4, 5, 17, 260):
-        x = torch.randn((m, 2320), generator=g, device=dev) * 2.0
-        for xd in (x, x.to(torch.bfloat16)):
-            worst = max(worst, check_w8a16(f"odd N M={m}", xd, w))
-    print(f"[kernel] w8a16 odd N (K=2320, N=1001; M = 1, 4, 5, 17, 260; f32 "
-          f"and bf16 x): f32 within {W8A16_REL_FRO:g} relative, bf16 its f32 "
-          f"rounded and within 1 ulp, max_abs_err={worst:.3e} [{card}]")
+    ms_all = (1, 2, 4, 5, 16, 17, 260)
+    for k, n in ((2320, 1001), (9216, 2304), (2304, 65541)):
+        w = quant.quantize_weight(
+            torch.randn((k, n), generator=g, device=dev) * 0.05, act_bits=16)
+        times = []
+        for m in ms_all:
+            x = torch.randn((m, k), generator=g, device=dev) * 2.0
+            for xd in (x, x.to(torch.bfloat16)):
+                worst = max(worst, check_w8a16(f"K={k} N={n} M={m}", xd, w))
+            if m <= 16:
+                xb = x.to(torch.bfloat16)
+                k_ms = graph_ms(lambda: quant.w8a16_matmul(xb, w),
+                                max(iters // 2, 2))
+                times.append(f"M={m}: {k_ms:.4f} ({w8a16_plan_note(m, w)})")
+        print(f"[kernel] w8a16 K={k} N={n} (M = {list(ms_all)}; f32 and "
+              f"bf16 x and out): f32 within {W8A16_REL_FRO:g} relative, "
+              f"bf16 its f32 rounded and within 1 ulp; ms (graph): "
+              f"{'; '.join(times)} [{card}]")
+    print(f"[kernel] w8a16 shape edges: max_abs_err={worst:.3e} [{card}]")
     return worst
 
 
-def phase_w8a16_products(card: str, run: dict, iters: int) -> float:
+def phase_w8a16_products(card: str, run: dict, iters: int) -> tuple:
     """Every W8A16 product of a main-path run (:func:`run_products`: the
     head's w1 and w2 at M = B, the six layer products of the prefill at
-    M = B x (prompt width + 1), cross K/V at M = B x text width) against
-    its plain version on the run's weights, each timed."""
+    M = B x (prompt width + 1) and of a step at M = B, cross K/V at M = B x
+    text width) against its plain version on the run's weights, each timed
+    with its route and plan. Returns the largest f32 error and one record
+    per product."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
-    worst = 0.0
+    worst, records = 0.0, []
     for name, m, w in run_products(run):
         k = w.values.shape[-1]
         x = (torch.randn((m, k), generator=gen, device=dev) * 2.0).to(
             torch.bfloat16)
         err = check_w8a16(name, x, w)
         worst = max(worst, err)
-        time_w8a16([(x, w)], card, f"{run['tag']} {name} [{m}x{k}]x[{k}x"
-                   f"{w.n}]: max_abs_err={err:.3e} (f32 within "
-                   f"{W8A16_REL_FRO:g} relative, bf16 its f32 rounded and "
-                   f"within 1 ulp)", iters)
-    return worst
+        out = time_w8a16([(x, w)], card, f"{run['tag']} {name} [{m}x{k}]x[{k}x"
+                         f"{w.n}] ({w8a16_plan_note(m, w)}): max_abs_err="
+                         f"{err:.3e} (f32 within {W8A16_REL_FRO:g} relative, "
+                         f"bf16 its f32 rounded and within 1 ulp)", iters)
+        plan = quant.product_plan(m, w)
+        records.append(dict(run=run["tag"], name=name, M=m, K=k, N=w.n,
+                            route=plan["route"], splits=plan["splits"],
+                            **{key: out[key] for key in
+                               ("ms", "bound_ms", "library_ms", "bf16_ms")}))
+    return worst, records
 
 
 def w8a16_step_timing(pipe, card: str, batch: int, iters: int) -> dict:
     """One decode step's W8A16 products at the main path's shapes, on its
     own weights: the six products of each of the 26 layers and the head's
-    w1 and w2, all at M = B, bf16 activations."""
+    w1 and w2, all at M = B, bf16 activations. One row per distinct shape
+    (the six layer products of layer 0, then the head's w1 and w2): its
+    route and plan, ms (graph), bound and bf16 yardstick; then the step's
+    158 products in one graph, mean per launch."""
     from t5gemma_tts_tpu_torch.models.t5gemma import layer_params
+    from t5gemma_tts_tpu_torch.ops import quant
 
     dev = pipe.device
     params = pipe.params
@@ -1481,7 +1522,7 @@ def w8a16_step_timing(pipe, card: str, batch: int, iters: int) -> dict:
                 torch.bfloat16)
         return xs[k], w
 
-    calls = []
+    calls, names = [], []
     layers = params["decoder"]["layers"]
     for li in range(pipe.cfg.backbone.decoder.num_layers):
         lay = layer_params(layers, li)
@@ -1489,13 +1530,29 @@ def w8a16_step_timing(pipe, card: str, batch: int, iters: int) -> dict:
                         ("cross_attn", "q"), ("cross_attn", "o"),
                         ("mlp", "gate_up"), ("mlp", "down")):
             calls.append(x_for(lay[blk][nm]))
+            names.append(f"{blk}.{nm}")
     calls += [x_for(params["head"][nm]) for nm in ("w1", "w2")]
-    worst = max(check_w8a16("main-path step", x, w)
-                for x, w in calls[:6] + calls[-2:])
+    names += ["head w1", "head w2"]
+    rows = calls[:6] + calls[-2:]
+    worst = max(check_w8a16("main-path step", x, w) for x, w in rows)
+    products = []
+    for name, (x, w) in zip(names[:6] + names[-2:], rows):
+        m, k = x.shape
+        k_ms = graph_ms(lambda: quant.w8a16_matmul(x, w), iters)
+        b_ms, by = bound_ms(*w8a16_cost(m, k, w.n), PEAK_BF16_FLOPS)
+        bf_ms = graph_ms(bf16_matmul_call(x, w), iters)
+        products.append(dict(name=name, M=m, K=k, N=w.n, ms=k_ms,
+                             bound_ms=b_ms, bf16_ms=bf_ms,
+                             plan=w8a16_plan_note(m, w)))
+        print(f"[kernel] w8a16 main-path step {name} [{m}x{k}]x[{k}x{w.n}]: "
+              f"kernel_ms={k_ms:.4f} (graph) "
+              f"bound_ms={b_ms:.5f} ({by}) bf16_matmul_ms={bf_ms:.4f} "
+              f"({w8a16_plan_note(m, w)}) [{card}]")
     out = time_w8a16(calls, card, f"main-path step (B={batch}, the 158 "
                      f"products of one step: 6 x 26 layers + the head's "
                      f"two; mean per launch)", iters)
     out["max_abs_err"] = worst
+    out["products"] = products
     return out
 
 
@@ -1555,7 +1612,51 @@ def phase_fused_attention(card: str, iters: int) -> dict:
                   f" + {TOL_REL:g} rel) kernel_ms={k_ms:.4f} plain_ms="
                   f"{p_ms:.4f} bound_ms={b_ms:.5f} ({by}) library_ms=none "
                   f"(no PyTorch call computes soft-capped paged GQA) "
-                  f"[{card}]")
+                  f"{plan_note(attention_plan(base))} [{card}]")
+        worst[tag] = max(worst[tag], phase_fused_split_edges(card, rng, tag))
+    return worst
+
+
+# Kernel 7 at the edges of its split plan (prompt = segment A, generation =
+# segment B): lengths that leave splits empty, prompts of length 0 (no
+# clamp) and a row whose only key is the in-flight token; 36 rows over a
+# prompt and a generation page (one split a page); one row over two pages
+# (chunk 4, the most splits); every prompt empty.
+FUSED_SPLIT_EDGES = [
+    ("edges", dict(b=4, a_lens=[0, 1, 127, 128], b_lens=[129, 0, 255, 256],
+                   pp_a=2, pp_b=2)),
+    ("one-split", dict(b=36, a_lens=[(5 * i) % 129 for i in range(36)],
+                       b_lens=[(11 * i) % 129 for i in range(36)], pp_a=1,
+                       pp_b=1)),
+    ("widest", dict(b=1, a_lens=[0], b_lens=[45], pp_a=1, pp_b=1)),
+    ("empty-prompt", dict(b=4, a_lens=[0, 0, 0, 0], b_lens=[0, 1, 128, 200],
+                          pp_a=1, pp_b=2)),
+]
+
+
+def phase_fused_split_edges(card: str, rng, tag: str) -> float:
+    """Kernel 7 at :data:`FUSED_SPLIT_EDGES` against its plain version
+    (bf16 or e4m3 pages, 2b-2b heads, soft cap 50 and none)."""
+    from t5gemma_tts_tpu_torch.ops import fused_attn as fa
+
+    worst = 0.0
+    for name, spec in FUSED_SPLIT_EDGES:
+        base = attention_case(rng, device=torch.device("cuda"), h=8, hkv=4,
+                              hd=256, quant=False, f8=tag == "e4m3",
+                              layers=1, li=0, include_current=True, **spec)
+        args = fused_args(base)
+        for cap in (50.0, None):
+            got = fa.fused_decode_attention(**args, attn_logits_soft_cap=cap)
+            want = fa.fused_decode_attention_plain(
+                **args, attn_logits_soft_cap=cap)
+            torch.cuda.synchronize()
+            worst = max(worst, check_close(
+                f"fused_decode_attention split {name}/{tag} cap {cap}", got,
+                want))
+        print(f"[kernel] fused_decode_attention split edge {name}/{tag} "
+              f"(caps 50 and none): max_abs_err={worst:.3e} (tol "
+              f"{TOL_ABS:g} abs + {TOL_REL:g} rel) "
+              f"{plan_note(attention_plan(base))} [{card}]")
     return worst
 
 
@@ -1592,12 +1693,15 @@ def fused_step_timing(card: str, prompt_len: int, gen_len: int, batch: int,
            "max_abs_err": worst, "library_ms": None}
     out["bound_ms"], out["bound_by"] = bound_ms(
         *attention_bytes_ops(base, True, False))
+    out["splits"] = {"self": attention_plan(base)}
     print(f"[kernel] fused_decode_attention main-path step (B={batch}, "
           f"prompt {prompt_len}, gen {gen_len}, {'e4m3' if f8 else 'bf16'} "
           f"pages; mean of {n} launches): kernel_ms={out['ms']:.4f} (graph; "
           f"eager {out['eager_ms']:.4f}) plain_ms={out['plain_ms']:.4f} "
           f"bound_ms={out['bound_ms']:.5f} ({out['bound_by']}) "
-          f"max_abs_err={worst:.3e} [{card}]")
+          f"max_abs_err={worst:.3e} {plan_note(out['splits']['self'])} "
+          f"[{card}]")
+    check_wave("fused_decode_attention", out["splits"])
     return out
 
 
@@ -2137,11 +2241,21 @@ def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    # the union of the kernels' intervals: a kernel launched as a
+    # programmatic dependent starts before its primary ends, and the sum
+    # counts that overlap twice
+    union_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA):
+        if hi > end:
+            union_us += hi - max(lo, end)
+            end = hi
     print(f"[profile] prefill + {steps} decode steps of the 2b-2b batch of "
           f"{b} ({kv_cache} cache, {weights} weights): wall {wall_ms:.1f} ms "
-          f"(unprofiled), device busy "
-          f"{busy_ms:.1f} ms (kernels), idle share "
-          f"{1 - busy_ms / wall_ms:.3f} [{card}]")
+          f"(unprofiled), device busy {union_us / 1e3:.1f} ms (the union of "
+          f"the kernels' intervals; their sum {busy_ms:.1f} ms), idle share "
+          f"{1 - union_us / 1e3 / wall_ms:.3f} [{card}]")
     if not rows:
         print("[profile] torch.profiler recorded no device time")
     for ms, count, key in rows[:12]:
@@ -2201,7 +2315,7 @@ def main(argv=None) -> int:
     worst_layer = phase_decode_layer(card, cfg, args.iters)
     worst_layer4 = phase_decode_layer(card, cfg, args.iters, int4=True)
     worst_chain = phase_chain_layer(card, cfg, args.iters)
-    worst16 = phase_w8a16_shapes(card)
+    worst16 = phase_w8a16_shapes(card, args.iters)
     worst_edges = phase_product_edges(card, args.iters)
     worst_fused = phase_fused_attention(card, args.iters)
     stamp("2 (kernels)")
@@ -2317,7 +2431,8 @@ def main(argv=None) -> int:
     # 4f: W8A16 serving, the four requests at batch 4 over bf16 pages; then
     # every W8A16 product of the run and one decode step's products
     main16 = phase_main_path(card, args.seed, "w8a16")
-    worst16 = max(worst16, phase_w8a16_products(card, main16, args.iters))
+    worst_run16, prod16 = phase_w8a16_products(card, main16, args.iters)
+    worst16 = max(worst16, worst_run16)
     phase_profile(main16["pipe"], card, main16["enc_lens"], weights="w8a16")
     timing16 = w8a16_step_timing(main16.pop("pipe"), card, 4, step_iters)
     torch.cuda.empty_cache()
@@ -2402,7 +2517,9 @@ def main(argv=None) -> int:
              launches=main16["launches"]["w8a16_matmul"],
              max_abs_err=max(worst16, timing16["max_abs_err"]),
              **{k: timing16[k] for k in keys},
-             bf16_matmul_ms=timing16["bf16_ms"]),
+             bf16_matmul_ms=timing16["bf16_ms"],
+             step_products=timing16["products"],
+             products=[dict(p, run=f"4f {p['run']}") for p in prod16]),
         dict(name="fused_decode_attention", route="cuda",
              source=src + "fused_decode_attention.cu",
              replaces="t5gemma_tts_tpu/ops/fused_attn.py:97",
@@ -2410,9 +2527,11 @@ def main(argv=None) -> int:
              max_abs_err=max(worst_fused["bf16"],
                              fused_timing["max_abs_err"]),
              **{k: fused_timing[k] for k in keys},
+             eager_ms=fused_timing["eager_ms"], splits=fused_timing["splits"],
              e4m3=dict(launches=ref_f8["fused_decode_attention"],
                        max_abs_err=max(worst_fused["e4m3"],
                                        fused_timing_f8["max_abs_err"]),
+                       splits=fused_timing_f8["splits"],
                        **{k: fused_timing_f8[k] for k in keys[:4]})),
     ]
     print(card)

@@ -1,5 +1,5 @@
-// Page element loads shared by batch_paged_attention.cu and
-// paged_flash_parts.cu (sm_90a).
+// Page element loads shared by split_attention.cuh (the two-segment and
+// v1 kernels) and paged_flash_parts.cu (sm_90a).
 //
 // A page holds bf16, int8 (dequantized by the caller with its per-token
 // scale) or float8 e4m3 elements. Each is widened to f32 exactly: bf16 and

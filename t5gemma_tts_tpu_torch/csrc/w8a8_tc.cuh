@@ -1,7 +1,8 @@
 // W8A8 and W4A8 products on Hopper's int8 tensor cores (sm_90a), for the
 // products of more than a few rows: the prefill's projections, cross K/V
 // and the speculative verify pass's head. Included by w8a8_matmul.cu and
-// w4a8_matmul.cu only; the decode layer keeps the GEMV of w8a8.cuh.
+// w4a8_matmul.cu, and by w8a16_matmul.cu for its TMA, mbarrier, descriptor
+// and planning helpers; the decode layer keeps the GEMV of w8a8.cuh.
 //
 // Counterpart of the TPU kernels t5gemma_tts_tpu/ops/quant.py::_w8a8_kernel
 // and ::_w4a8_kernel, with the semantics of w8a8.cuh's header:
@@ -638,7 +639,8 @@ static inline EncodeTiledFn encode_tiled() {
 // A 2-D byte tensor [rows, cols] (row stride cols bytes) read in boxes of
 // [box_rows, box_cols]; reads outside it are zeros.
 static inline bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-                            int box_cols, CUtensorMapSwizzle swizzle) {
+                            int box_cols, CUtensorMapSwizzle swizzle,
+                            CUtensorMapL2promotion promotion = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
@@ -646,7 +648,7 @@ static inline bool make_map(CUtensorMap* map, const void* base, int rows, int co
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t estr[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promotion,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -14,10 +14,13 @@ ops/cuda_build.py) or raise; on a CPU tensor they run
 which compute the same functions with whole-tensor PyTorch ops.
 ``.launches`` on each wrapper counts kernel launches.
 
-The two-segment kernel is split-KV: :func:`batch_attention_plan` cuts the
-segments' capacity (pages per row x page size, never the lengths, so the
-launch needs no host sync and a CUDA graph captures it) into chunks of one
-CTA each (:func:`split_plan`), and a second kernel merges a row's partials.
+Both kernels are split-KV, the same split and merge kernels
+(``csrc/split_attention.cuh``) instantiated for each function:
+:func:`batch_attention_plan` cuts the segments' capacity (pages per row x
+page size, never the lengths, so the launch needs no host sync and a CUDA
+graph captures it) into chunks of one CTA each (:func:`split_plan`), and a
+second kernel merges a row's partials. The v1 kernel plans its prompt and
+generation segments as the two-segment kernel plans segments A and B.
 
 Semantics carried over from the TPU kernel: logits in f32, soft cap before
 the length mask, mask value -0.7 * f32max with masked probabilities 0,
@@ -231,8 +234,9 @@ def fused_decode_attention(
     attn_logits_soft_cap: Optional[float] = None,
 ) -> torch.Tensor:
     """Self-attention over prompt pages + generation pages + the in-flight
-    token in one flash pass -> [B, H, hd] f32, normalized (the JAX v1
-    kernel). Pages are bf16 or float8 e4m3; int8 pages raise."""
+    token -> [B, H, hd] f32, normalized (the JAX v1 kernel's function; on
+    the card kernel 1's split and merge kernels without its clamp of an
+    empty prompt). Pages are bf16 or float8 e4m3; int8 pages raise."""
     args = (q, k_cur, v_cur, prompt_k_pages, prompt_v_pages, gen_k_pages,
             gen_v_pages, prompt_lengths, gen_lengths, prompt_page_indices,
             gen_page_indices)
@@ -271,6 +275,18 @@ def _check(name, t, device, dtype, shape=None):
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _split_workspace(b: int, h: int, hd: int, splits: int, dev):
+    """The split-KV kernels' partials (acc [B, Hkv, splits, G, hd], then m
+    and l [B, Hkv, splits, G], f32) in one allocation, and the addresses of
+    the three (views would cost host time per call). The caller keeps the
+    tensor alive across the launch."""
+    n_ml = b * h * splits
+    part = torch.empty((n_ml * (hd + 2),), dtype=torch.float32, device=dev)
+    acc_ptr = part.data_ptr()
+    m_ptr = acc_ptr + 4 * n_ml * hd
+    return part, (acc_ptr, m_ptr, m_ptr + 4 * n_ml)
 
 
 def _bind():
@@ -329,12 +345,7 @@ def _launch(q, k_cur, v_cur, a_k, a_v, b_k, b_v, a_len, b_len, a_idx, b_idx,
     has_b = b_k is not None
     chunk, splits = batch_attention_plan(a_k, a_idx, b_idx if has_b else None)
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    # the split partials (acc [B, Hkv, splits, G, hd], then m and l), one
-    # allocation addressed by offsets (views would cost host time per call)
-    n_ml = b * h * splits
-    part = torch.empty((n_ml * (hd + 2),), dtype=torch.float32, device=dev)
-    acc_ptr = part.data_ptr()
-    m_ptr = acc_ptr + 4 * n_ml * hd
+    part, parts = _split_workspace(b, h, hd, splits, dev)
     fn = _bind()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -347,8 +358,7 @@ def _launch(q, k_cur, v_cur, a_k, a_v, b_k, b_v, a_len, b_len, a_idx, b_idx,
             b_len.data_ptr() if has_b else None,
             b_idx.data_ptr() if has_b else None,
             b_idx.shape[1] if has_b else 0, b_k.shape[1] if has_b else 0,
-            out.data_ptr(), acc_ptr, m_ptr, m_ptr + 4 * n_ml,
-            chunk, splits, b, h, hkv, hd, ps,
+            out.data_ptr(), *parts, chunk, splits, b, h, hkv, hd, ps,
             float(soft_cap) if soft_cap is not None else 0.0,
             int(include_current), page_type, stream)
     if err != 0:
@@ -364,7 +374,7 @@ def _bind_fused():
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = ([vp] * 3 + [vp] * 4 + [i32, i64] + [vp] * 4
-                       + [i32, i64] + [vp] + [i32] * 5
+                       + [i32, i64] + [vp] * 4 + [i32] * 7
                        + [ctypes.c_float, i32, vp])
         fn.restype = ctypes.c_int
     return fn
@@ -397,11 +407,13 @@ def _launch_fused(q, k_cur, v_cur, p_k, p_v, g_k, g_v, p_len, g_len, p_idx,
     v_cur = v_cur.float().contiguous()
     _check("k_cur", k_cur, dev, torch.float32, (b, hkv, hd))
     _check("v_cur", v_cur, dev, torch.float32, (b, hkv, hd))
+    chunk, splits = batch_attention_plan(p_k, p_idx, g_idx)
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    part, parts = _split_workspace(b, h, hd, splits, dev)
     fn = _bind_fused()
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(), *segs,
-                 out.data_ptr(), b, h, hkv, hd, ps,
+                 out.data_ptr(), *parts, chunk, splits, b, h, hkv, hd, ps,
                  float(soft_cap) if soft_cap is not None else 0.0,
                  PAGE_TYPES[p_k.dtype],
                  torch.cuda.current_stream(dev).cuda_stream)

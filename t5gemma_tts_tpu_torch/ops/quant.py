@@ -42,7 +42,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from .fused_attn import _check, absmax_scale
+from .fused_attn import _check, _ptr, absmax_scale
 
 PyTree = Any
 log = logging.getLogger(__name__)
@@ -453,7 +453,8 @@ def _bind(lib: str, name: str):
         if name == "t5g_quantize_rows":
             fn.argtypes = [vp, i32, i32, i32, vp, vp, vp]
         elif name == "t5g_w8a16_matmul":
-            fn.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp, i32, vp]
+            fn.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp, i32, i32, vp,
+                           vp, vp]
         elif name.endswith("_plan"):
             fn.argtypes = [i32, i32, i32, vp]
         elif name == "t5g_w8a8_gemv":
@@ -480,12 +481,14 @@ def gemv_route(x: torch.Tensor, w: Weight,
 
 
 def product_plan(m: int, w: Weight) -> dict:
-    """How the card computes a W8A8 / W4A8 product of ``m`` rows with
-    ``w``: ``route`` "gemv" or "tensor_cores", and for the latter the
-    tiling of ``csrc/w8a8_tc.cuh`` (wgmma width ``ni``, row tiles, channel
-    tiles, K tiles, K splits, CTAs per SM). Builds the kernel library."""
+    """How the card computes a quantized product of ``m`` rows with ``w``:
+    ``route`` "gemv" or "tensor_cores", and for the latter its tiling
+    (wgmma width ``ni``, row tiles, channel tiles, K tiles, K splits, CTAs
+    per SM): ``csrc/w8a8_tc.cuh``'s for W8A8 / W4A8,
+    ``csrc/w8a16_matmul.cu``'s for W8A16 (tensor cores at every M).
+    Builds the kernel library."""
     w4 = isinstance(w, Int4Weight)
-    name = "w4a8" if w4 else "w8a8"
+    name = "w4a8" if w4 else ("w8a16" if w.act_bits == 16 else "w8a8")
     n = w.n
     k = w.packed.shape[-1] * 2 if w4 else w.values.shape[-1]
     plan = (ctypes.c_int * 6)()
@@ -539,7 +542,19 @@ def _launch(x: torch.Tensor, w: Weight, out_dtype: torch.dtype, *,
         sx = torch.empty((m,), dtype=torch.float32, device=dev)
         args += [x8.data_ptr(), sx.data_ptr()]
     with torch.cuda.device(dev):
-        if gemv:
+        if a16:
+            fn = _bind(name, "t5g_" + name)
+            # one scratch: x rounded to bf16 (f32 x), then the split-K
+            # partials [splits, M, N] f32
+            splits = _bind(name, "t5g_w8a16_plan")(m, n, k, None)
+            xb = 0 if x.dtype == torch.bfloat16 else -(-m * k // 128) * 256
+            nbytes = xb + 4 * splits * m * n
+            scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+                       if nbytes else None)
+            base = _ptr(scratch)
+            args += [0,              # 0: the plan's K splits
+                     base if xb else None, base + xb if splits else None]
+        elif gemv:
             fn = _bind("w8a8_matmul", "t5g_w8a8_gemv")
             args.append(int(w4))
         else:

@@ -13,6 +13,11 @@ and merge the partials. Here:
   ``merge_attention_parts`` with the in-flight token) against the JAX
   package's ``batch_paged_attention`` (its Pallas kernel in interpret
   mode), to 1e-5, at lengths that leave splits empty;
+- kernel 7 (the v1 fused self-attention) runs the same split and merge
+  kernels over its prompt and generation segments without the clamp of
+  segment A: its schedule, emulated the same way, against the JAX
+  package's ``fused_decode_attention`` in interpret mode, to 1e-5, with
+  empty splits and empty prompt segments;
 - kernel 2's attention under its two-pass schedule (see
   ``_split_slab_attention``: each split rounds p to bf16 relative to its
   128-token block's running max, the prefix max of the chunk maxima)
@@ -79,11 +84,16 @@ MAIN_PATHS = {
     "k2 w4 B=1 self": _kernel2_plans(1, 4, 128, 512, 128)[0],
     "k2 w4 B=1 cross": _kernel2_plans(1, 4, 128, 512, 128)[1],
     "k2 chain5 1 row self": _kernel2_plans(1, 4, 128, 512, 128)[0],
+    # kernel 7 plans its prompt and generation pages as kernel 1 plans
+    # segments A and B: 4g's bf16 (and e4m3) batch of 4
+    "k7 B=4 self (4g)": _kernel1_plan(4, 4, 1, 4),
 }
 OTHER = {
     "k1 hd16 3 rows": _kernel1_plan(3, 2, 2, 2),
     "k1 36 rows one page": _kernel1_plan(36, 4, 1, 0),
     "k1 long rows": _kernel1_plan(8, 4, 2, 32),
+    "k7 hd16 5 rows": _kernel1_plan(5, 2, 2, 2),
+    "k7 one row": _kernel1_plan(1, 4, 1, 4),
     "k2 36 rows": _kernel2_plans(36, 4, 128, 128, 128)[1],
     "k2 long slab": _kernel2_plans(2, 4, 256, 4096, 512)[0],
 }
@@ -116,6 +126,12 @@ def test_split_plan_reads_no_lengths():
         torch.zeros((4, 8, PS, 16), dtype=torch.bfloat16),
         torch.arange(8, dtype=torch.int32).reshape(4, 2), None)
     assert real == _kernel1_plan(4, 4, 2, 0)[0]
+    # kernel 7's wrapper plans its prompt and generation page tables so
+    assert tfa.batch_attention_plan(
+        torch.zeros((4, 4, PS, 16), dtype=torch.bfloat16),
+        torch.zeros((4, 1), dtype=torch.int32),
+        torch.arange(16, dtype=torch.int32).reshape(4, 4)) == \
+        _kernel1_plan(4, 4, 1, 4)[0]
     dims = tconfig.backbone_preset("test").decoder
     slab = torch.zeros((2, dims.num_layers * 3, PS, 16), dtype=torch.int8)
     meta = torch.empty(slab.shape, dtype=torch.int8, device="meta")
@@ -156,14 +172,14 @@ def _torch(x):
     return torch.from_numpy(x.copy())
 
 
-def _kernel1_schedule(c, cap, include_current):
-    """Kernel 1 as its CTAs compute it: each split's tokens through
-    paged_flash_parts_plain (the chunk as a page of its own), then the
-    merge of the partials (with merge_attention_parts when the in-flight
-    token joins)."""
+def _kernel1_schedule(c, cap, include_current, clamp_a=True):
+    """Kernel 1 (kernel 7 without ``clamp_a``) as its CTAs compute it: each
+    split's tokens through paged_flash_parts_plain (the chunk as a page of
+    its own), then the merge of the partials (with merge_attention_parts
+    when the in-flight token joins)."""
     t = {k: _torch(v) for k, v in c.items()}
-    segs = [(t["a_k_pages"], t["a_v_pages"], t["a_lengths"].clamp_min(1),
-             t["a_page_indices"])]
+    a_lens = t["a_lengths"].clamp_min(1 if clamp_a else 0)
+    segs = [(t["a_k_pages"], t["a_v_pages"], a_lens, t["a_page_indices"])]
     if t["b_k_pages"] is not None:
         segs.append((t["b_k_pages"], t["b_v_pages"], t["b_lengths"],
                      t["b_page_indices"]))
@@ -217,6 +233,27 @@ def test_kernel1_schedule_matches_jax(form, cap):
     assert plan == ((32, 16) if self_form else (16, 16))
     assert empty > 0
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cap", [None, 50.0], ids=["nocap", "cap50"])
+def test_kernel7_schedule_matches_jax(cap):
+    """Prompt lengths 0 (no clamp: the row reads no prompt page), 0, 1,
+    128 and 129, generation lengths 129, 0, 127, 1 and 0 over two pages
+    each: a chunk of 32 tokens, 16 splits a row, most of them empty, and a
+    row whose only key is the in-flight token."""
+    c = _jax_case(23, 5, 4, 2, 16, [0, 0, 1, 128, 129], [129, 0, 127, 1, 0],
+                  2)
+    want = np.asarray(jfa.fused_decode_attention(
+        *(jnp.asarray(v) for v in c.values()), attn_logits_soft_cap=cap,
+        interpret=True))
+    got, plan, empty = _kernel1_schedule(c, cap, True, clamp_a=False)
+    assert plan == (32, 16)
+    assert empty > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # the clamp would read token 0 of rows 0 and 1's first prompt page
+    clamped, _, _ = _kernel1_schedule(c, cap, True)
+    assert not np.allclose(clamped[:2].numpy(), want[:2], rtol=1e-3,
+                           atol=1e-3)
 
 
 # ---------------------------------------------------------------------------

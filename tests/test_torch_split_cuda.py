@@ -1,6 +1,7 @@
 """The split-KV attention kernels on a card against their plain versions at
 the edges of their split plans: the two-segment paged kernel (bf16, int8
-and float8 e4m3 pages) and the decode layer (int8 and int4 weights, bf16
+and float8 e4m3 pages), the v1 fused self-attention (bf16 and e4m3 pages,
+empty prompt segments) and the decode layer (int8 and int4 weights, bf16
 and int8 pages, chain 1 and 5).
 This module imports no JAX (a machine with a card need not have it); run
 it there with
@@ -78,6 +79,50 @@ def test_cuda_batch_paged_attention_split_edges(case, page):
     want = tfa.batch_paged_attention_plain(**args, attn_logits_soft_cap=50.0,
                                            include_current=cur)
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+# (name, attention_case arguments, the plan's (chunk, splits)) for kernel 7
+# (prompt = segment A, generation = segment B, the in-flight token always)
+# at the 2b-2b heads: lengths that leave splits empty, with prompts of
+# length 0 (no clamp: no prompt page is read) and a row whose only key is
+# the in-flight token; 36 rows over a prompt and a generation page (one
+# split a page); one row over two pages (chunk 4, 64 splits); every prompt
+# empty
+KERNEL7_EDGES = [
+    ("edges", dict(b=4, a_lens=[0, 1, 127, 128], b_lens=[129, 0, 255, 256],
+                   pp_a=2, pp_b=2), (32, 16)),
+    ("one-split", dict(b=36, a_lens=[(5 * i) % 129 for i in range(36)],
+                       b_lens=[(11 * i) % 129 for i in range(36)], pp_a=1,
+                       pp_b=1), (128, 2)),
+    ("widest", dict(b=1, a_lens=[0], b_lens=[45], pp_a=1, pp_b=1), (4, 64)),
+    ("empty-prompt", dict(b=4, a_lens=[0, 0, 0, 0], b_lens=[0, 1, 128, 200],
+                          pp_a=1, pp_b=2), (32, 12)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", ["bf16", "f8"])
+@pytest.mark.parametrize("case", KERNEL7_EDGES, ids=[c[0] for c in
+                                                     KERNEL7_EDGES])
+def test_cuda_fused_decode_attention_split_edges(case, page):
+    """Within 1e-4 abs + 1e-4 rel of the plain version, soft cap 50 and
+    none; one launch a call."""
+    dev = _card()
+    smoke = _smoke()
+    name, spec, plan = case
+    base = smoke.attention_case(
+        np.random.default_rng(7 + len(name)), h=8, hkv=4, hd=256,
+        quant=False, f8=page == "f8", layers=1, li=0, include_current=True,
+        device=dev, **spec)
+    assert smoke.attention_plan(base)[:2] == plan
+    args = smoke.fused_args(base)
+    for cap in (50.0, None):
+        before = tfa.fused_decode_attention.launches
+        got = tfa.fused_decode_attention(**args, attn_logits_soft_cap=cap)
+        assert tfa.fused_decode_attention.launches == before + 1
+        want = tfa.fused_decode_attention_plain(**args,
+                                                attn_logits_soft_cap=cap)
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 
 def _dims(layers=2):

@@ -8,6 +8,11 @@
   an ``act_bits=16`` weight. Every bf16 x int8 product is exact in f32, so
   only the order of the f32 sums differs: an f32 output is held to 1e-6 of
   the sum of its terms' magnitudes, a bf16 output to one bf16 ulp.
+- The card's split-K schedule: K tiles dealt out to the splits cover K
+  once, and the fixed-order f32 partial sums, emulated with plain pieces,
+  are held to ``_qmm_2d(interpret=True)`` at the same tolerances, at
+  ragged shapes and at the splits the card's plan gives each decode
+  product of the main path (the plan itself is C, held on the card).
 - ``quantize_params_for_decode(act_bits=16)``, alone, with
   ``weight_bits=4`` and with ``quantize_encoder``, gives the JAX package's
   leaves through the bridge, byte for byte, and the bridge carries them
@@ -56,6 +61,7 @@ from t5gemma_tts_tpu_torch.models import t5gemma as tt5
 from t5gemma_tts_tpu_torch.models import voice as tvoice
 from t5gemma_tts_tpu_torch.ops import megakernel as tmk
 from t5gemma_tts_tpu_torch.ops import quant as tquant
+from test_torch_slice5_cuda import W8A16_MAIN_SPLITS
 
 torch.set_num_threads(1)
 MAX_FRAMES = 48
@@ -140,6 +146,73 @@ def test_w8a16_plain_matches_jax(dtype, m):
         for want in (kernel, dispatch):
             want = want.astype(np.float32)
             assert np.all(np.abs(g - want) <= _bf16_ulp(want))
+
+
+# ---------------------------------------------------------------------------
+# the card's split-K schedule
+# ---------------------------------------------------------------------------
+
+def _k_ranges(ktiles, splits):
+    """The K tiles of each split, as the kernel deals them out."""
+    return [(sp * ktiles // splits, (sp + 1) * ktiles // splits)
+            for sp in range(splits)]
+
+
+def _split_k_product(x, w, out_dtype, splits):
+    """The tensor-core route's arithmetic: bf16 x, exact products, an f32
+    sum per split of 128-level K tiles, the splits added in split order,
+    then the scale, then the output rounding."""
+    ktiles = -(-x.shape[1] // 128)
+    xb = x.to(torch.bfloat16).float()
+    q = w.values.float()
+    parts = [xb[:, lo * 128:hi * 128] @ q[:, lo * 128:hi * 128].t()
+             for lo, hi in _k_ranges(ktiles, splits)]
+    tot = parts[0]
+    for p in parts[1:]:
+        tot = tot + p
+    return (tot * w.scale[None, :]).to(out_dtype)
+
+
+def _check_split_sums(dtype, m, k, splits):
+    rng = np.random.default_rng(m + k)
+    x = (rng.standard_normal((m, k)) * 1.5).astype(np.float32)
+    jw = jquant.quantize_weight(jnp.asarray(_weights(4, (k, 200))),
+                                act_bits=16)
+    tw = bridge.params_from_jax(_np(jw), "cpu")
+    jx = jnp.asarray(x, dtype)
+    tx = bridge.params_from_jax(np.asarray(jx), "cpu")
+    want = np.asarray(jquant._qmm_2d(jx, jw.values, jw.scale,
+                                     interpret=True))[:, :200]
+    cover = np.zeros(-(-k // 128), np.int64)
+    for lo, hi in _k_ranges(len(cover), splits):
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    g = _split_k_product(tx, tw, tx.dtype, splits).float().numpy()
+    if dtype == "float32":
+        xb = tx.to(torch.bfloat16).float().abs()
+        mag = ((xb @ tw.values.float().abs().t()) * tw.scale).numpy()
+        assert np.all(np.abs(g - want) <= SUM_REL * mag)
+    else:
+        want = want.astype(np.float32)
+        assert np.all(np.abs(g - want) <= _bf16_ulp(want))
+
+
+@pytest.mark.parametrize("m,k", [(4, 2304), (5, 2320), (37, 1024)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_w8a16_split_sums_match_jax(dtype, m, k):
+    """Ragged M and K at the most K splits the plan gives (two 128-level
+    K tiles each, as at a narrow N: 9, 9 and 4)."""
+    _check_split_sums(dtype, m, k, -(-k // 128) // 2)
+
+
+@pytest.mark.parametrize("kn,splits", sorted(W8A16_MAIN_SPLITS.items()),
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_w8a16_main_path_splits_match_jax(kn, splits):
+    """Each decode product of the main path (M = 4) at the K splits the
+    card's plan gives it (held on the card by
+    ``test_torch_slice5_cuda.py``), bf16 x and out as the path sends."""
+    _check_split_sums("bfloat16", 4, kn[0], splits)
 
 
 # ---------------------------------------------------------------------------

@@ -23,21 +23,32 @@ the attention, also the eager calls (``chip_smoke.cuda_ms``): kernel 2's
 ``decode_stack`` (26 layers of seeded random weights) for int8 weights at
 batch 4 over int8 pages, int4 at batch 1 over int8 pages, and int4 at
 chain 5 over bf16 pages (a verify pass); kernel 1's 52 launches of one
-decode step (self + cross attention of 26 layers), bf16 pages at batch 4
-and e4m3 pages at batch 1, also as host time (the median over 21 steps of
-the time to enqueue one step's calls on an idle card); and the head's
-products (W8A8 w1 and w2 at M = 1, 4 and 5; W4A8 w2 at M = 1 and 5).
+decode step (self + cross attention of 26 layers; the 26 self
+attentions also alone, kernel 7's work), bf16 pages at batch 4 and e4m3
+pages at batch 1, also as host time (the median over 21 steps of
+the time to enqueue one step's calls on an idle card); kernel 7's 26
+launches of one 4g step (the v1 self-attention of 26 layers, bf16 and
+e4m3 pages at batch 4), graph and eager; the head's products (W8A8 w1
+and w2 at M = 1, 4 and 5; W4A8 w2 at M = 1 and 5); and kernel 6 (W8A16)
+over 26 layers of seeded random int8 weights at 2b-2b widths: the 158
+products of one decode step at M = 4 (6 x 26 layer products and the
+head's w1 and w2) in one graph, their mean per launch, and each of the
+eight shapes' calls of a step alone (mean per launch), then the six layer
+products of the prefill at M = 260 (layer 0).
 Every device time is the mean of three replays of ``iters`` calls. Last,
-the bf16 decode step as the main path serves it (eager, kernel 1 for both
-attentions of every layer): the four requests of ``chip_smoke.py``'s main
-path through ``engine.decode_tokens`` over paged bf16 pages, one step and
-the whole 451-step bucket in turns, five times each; the step's wall ms is
-(median of the bucket's walls - median of one step's) / (the bucket run's
-steps - 1).
+the decode step as the main path serves it, eager: the four requests of
+``chip_smoke.py``'s main path through ``engine.decode_tokens`` over paged
+bf16 pages with bf16 weights (kernel 1 for both attentions of every
+layer), with bf16 weights and ``T5G_FUSED_ATTN=1`` (4g: kernels 7 and 5)
+and with W8A16 weights (4f: kernels 6 and 1); one step and 65 steps in
+turns, five times each; the step's wall ms is (median of the 65-step
+walls - median of one step's) / 64.
 
 Host mode (``--host``): kernel 1's host time a call (the 52 calls of a
-bf16 B = 4 and of an e4m3 B = 1 step as in decode mode), both checkouts'
-wrappers in one process and in turns, 41 rounds; quartiles in ms.
+bf16 B = 4 and of an e4m3 B = 1 step as in decode mode), kernel 7's (the
+26 calls of a bf16 B = 4 4g step) and kernel 6's (the 158 products of a
+4f step at M = 4), both checkouts' wrappers in one process and in turns,
+41 rounds; quartiles in ms.
 """
 
 from __future__ import annotations
@@ -167,8 +178,23 @@ def measure_decode(root: str, iters: int = 5) -> dict:
 
         tag = f"k1 {'e4m3' if f8 else 'bf16'} B={b}"
         out[f"{tag} graph"] = cs.graph_ms(step, iters) / len(calls)
+        selves = calls[::2]        # the self attentions alone: kernel 7's work
+        out[f"{tag} self graph"] = cs.graph_ms(
+            lambda: run_kernel1(fa, selves), iters) / len(selves)
         out[f"{tag} eager"] = cs.cuda_ms(step, iters) / len(calls)
         out[f"{tag} host"] = host_ms(step) / len(calls)
+
+    for f8 in (False, True):
+        calls = kernel7_step(cs, dims, rng, 4, f8, dev)
+
+        def step7():
+            run_kernel7(fa, calls)
+
+        tag = f"k7 {'e4m3' if f8 else 'bf16'} B=4"
+        out[f"{tag} graph"] = cs.graph_ms(step7, iters) / len(calls)
+        out[f"{tag} eager"] = cs.cuda_ms(step7, iters) / len(calls)
+    del calls
+    torch.cuda.empty_cache()
 
     gen = torch.Generator(device=dev).manual_seed(7)
     d = dims.hidden_size
@@ -183,7 +209,78 @@ def measure_decode(root: str, iters: int = 5) -> dict:
                 cs.graph_ms(lambda: product(x, w), iters * 4))
     del w
     torch.cuda.empty_cache()
-    out.update(bf16_step_ms(cs, dims))
+    out.update(w8a16_step(cs, quant, dims, dev, iters))
+    torch.cuda.empty_cache()
+    out.update(eager_steps_ms(cs))
+    return out
+
+
+# kernel 6's products of a decode step, (name, K, N) at 2b-2b widths
+W8A16_SHAPES = (("qkv", 2304, 4096), ("o", 2048, 2304),
+                ("cross q", 2304, 2048), ("cross o", 2048, 2304),
+                ("gate_up", 2304, 18432), ("down", 9216, 2304))
+HEAD_SHAPES = (("head w1", 2304, 2304), ("head w2", 2304, 65541))
+
+
+def w8a16_weights(dims, dev) -> tuple:
+    """Seeded random W8A16 weights of 26 layers at 2b-2b widths (each
+    product of a step reads its own weights, as a step does), raw:
+    ``by_shape`` maps each shape's name to its calls [(x, (levels, scale,
+    N, 16))] (26 for a layer shape, one for the head's), ``x_of(m, k)``
+    gives the bf16 activations of M = m, K = k."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def weight(k, n):
+        q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-3
+        return q, scale, n, 16
+
+    xs = {}
+
+    def x_of(m, k):
+        if (m, k) not in xs:
+            xs[m, k] = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+        return xs[m, k]
+
+    by_shape = {nm: [(x_of(4, k), weight(k, n))
+                     for _ in range(dims.num_layers)]
+                for nm, k, n in W8A16_SHAPES}
+    by_shape.update({nm: [(x_of(4, k), weight(k, n))]
+                     for nm, k, n in HEAD_SHAPES})
+    return by_shape, x_of
+
+
+def w8a16_step_calls(dims, by_shape) -> list:
+    """The 158 products of a decode step at M = 4, in the order a step
+    sends them: the six of each layer, then the head's w1 and w2."""
+    step = [c for li in range(dims.num_layers)
+            for nm, _, _ in W8A16_SHAPES for c in by_shape[nm][li:li + 1]]
+    return step + [by_shape[nm][0] for nm, _, _ in HEAD_SHAPES]
+
+
+def w8a16_step(cs, quant, dims, dev, iters: int) -> dict:
+    """Kernel 6's device time over :func:`w8a16_weights`: the 158 products
+    of a decode step at M = 4, each shape's calls alone, and the six layer
+    products at M = 260 (the prefill). Means per launch."""
+    raw, x_of = w8a16_weights(dims, dev)
+    by_shape = {nm: [(x, quant.QuantWeight(*w)) for x, w in calls]
+                for nm, calls in raw.items()}
+
+    def run(calls):
+        return lambda: [quant.w8a16_matmul(x, w) for x, w in calls]
+
+    step = w8a16_step_calls(dims, by_shape)
+    out = {"k6 step M=4 mean": cs.graph_ms(run(step), iters) / len(step),
+           "k6 step launches": len(step)}
+    for nm, calls in by_shape.items():
+        out[f"k6 {nm} M=4"] = cs.graph_ms(run(calls), iters) / len(calls)
+    for nm, k, n in W8A16_SHAPES:
+        x, w = x_of(260, k), by_shape[nm][0][1]
+        out[f"k6 {nm} M=260"] = cs.graph_ms(run([(x, w)]), iters)
     return out
 
 
@@ -207,6 +304,28 @@ def kernel1_step(cs, dims, rng, b: int, f8: bool, dev) -> list:
     return calls
 
 
+def kernel7_step(cs, dims, rng, b: int, f8: bool, dev) -> list:
+    """The inputs of kernel 7's 26 calls in one 4g decode step: the v1
+    self-attention of every layer over the prompt (1) and the ``GEN``
+    generated tokens, and the in-flight token; bf16 or e4m3 pages."""
+    base = cs.attention_case(rng, b=b, h=dims.num_heads,
+                             hkv=dims.num_kv_heads, hd=dims.head_dim,
+                             quant=False, f8=f8, a_lens=[1] * b,
+                             b_lens=[GEN] * b, pp_a=1, pp_b=4,
+                             layers=dims.num_layers, li=0,
+                             include_current=True, device=dev)
+    args = cs.fused_args(base)
+    return [dict(args, prompt_page_indices=args["prompt_page_indices"]
+                 + li * b,
+                 gen_page_indices=args["gen_page_indices"] + li * b * 4)
+            for li in range(dims.num_layers)]
+
+
+def run_kernel7(fa, calls) -> None:
+    for a in calls:
+        fa.fused_decode_attention(**a, attn_logits_soft_cap=50.0)
+
+
 def run_kernel1(fa, calls) -> None:
     for a, cur in calls:
         fa.batch_paged_attention(**a, attn_logits_soft_cap=50.0,
@@ -214,11 +333,13 @@ def run_kernel1(fa, calls) -> None:
 
 
 def measure_host(parent: str, change: str, reps: int = 41) -> dict:
-    """Kernel 1's host time a call, both checkouts' wrappers in one process
-    and in turns (parent, change, change, parent; ``reps`` rounds), so that
-    the host's speed, which differs between processes, is the same for
-    both. Each checkout's package is imported under a name of its own and
-    builds its own kernel; the inputs are those of ``kernel1_step``."""
+    """Kernel 1's, kernel 7's and kernel 6's host time a call, both
+    checkouts' wrappers in one process and in turns (parent, change,
+    change, parent; ``reps`` rounds), so that the host's speed, which
+    differs between processes, is the same for both. Each checkout's
+    package is imported under a name of its own and builds its own
+    kernels; the inputs are those of ``kernel1_step``, ``kernel7_step``
+    and ``w8a16_step_calls``."""
     import importlib
     import importlib.util
 
@@ -230,7 +351,7 @@ def measure_host(parent: str, change: str, reps: int = 41) -> dict:
     import chip_smoke as cs
     from t5gemma_tts_tpu_torch.config import VoiceConfig
 
-    fas = {}
+    fas, quants = {}, {}
     for tag, root in (("parent", parent), ("change", change)):
         name = f"_ab_{tag}"
         pkg = os.path.join(root, "t5gemma_tts_tpu_torch")
@@ -240,29 +361,55 @@ def measure_host(parent: str, change: str, reps: int = 41) -> dict:
         sys.modules[name] = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(sys.modules[name])
         importlib.import_module(f"{name}.ops.cuda_build").build(
-            ["batch_paged_attention"])
+            ["batch_paged_attention", "fused_decode_attention",
+             "w8a16_matmul"])
         fas[tag] = importlib.import_module(f"{name}.ops.fused_attn")
+        quants[tag] = importlib.import_module(f"{name}.ops.quant")
     dev = torch.device("cuda")
     dims = VoiceConfig().backbone.decoder
     rng = np.random.default_rng(1)
     out = {}
     for b, f8 in ((4, False), (1, True)):
         calls = kernel1_step(cs, dims, rng, b, f8, dev)
-        walls = {tag: [] for tag in fas}
-        for fa in fas.values():
-            run_kernel1(fa, calls)
-        for _ in range(reps):
-            for tag in ("parent", "change", "change", "parent"):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run_kernel1(fas[tag], calls)
-                walls[tag].append((time.perf_counter() - t0) * 1e3
-                                  / len(calls))
-        torch.cuda.synchronize()
-        for tag, w in walls.items():
-            out[f"k1 {'e4m3' if f8 else 'bf16'} B={b} host {tag}"] = [
-                float(np.percentile(w, q)) for q in (25, 50, 75)]
+        out.update(host_turns(
+            f"k1 {'e4m3' if f8 else 'bf16'} B={b}",
+            {tag: (lambda fa=fa: run_kernel1(fa, calls))
+             for tag, fa in fas.items()}, len(calls), reps))
+    calls = kernel7_step(cs, dims, rng, 4, False, dev)
+    out.update(host_turns(
+        "k7 bf16 B=4", {tag: (lambda fa=fa: run_kernel7(fa, calls))
+                        for tag, fa in fas.items()}, len(calls), reps))
+    del calls
+    raw = w8a16_step_calls(dims, w8a16_weights(dims, dev)[0])
+    steps = {tag: [(x, q.QuantWeight(*w)) for x, w in raw]
+             for tag, q in quants.items()}
+    out.update(host_turns(
+        "k6 step M=4", {tag: (lambda q=q, st=steps[tag]: [
+            q.w8a16_matmul(x, w) for x, w in st])
+            for tag, q in quants.items()}, len(raw), reps))
     return out
+
+
+def host_turns(label: str, fns: dict, calls: int, reps: int) -> dict:
+    """Host time a call of ``fns["parent"]`` and ``fns["change"]`` (each
+    ``calls`` calls), in turns (parent, change, change, parent) over
+    ``reps`` rounds, each turn from an idle card; quartiles in ms."""
+    import numpy as np
+    import torch
+
+    walls = {tag: [] for tag in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(reps):
+        for tag in ("parent", "change", "change", "parent"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[tag]()
+            walls[tag].append((time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
+    return {f"{label} host {tag}": [float(np.percentile(w, q))
+                                    for q in (25, 50, 75)]
+            for tag, w in walls.items()}
 
 
 def host_ms(fn, reps: int = 21) -> float:
@@ -282,8 +429,14 @@ def host_ms(fn, reps: int = 21) -> float:
     return float(np.median(walls))
 
 
-def bf16_step_ms(cs, dims) -> dict:
-    """The eager bf16 decode step of the main path's four requests."""
+EAGER_STEPS = 65       # the long run of eager_steps_ms; the short run is 1
+
+
+def eager_steps_ms(cs) -> dict:
+    """The eager decode step of the main path's four requests at batch 4,
+    as served: bf16 weights (both attentions on kernel 1), bf16 weights
+    with ``T5G_FUSED_ATTN=1`` (4g: kernel 7 and kernel 5) and W8A16
+    weights (4f: kernel 6 and kernel 1), each over paged bf16 pages."""
     import numpy as np
     import torch
 
@@ -293,28 +446,37 @@ def bf16_step_ms(cs, dims) -> dict:
     from t5gemma_tts_tpu_torch.inference.pipeline import Request
 
     cfg = VoiceConfig()
-    pipe = cs.build_pipeline(cfg, XCodec2Config(), "cuda", 0)
     reqs = [Request(target_text=t, target_duration=d, lang="en")
             for t, d in zip(cs.TEXTS, cs.DURATIONS)]
-    inputs, bucket = cs.planned_inputs(pipe, reqs)
+    out = {}
+    for tag, w8a16, mode in (("bf16", False, None), ("4g", False, "1"),
+                             ("4f", True, None)):
+        if tag != "4g":
+            pipe = None
+            torch.cuda.empty_cache()
+            pipe = cs.build_pipeline(cfg, XCodec2Config(), "cuda", 0,
+                                     w8a16=w8a16)
+            inputs, _ = cs.planned_inputs(pipe, reqs)
 
-    def run(steps):
-        dcfg = DecodeConfig(kv_cache="paged", seed=0, max_frames=steps)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out = engine.decode_tokens(pipe.params, cfg, dcfg, *inputs, 0)
-        torch.cuda.synchronize()
-        return (time.time() - t0) * 1e3, out.steps
+        def run(steps):
+            dcfg = DecodeConfig(kv_cache="paged", seed=0, max_frames=steps)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = engine.decode_tokens(pipe.params, cfg, dcfg, *inputs, 0)
+            torch.cuda.synchronize()
+            return (time.time() - t0) * 1e3, res.steps
 
-    run(2)
-    walls = {1: [], bucket: []}
-    for _ in range(5):
-        for steps in walls:
-            wall, ran = run(steps)
-            walls[steps].append(wall)
-    one, full = (float(np.median(walls[s])) for s in (1, bucket))
-    return {"bf16 B=4 step eager": (full - one) / (ran - 1),
-            "bf16 B=4 steps": ran, "bf16 B=4 walls ms": walls}
+        with cs.attn_mode(mode):
+            run(2)
+            walls = {1: [], EAGER_STEPS: []}
+            for _ in range(5):
+                for steps in walls:
+                    wall, ran = run(steps)
+                    walls[steps].append(wall)
+        one, full = (float(np.median(walls[s])) for s in walls)
+        out[f"{tag} B=4 step eager"] = (full - one) / (ran - 1)
+        out[f"{tag} B=4 walls ms"] = walls
+    return out
 
 
 def card_line() -> str:
@@ -333,7 +495,8 @@ def main(argv=None) -> int:
     ap.add_argument("--decode", action="store_true",
                     help="the decode kernels instead of the prefill")
     ap.add_argument("--host", action="store_true",
-                    help="kernel 1's host time a call, both in one process")
+                    help="kernels 1, 7 and 6's host time a call, both "
+                    "checkouts in one process")
     args = ap.parse_args(argv)
     if args.host:
         print(card_line(), flush=True)
