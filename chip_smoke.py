@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero before the result line:
    the two-segment paged attention (bf16, int8 and e4m3 pages, self and
    cross forms, a small odd shape, and the edges of its split plan: empty
    splits, one split a row, the most splits), the one-segment paged kernel
-   (bf16 and e4m3 pages, 5 pseudo-rows over one cache row, an empty row,
+   (bf16 and e4m3 pages, a chain of 5 over one and two cache rows, an empty
+   row, lengths inside a chunk and at the capacity, permuted page tables,
    hd 16), the int8 decode layer (B = 4), the int4 decode layer (B = 1 and
    4), each also at the edges of its split plan (a length past the slab,
    36 rows, one row), and the decode layer at chain 5 (int8 and int4, 1
@@ -1027,38 +1028,53 @@ SPEC_K = 4                     # drafted tokens per verify pass (k)
 
 
 def parts_case(rng, *, rows, s_len, h, hkv, hd, lens, pp, dtype, layers, li,
-               device):
-    """Random inputs of one paged_flash_parts call: ``rows`` cache rows,
-    each repeated over ``s_len`` pseudo-rows as in a verify pass."""
+               device, permute=False):
+    """Random inputs of one paged_flash_parts call in its chain form:
+    ``rows`` cache rows (lengths, page tables: layer ``li``'s pages of the
+    slab, or with ``permute`` a random choice of the slab's pages), q of
+    ``s_len`` pseudo-rows each as in a verify pass."""
     from t5gemma_tts_tpu_torch.ops.paged_attn import identity_page_indices
 
     def t(shape):
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(device)
 
-    idx = identity_page_indices(rows, pp, device) + li * rows * pp
+    if permute:
+        idx = torch.from_numpy(rng.permutation(layers * rows * pp)[
+            :rows * pp].reshape(rows, pp).astype(np.int32)).to(device)
+    else:
+        idx = identity_page_indices(rows, pp, device) + li * rows * pp
     return dict(
         q=t((rows * s_len, h, hd)),
         k_pages=t((hkv, layers * rows * pp, PAGE, hd)).to(dtype),
         v_pages=t((hkv, layers * rows * pp, PAGE, hd)).to(dtype),
-        lengths=torch.tensor(lens, dtype=torch.int32,
-                             device=device).repeat_interleave(s_len),
-        page_indices=idx.repeat_interleave(s_len, dim=0))
+        lengths=torch.tensor(lens, dtype=torch.int32, device=device),
+        page_indices=idx, chain=s_len)
 
 
-def parts_bytes_ops(args, s_len) -> tuple:
+def parts_bytes_ops(args) -> tuple:
     """Bytes a paged_flash_parts call must move (the valid K/V of each
     cache row once, its page ids and lengths, q in, out/m/l out) and its
     floating-point operations (every pseudo-row's dots)."""
     b, h, hd = args["q"].shape
     hkv = args["k_pages"].shape[0]
     elem = args["k_pages"].element_size()
-    lens = args["lengths"][::s_len]
+    lens = args["lengths"]
     tokens = int(lens.sum())
     pages = int(((lens + PAGE - 1) // PAGE).sum())
-    nbytes = (tokens * 2 * hkv * hd * elem + pages * 4 + b * 4
+    nbytes = (tokens * 2 * hkv * hd * elem + pages * 4 + len(lens) * 4
               + 2 * b * h * hd * 4 + 2 * b * h * 4)
-    return nbytes, 4 * h * hd * tokens * s_len
+    return nbytes, 4 * h * hd * tokens * args["chain"]
+
+
+def parts_plan(args) -> tuple:
+    """Kernel 5's (chunk, splits, CTAs) for one call's arguments: cache
+    rows x Hkv x splits CTAs, with no factor of the chain."""
+    from t5gemma_tts_tpu_torch.ops import paged_attn as pa
+
+    chunk, splits = pa.parts_plan(args["k_pages"], args["page_indices"])
+    rows = args["page_indices"].shape[0]
+    return chunk, splits, rows * args["k_pages"].shape[0] * splits
 
 
 def check_parts(name, got, want) -> float:
@@ -1079,23 +1095,27 @@ def check_parts(name, got, want) -> float:
 
 def phase_paged_parts(card: str, iters: int) -> float:
     """The one-segment paged kernel against its plain version at the 2b-2b
-    head shapes (8 query heads, 4 kv heads, hd 256), bf16 and e4m3 pages:
-    5 pseudo-rows over 1 cache row (a verify pass at k = 4), 2 cache rows
-    of which one is empty, and a small odd shape (hd 16, G 2)."""
+    head shapes (8 query heads, 4 kv heads, hd 256), bf16 and e4m3 pages,
+    permuted page tables: a chain of 5 over 1 cache row (a verify pass at
+    k = 4; 300 ends inside a chunk of 8), over 2 cache rows of which one is
+    empty and one at its capacity, 4 rows at chain 1, and a small odd
+    shape (hd 16, G 2)."""
     from t5gemma_tts_tpu_torch.ops import paged_attn as pa
 
     rng = np.random.default_rng(5)
     dev = torch.device("cuda")
-    big = dict(h=8, hkv=4, hd=256, pp=3, layers=2, li=1)
+    big = dict(h=8, hkv=4, hd=256, pp=3, layers=2, li=1, permute=True)
     worst = 0.0
     for dtype, tag in ((torch.bfloat16, "bf16"),
                        (torch.float8_e4m3fn, "e4m3")):
         for name, spec in (
                 (f"chain5/{tag}", dict(big, rows=1, s_len=5, lens=[300])),
                 (f"chain5-empty/{tag}", dict(big, rows=2, s_len=5,
-                                             lens=[0, 129])),
+                                             lens=[0, 384])),
+                (f"chain1-4rows/{tag}", dict(big, rows=4, s_len=1,
+                                             lens=[1, 129, 0, 383])),
                 (f"hd16-g2/{tag}", dict(rows=3, s_len=1, h=4, hkv=2, hd=16,
-                                        pp=2, layers=1, li=0,
+                                        pp=2, layers=1, li=0, permute=True,
                                         lens=[0, 100, 200]))):
             args = parts_case(rng, dtype=dtype, device=dev, **spec)
             got = pa.paged_flash_parts(**args, attn_logits_soft_cap=50.0)
@@ -1108,13 +1128,13 @@ def phase_paged_parts(card: str, iters: int) -> float:
                 **args, attn_logits_soft_cap=50.0), iters)
             p_ms = cuda_ms(lambda: pa.paged_flash_parts_plain(
                 **args, attn_logits_soft_cap=50.0), iters)
-            b_ms, by = bound_ms(*parts_bytes_ops(args, spec["s_len"]))
+            b_ms, by = bound_ms(*parts_bytes_ops(args))
             print(f"[kernel] paged_flash_parts {name}: max_abs_err={err:.3e} "
                   f"(tol {TOL_ABS:g} abs + {TOL_REL:g} rel; empty rows exact)"
                   f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                   f"bound_ms={b_ms:.5f} ({by}) library_ms=none (no PyTorch "
                   f"call computes soft-capped paged GQA with its flash "
-                  f"statistics) [{card}]")
+                  f"statistics) {plan_note(parts_plan(args))} [{card}]")
     return worst
 
 
@@ -1123,7 +1143,8 @@ def parts_step_timing(card: str, prompt_len: int, gen_len: int, enc_len: int,
                       ) -> dict:
     """One verify pass's 78 one-segment launches (prompt, generation and
     cross for each of 26 layers) at a batch-1 main path's shapes, e4m3
-    pages, s_len pseudo-rows, kernel against plain version."""
+    pages, a chain of s_len over the cache row, kernel against plain
+    version, with each segment's split plan (a wave of CTAs at least)."""
     from t5gemma_tts_tpu_torch.ops import paged_attn as pa
 
     rng = np.random.default_rng(6)
@@ -1152,15 +1173,20 @@ def parts_step_timing(card: str, prompt_len: int, gen_len: int, enc_len: int,
            "eager_ms": cuda_ms(run(pa.paged_flash_parts), iters) / n,
            "plain_ms": cuda_ms(run(pa.paged_flash_parts_plain), iters) / n,
            "max_abs_err": worst, "library_ms": None}
-    costs = [parts_bytes_ops(a, s_len) for a in segs]
+    costs = [parts_bytes_ops(a) for a in segs]
     out["bound_ms"], out["bound_by"] = bound_ms(
         sum(c[0] for c in costs) / 3, sum(c[1] for c in costs) / 3)
-    print(f"[kernel] paged_flash_parts verify-pass shapes (1 row x {s_len} "
-          f"pseudo-rows, prompt {prompt_len}, gen {gen_len}, enc {enc_len}, "
+    out["splits"] = {name: parts_plan(a)
+                     for name, a in zip(("prompt", "gen", "cross"), segs)}
+    print(f"[kernel] paged_flash_parts verify-pass shapes (1 row, chain "
+          f"{s_len}, prompt {prompt_len}, gen {gen_len}, enc {enc_len}, "
           f"e4m3 pages; mean of {n} launches): kernel_ms={out['ms']:.4f} "
           f"(graph; eager {out['eager_ms']:.4f}) "
           f"plain_ms={out['plain_ms']:.4f} bound_ms={out['bound_ms']:.5f} "
-          f"({out['bound_by']}) max_abs_err={worst:.3e} [{card}]")
+          f"({out['bound_by']}) max_abs_err={worst:.3e}; "
+          + "; ".join(f"{k} {plan_note(v)}" for k, v in out["splits"].items())
+          + f" [{card}]")
+    check_wave("paged_flash_parts", out["splits"])
     return out
 
 
@@ -1191,13 +1217,16 @@ def cross_parts_timing(card: str, enc_lens, iters: int) -> dict:
            "eager_ms": cuda_ms(run(pa.paged_flash_parts), iters) / n,
            "plain_ms": cuda_ms(run(pa.paged_flash_parts_plain), iters) / n,
            "max_abs_err": worst, "library_ms": None}
-    out["bound_ms"], out["bound_by"] = bound_ms(*parts_bytes_ops(base, 1))
+    out["bound_ms"], out["bound_by"] = bound_ms(*parts_bytes_ops(base))
+    out["splits"] = {"cross": parts_plan(base)}
     print(f"[kernel] paged_flash_parts 4g cross-attention shapes (B="
           f"{len(enc_lens)}, enc {list(enc_lens)}, bf16 pages; mean of {n} "
           f"launches): kernel_ms={out['ms']:.4f} (graph; eager "
           f"{out['eager_ms']:.4f}) plain_ms={out['plain_ms']:.4f} "
           f"bound_ms={out['bound_ms']:.5f} ({out['bound_by']}) "
-          f"max_abs_err={worst:.3e} [{card}]")
+          f"max_abs_err={worst:.3e} {plan_note(out['splits']['cross'])} "
+          f"[{card}]")
+    check_wave("paged_flash_parts", out["splits"])
     return out
 
 
@@ -2509,7 +2538,9 @@ def main(argv=None) -> int:
              max_abs_err=max(worst_parts, parts_timing["max_abs_err"],
                              cross_timing["max_abs_err"]),
              **{k: parts_timing[k] for k in keys},
+             splits=parts_timing["splits"],
              cross_4g=dict(launches=main1["launches"]["paged_flash_parts"],
+                           splits=cross_timing["splits"],
                            **{k: cross_timing[k] for k in keys})),
         dict(name="w8a16_matmul", route="cuda",
              source=src + "w8a16_matmul.cu",

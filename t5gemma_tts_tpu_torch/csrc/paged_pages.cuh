@@ -3,11 +3,15 @@
 //
 // A page holds bf16, int8 (dequantized by the caller with its per-token
 // scale) or float8 e4m3 elements. Each is widened to f32 exactly: bf16 and
-// e4m3 are subsets of f32, and int8 levels are small integers.
+// e4m3 are subsets of f32, and int8 levels are small integers. e4m3 widens
+// two elements an instruction (cvt.rn.f16x2.e4m3x2, then f16 -> f32): e4m3
+// is a subset of f16, so the bits are those of a conversion one element at
+// a time, NaN bytes included.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,22 +37,17 @@ __device__ __forceinline__ void load8(const void* base, int64_t off, float* out)
 #pragma unroll
     for (int j = 0; j < 8; ++j) out[j] = static_cast<float>(r[j]);
   } else {
-    const int2 raw = *reinterpret_cast<const int2*>(
+    const uint2 raw = *reinterpret_cast<const uint2*>(
         reinterpret_cast<const uint8_t*>(base) + off);
-    const __nv_fp8_e4m3* r = reinterpret_cast<const __nv_fp8_e4m3*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) out[j] = static_cast<float>(r[j]);
-  }
-}
-
-template <int PT>
-__device__ __forceinline__ float load1(const void* base, int64_t off) {
-  if constexpr (PT == kBf16) {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(base)[off]);
-  } else if constexpr (PT == kInt8) {
-    return static_cast<float>(reinterpret_cast<const int8_t*>(base)[off]);
-  } else {
-    return static_cast<float>(reinterpret_cast<const __nv_fp8_e4m3*>(base)[off]);
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t word = j < 2 ? raw.x : raw.y;
+      const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(word >> (16 * (j & 1))), __NV_E4M3));
+      const float2 f = __half22float2(h);
+      out[2 * j] = f.x;
+      out[2 * j + 1] = f.y;
+    }
   }
 }
 

@@ -668,8 +668,8 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     before the visible length reaches them; prefill's ``cache_slack`` keeps
     the block inside the slab). Every chain position sees the same segment
     lengths (prompt; generation = ``step``), so the segments run once over
-    B * S pseudo-rows, and each position attends causally to its own chain
-    prefix.
+    B * S pseudo-rows that share their cache row's lengths and page tables,
+    and each position attends causally to its own chain prefix.
 
     With W8A8 or int4 decoder weights over bf16 or int8 pages
     (``megakernel.supports``), in attention mode 3 or over int8 pages (the
@@ -679,7 +679,8 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     one-segment kernel over the prompt and the generation pages
     (``paged_flash_parts``), joins the chain through
     ``merge_attention_parts_chain`` and takes cross attention through
-    ``paged_gqa_attention``.
+    ``paged_gqa_attention``, both at ``chain=S`` over the cache rows'
+    lengths and page tables.
 
     Returns (hidden [B, S, D], cache, chain_k, chain_v) with chain_k/v
     [L, B, S, Hkv, hd] bf16, the next pass's pending block."""
@@ -698,14 +699,11 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
             "(ops/megakernel.decode_stack with int8 or int4 decode weights): "
             "the one-segment kernel has no int8 scale planes")
 
-    def rep(x):            # [B, ...] -> [B*S, ...], chain-position-major
-        return x.repeat_interleave(s_len, dim=0)
-
-    gen_lengths = torch.full((b * s_len,), step, dtype=torch.int32,
-                             device=h.device)
-    prompt_rep, enc_rep = rep(prompt_lengths), rep(enc_lengths)
     eps, hd = dims.rms_norm_eps, dims.head_dim
     if fused:
+        def rep(x):        # [B] -> [B*S], chain-position-major
+            return x.repeat_interleave(s_len, dim=0)
+
         flat = (lambda t: t.reshape(b * s_len, hd))  # noqa: E731
         qc, qs = (q_cos, q_sin) if q_cos is not None else (cos, sin)
         kv_scales = None
@@ -717,7 +715,10 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
             params["layers"], dims,
             h=h.reshape(b * s_len, dims.hidden_size).float(),
             cos=flat(cos), sin=flat(sin), qcos=flat(qc), qsin=flat(qs),
-            plens=prompt_rep, glens=gen_lengths, elens=enc_rep,
+            plens=rep(prompt_lengths),
+            glens=torch.full((b * s_len,), step, dtype=torch.int32,
+                             device=h.device),
+            elens=rep(enc_lengths),
             prompt_k=cache.prompt_k, prompt_v=cache.prompt_v,
             gen_k=cache.gen_k, gen_v=cache.gen_v, cross_k=cache.cross_k,
             cross_v=cache.cross_v, kv_scales=kv_scales, chain=s_len)
@@ -732,6 +733,7 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     tables = cache.page_indices
     cap = dims.attn_logit_softcap
     n_heads = dims.num_heads
+    gen_lengths = torch.full((b,), step, dtype=torch.int32, device=h.device)
     k_new, v_new = [], []
     for li in range(dims.num_layers):
         lp = layer_params(params["layers"], li)
@@ -743,10 +745,10 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         k_c, v_c = k.transpose(1, 2), v.transpose(1, 2)  # [B, S, Hkv, hd]
         q2 = qv.reshape(b * s_len, n_heads, hd)
         parts = [paged_attn.paged_flash_parts(
-                     q2, kp, vp, lens, rep(tables[name][li]),
-                     attn_logits_soft_cap=cap)
+                     q2, kp, vp, lens, tables[name][li],
+                     attn_logits_soft_cap=cap, chain=s_len)
                  for kp, vp, lens, name in (
-                     (prompt_kp, prompt_vp, prompt_rep, "prompt"),
+                     (prompt_kp, prompt_vp, prompt_lengths, "prompt"),
                      (gen_kp, gen_vp, gen_lengths, "gen"))]
         attn = paged_attn.merge_attention_parts_chain(
             parts, qv, k_c, v_c, cap, h.dtype, store_dtype=cache.gen_k.dtype)
@@ -760,9 +762,9 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         cq2 = (cq.float() * dims.q_scale).transpose(1, 2).reshape(
             b * s_len, n_heads, hd)
         cattn = paged_attn.paged_gqa_attention(
-            cq2, cross_kp, cross_vp, enc_rep,
-            page_indices=rep(tables["cross"][li]), attn_logits_soft_cap=cap,
-            out_dtype=h.dtype)
+            cq2, cross_kp, cross_vp, enc_lengths,
+            page_indices=tables["cross"][li], attn_logits_soft_cap=cap,
+            out_dtype=h.dtype, chain=s_len)
         a = _mm(cattn.reshape(b, s_len, -1), lp["cross_attn"]["o"])
         h = h + rms_norm(a, lp["post_cross_attn_norm"], eps)
 

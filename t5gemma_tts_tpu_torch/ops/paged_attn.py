@@ -15,6 +15,15 @@ ops/cuda_build.py) or raise; on a CPU tensor they run their plain versions
 (:func:`paged_flash_parts_plain`, :func:`paged_attention_reference`).
 ``paged_flash_parts.launches`` counts kernel launches of both wrappers.
 
+The kernel is split-KV: :func:`parts_plan` cuts the segment's capacity
+(pages per row x page size, never the lengths, so the launch needs no host
+sync and a CUDA graph captures it) into chunks (:func:`fused_attn.split_plan`),
+one CTA per (chunk, kv head, cache row), and a second kernel merges a row's
+partials. With ``chain = S`` (the speculative verify pass) q holds S
+pseudo-rows per cache row, chain-position-major, over the cache row's one
+length and page table: a CTA serves all S chain positions, so each page is
+read once per cache row.
+
 Pages are bf16 or float8 e4m3 (widened exactly to f32); logits are f32 with
 the tanh soft cap before the length mask. A row of length 0 gives
 ``(0, -inf, 0)``.
@@ -26,6 +35,8 @@ import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from .fused_attn import PAGE_TYPES, _check, _split_workspace, split_plan
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -64,6 +75,30 @@ def _gather(q, k_pages, v_pages, lengths, page_indices, soft_cap):
     return logits, valid, v
 
 
+def parts_plan(k_pages: torch.Tensor,
+               page_indices: torch.Tensor) -> Tuple[int, int]:
+    """The kernel's (chunk, splits) for one call, from shapes alone: cache
+    rows x Hkv pairs over the segment's pages per row."""
+    hkv, _, ps, _ = k_pages.shape
+    b, pp = page_indices.shape
+    return split_plan(b * hkv, pp * ps, ps)
+
+
+def _per_pseudo_row(lengths, page_indices, chain):
+    """Cache rows' lengths and page tables repeated over their ``chain``
+    pseudo-rows (chain-position-major)."""
+    if chain == 1:
+        return lengths, page_indices
+    return (lengths.repeat_interleave(chain),
+            page_indices.repeat_interleave(chain, dim=0))
+
+
+def _check_chain(q, lengths, chain):
+    if chain < 1 or q.shape[0] != chain * lengths.shape[0]:
+        raise ValueError(f"q has {q.shape[0]} rows, expected chain {chain} x "
+                         f"{lengths.shape[0]} cache rows")
+
+
 def paged_attention_reference(q, k_pages, v_pages, lengths, *,
                               page_indices=None,
                               attn_logits_soft_cap: Optional[float] = None):
@@ -81,11 +116,12 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, *,
 
 
 def paged_flash_parts_plain(q, k_pages, v_pages, lengths, page_indices, *,
-                            attn_logits_soft_cap: Optional[float] = None
-                            ) -> Parts:
+                            attn_logits_soft_cap: Optional[float] = None,
+                            chain: int = 1) -> Parts:
     """Whole-tensor PyTorch version of the kernel (same arguments as
-    :func:`paged_flash_parts`) -> (out [B, H, hd], m [B, H], l [B, H]),
-    f32."""
+    :func:`paged_flash_parts`) -> (out [B', H, hd], m [B', H], l [B', H]),
+    f32, B' = B x chain."""
+    lengths, page_indices = _per_pseudo_row(lengths, page_indices, chain)
     b, h, hd = q.shape
     logits, valid, v = _gather(q, k_pages, v_pages, lengths, page_indices,
                                attn_logits_soft_cap)
@@ -100,27 +136,31 @@ def paged_flash_parts_plain(q, k_pages, v_pages, lengths, page_indices, *,
 
 
 def paged_flash_parts(
-    q: torch.Tensor,             # [B, H, hd] f32, roped + pre-scaled
+    q: torch.Tensor,             # [B * chain, H, hd] f32, roped + pre-scaled
     k_pages: torch.Tensor,       # [Hkv, NP, ps, hd] bf16 or float8 e4m3
     v_pages: torch.Tensor,
-    lengths: torch.Tensor,       # [B] int32 valid-key count
+    lengths: torch.Tensor,       # [B] int32 valid-key count of each cache row
     page_indices: torch.Tensor,  # [B, PP] int32
     *,
     attn_logits_soft_cap: Optional[float] = None,
+    chain: int = 1,
 ) -> Parts:
     """Flash attention over one paged key segment -> (out, m, l), all f32:
-    ``out`` [B, H, hd] normalized over this segment, ``m``/``l`` [B, H] its
-    running max and sum, so that segments (and in-flight tokens) compose
-    exactly through :func:`merge_attention_parts`. Rows of length 0 give
-    (0, -inf, 0)."""
+    ``out`` [B', H, hd] normalized over this segment, ``m``/``l`` [B', H]
+    its running max and sum, so that segments (and in-flight tokens)
+    compose exactly through :func:`merge_attention_parts`. B' = B x chain:
+    q's rows are the ``chain`` positions of each cache row,
+    chain-position-major, all over the row's length and page table. Rows of
+    length 0 give (0, -inf, 0)."""
+    _check_chain(q, lengths, chain)
     if q.device.type == "cpu":
         return paged_flash_parts_plain(
             q, k_pages, v_pages, lengths, page_indices,
-            attn_logits_soft_cap=attn_logits_soft_cap)
+            attn_logits_soft_cap=attn_logits_soft_cap, chain=chain)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_parts: no kernel for {q.device}")
     out = _launch(q, k_pages, v_pages, lengths, page_indices,
-                  attn_logits_soft_cap)
+                  attn_logits_soft_cap, chain)
     paged_flash_parts.launches += 1
     return out
 
@@ -129,32 +169,37 @@ paged_flash_parts.launches = 0
 
 
 def paged_gqa_attention(
-    q: torch.Tensor,             # [B, H, hd], roped + pre-scaled
+    q: torch.Tensor,             # [B * chain, H, hd], roped + pre-scaled
     k_pages: torch.Tensor,       # [Hkv, NP, ps, hd] (NP may cover many layers)
     v_pages: torch.Tensor,
-    lengths: torch.Tensor,       # [B] int32 valid-key count
+    lengths: torch.Tensor,       # [B] int32 valid-key count of each cache row
     *,
     page_indices: Optional[torch.Tensor] = None,   # [B, PP]; identity if None
     attn_logits_soft_cap: Optional[float] = None,
     out_dtype: Optional[torch.dtype] = None,
+    chain: int = 1,
 ) -> torch.Tensor:
-    """Decode attention over a paged cache -> [B, H, hd] in ``out_dtype``
-    (default q's). On the card it is :func:`paged_flash_parts`' kernel with
-    its ``out`` taken as it is; on the CPU :func:`paged_attention_reference`
-    (they differ only for a row of length 0, which the kernel leaves 0)."""
+    """Decode attention over a paged cache -> [B * chain, H, hd] in
+    ``out_dtype`` (default q's); ``chain`` as in :func:`paged_flash_parts`.
+    On the card it is :func:`paged_flash_parts`' kernel with its ``out``
+    taken as it is; on the CPU :func:`paged_attention_reference` (they
+    differ only for a row of length 0, which the kernel leaves 0)."""
+    _check_chain(q, lengths, chain)
     out_dtype = out_dtype or q.dtype
-    b = q.shape[0]
+    b = lengths.shape[0]
     if page_indices is None:
         page_indices = identity_page_indices(b, k_pages.shape[1] // b,
                                              q.device)
     if q.device.type == "cpu":
+        lengths, page_indices = _per_pseudo_row(lengths, page_indices, chain)
         out = paged_attention_reference(
             q, k_pages, v_pages, lengths, page_indices=page_indices,
             attn_logits_soft_cap=attn_logits_soft_cap)
     else:
         out = paged_flash_parts(q.float(), k_pages, v_pages, lengths,
                                 page_indices,
-                                attn_logits_soft_cap=attn_logits_soft_cap)[0]
+                                attn_logits_soft_cap=attn_logits_soft_cap,
+                                chain=chain)[0]
     return out.to(out_dtype)
 
 
@@ -260,25 +305,24 @@ def _bind():
     fn = cuda_build.load("paged_flash_parts").t5g_paged_flash_parts
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 5 + [i32, ctypes.c_int64] + [vp] * 3
-                       + [i32] * 5 + [ctypes.c_float, i32, vp])
+        fn.argtypes = ([vp] * 5 + [i32, ctypes.c_int64] + [vp] * 6
+                       + [i32] * 8 + [ctypes.c_float, i32, vp])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k_pages, v_pages, lengths, page_indices, soft_cap) -> Parts:
-    from .fused_attn import PAGE_TYPES, _check
-
+def _launch(q, k_pages, v_pages, lengths, page_indices, soft_cap,
+            chain) -> Parts:
     dev = q.device
-    b, h, hd = q.shape
+    rows, h, hd = q.shape
+    b = lengths.shape[0]
     hkv, n_pages, ps, _ = k_pages.shape
     if h % hkv or hd % 8 or hd > 256:
         raise ValueError(f"unsupported heads/head_dim H={h} Hkv={hkv} hd={hd}")
-    page_type = PAGE_TYPES.get(k_pages.dtype)
     if k_pages.dtype not in (torch.bfloat16, torch.float8_e4m3fn):
         raise ValueError(f"paged_flash_parts: pages of dtype {k_pages.dtype} "
                          f"(bf16 or float8_e4m3fn)")
-    _check("q", q, dev, torch.float32, (b, h, hd))
+    _check("q", q, dev, torch.float32, (rows, h, hd))
     _check("k_pages", k_pages, dev, k_pages.dtype)
     _check("v_pages", v_pages, dev, k_pages.dtype, k_pages.shape)
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
@@ -287,18 +331,21 @@ def _launch(q, k_pages, v_pages, lengths, page_indices, soft_cap) -> Parts:
     _check("page_indices", page_indices, dev, torch.int32)
     if page_indices.ndim != 2 or page_indices.shape[0] != b:
         raise ValueError("page_indices must be [B, PP]")
-    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    m = torch.empty((b, h), dtype=torch.float32, device=dev)
-    l = torch.empty((b, h), dtype=torch.float32, device=dev)
+    chunk, splits = parts_plan(k_pages, page_indices)
+    out = torch.empty((rows, h, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((rows, h), dtype=torch.float32, device=dev)
+    l = torch.empty((rows, h), dtype=torch.float32, device=dev)
+    part, parts = _split_workspace(rows, h, hd, splits, dev)
     fn = _bind()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  lengths.data_ptr(), page_indices.data_ptr(),
                  page_indices.shape[1], n_pages, out.data_ptr(),
-                 m.data_ptr(), l.data_ptr(), b, h, hkv, hd, ps,
+                 m.data_ptr(), l.data_ptr(), *parts, b, chain, h, hkv, hd,
+                 ps, chunk, splits,
                  float(soft_cap) if soft_cap is not None else 0.0,
-                 page_type, stream)
+                 PAGE_TYPES[k_pages.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_flash_parts kernel launch failed: CUDA "
                            f"error {err}")

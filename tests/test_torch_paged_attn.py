@@ -4,11 +4,14 @@ pages, against the JAX package.
 - ``paged_flash_parts`` (on the CPU its plain version, the kernel's
   counterpart) against JAX ``paged_flash_parts``, whose only CPU path is its
   dense branch: ``out``, ``m`` and ``l`` for bf16 and float8 e4m3 pages,
-  GQA, soft cap on and off, an empty row, and page tables repeated over the
-  S pseudo-rows of a verify pass. Relative tolerance 1e-5 (f32 sums in
-  another order); ``m = -inf`` and ``l = 0`` exactly for empty rows.
+  GQA, soft cap on and off, an empty row, lengths that end inside a chunk
+  of the kernel's split plan and at the capacity, a permuted page table,
+  and ``chain`` 1 and 3 (the port takes the cache rows' lengths and page
+  tables with ``chain=``, JAX the same repeated over the pseudo-rows of a
+  verify pass). Relative tolerance 1e-5 (f32 sums in another order);
+  ``(0, -inf, 0)`` exactly for empty rows.
 - ``paged_gqa_attention`` (its plain version, ``paged_attention_reference``)
-  against JAX ``paged_gqa_attention``, 1e-5.
+  against JAX ``paged_gqa_attention``, chain 1 and 3, 1e-5.
 - ``merge_attention_parts`` and ``merge_attention_parts_chain`` (store
   dtype none, bf16 and float8) against JAX, 1e-5.
 - ``batch_paged_attention`` with float8 pages (the plain version of kernel
@@ -53,58 +56,81 @@ def _close(got, want, rel=REL):
         np.abs(got - want).max() / scale)
 
 
-def _parts_case(seed, dtype, *, b=3, s_len=1, h=4, hkv=2, hd=16, pp=3,
+def _parts_case(seed, dtype, *, b=3, chain=1, h=4, hkv=2, hd=16, pp=3,
                 lens=(0, 130, 300)):
-    """numpy inputs of one paged_flash_parts call: b cache rows, each
-    repeated over s_len pseudo-rows (the verify pass's page tables)."""
+    """numpy inputs of one paged_flash_parts call: b cache rows (lengths,
+    page tables), q of ``chain`` pseudo-rows each, chain-position-major.
+    Row b's pages are those of layer 1 of a two-layer slab, stored in a
+    random order of the slab's pages (a permuted page table)."""
     rng = np.random.default_rng(seed)
     k = _pages(rng, hkv, 2 * b * pp, hd, dtype)
     v = _pages(rng, hkv, 2 * b * pp, hd, dtype)
-    # layer 1 of a two-layer slab: the tables point past layer 0's pages
     idx = np.asarray(jpa.identity_page_indices(b, pp)) + b * pp
-    return dict(q=rng.standard_normal((b * s_len, h, hd)).astype(np.float32),
-                k_pages=k, v_pages=v,
-                lengths=np.repeat(np.asarray(lens, np.int32), s_len),
-                page_indices=np.repeat(idx, s_len, axis=0).astype(np.int32))
+    # q pre-scaled by hd ** -0.5 as the model sends it (unscaled, hd 256
+    # logits have a standard deviation of 16, where two f32 summation
+    # orders part by more than the tolerance)
+    q = (rng.standard_normal((b * chain, h, hd)) * hd ** -0.5).astype(
+        np.float32)
+    perm = np.random.default_rng(seed + 1).permutation(2 * b * pp)
+    k_st, v_st = np.empty_like(k), np.empty_like(v)
+    k_st[:, perm], v_st[:, perm] = k, v     # page p is stored at perm[p]
+    return dict(q=q, k_pages=k_st, v_pages=v_st,
+                lengths=np.asarray(lens, np.int32),
+                page_indices=perm[idx].astype(np.int32))
 
 
+def _repeated(c, chain):
+    """The JAX package's form of a case: lengths and page tables repeated
+    over each cache row's pseudo-rows."""
+    return dict(c, lengths=np.repeat(c["lengths"], chain),
+                page_indices=np.repeat(c["page_indices"], chain, axis=0))
+
+
+@pytest.mark.parametrize("chain", [1, 3], ids=["chain1", "chain3"])
 @pytest.mark.parametrize("dtype", ["bf16", "f8"])
 @pytest.mark.parametrize("cap", [None, 50.0], ids=["nocap", "cap50"])
 @pytest.mark.parametrize("shape", [
-    dict(s_len=1, h=4, hkv=2, hd=16),             # GQA, hd 16
-    dict(s_len=5, h=8, hkv=2, hd=32, lens=(0, 1, 384)),   # chain of 5
-    dict(s_len=1, h=8, hkv=4, hd=256, b=2, pp=2, lens=(255, 0)),
-], ids=["g2-hd16", "chain5", "hd256"])
-def test_paged_flash_parts_matches_jax(dtype, cap, shape):
-    c = _parts_case(3, dtype, **shape)
-    want = jpa.paged_flash_parts(*(jnp.asarray(v) for v in c.values()),
-                                 attn_logits_soft_cap=cap)
+    # the kernel's plan: chunk 16 (130 and 300 end mid-chunk); chunk 16
+    # (384 is the capacity); chunk 8 (255 ends mid-chunk)
+    dict(h=4, hkv=2, hd=16),             # GQA, hd 16
+    dict(h=8, hkv=2, hd=32, lens=(0, 1, 384)),
+    dict(h=8, hkv=4, hd=256, b=2, pp=2, lens=(255, 0)),
+], ids=["g2-hd16", "g4-hd32", "hd256"])
+def test_paged_flash_parts_matches_jax(dtype, cap, shape, chain):
+    c = _parts_case(3, dtype, chain=chain, **shape)
+    want = jpa.paged_flash_parts(
+        *(jnp.asarray(v) for v in _repeated(c, chain).values()),
+        attn_logits_soft_cap=cap)
     before = tpa.paged_flash_parts.launches
     got = tpa.paged_flash_parts(*(_t(v) for v in c.values()),
-                                attn_logits_soft_cap=cap)
+                                attn_logits_soft_cap=cap, chain=chain)
     assert tpa.paged_flash_parts.launches == before   # plain on the CPU
     for g, w, name in zip(got, want, ("out", "m", "l")):
         w = np.asarray(w)
         assert g.shape == w.shape, name
         live = np.isfinite(w)
         _close(g[torch.from_numpy(live)], w[live])
-    empty = c["lengths"] == 0
+    empty = np.repeat(c["lengths"] == 0, chain)
     assert empty.any()
     assert bool((got[1][torch.from_numpy(empty)] == -torch.inf).all())
     assert bool((got[2][torch.from_numpy(empty)] == 0).all())
     assert bool((got[0][torch.from_numpy(empty)] == 0).all())
 
 
+@pytest.mark.parametrize("chain", [1, 3], ids=["chain1", "chain3"])
 @pytest.mark.parametrize("dtype", ["bf16", "f8"])
-def test_paged_gqa_attention_matches_jax(dtype):
-    c = _parts_case(4, dtype, s_len=2, h=8, hkv=4, hd=32, lens=(7, 129, 256))
-    args = [c["q"], c["k_pages"], c["v_pages"], c["lengths"]]
-    want = jpa.paged_gqa_attention(*map(jnp.asarray, args),
-                                   page_indices=jnp.asarray(c["page_indices"]),
-                                   attn_logits_soft_cap=50.0)
-    got = tpa.paged_gqa_attention(*map(_t, args),
-                                  page_indices=_t(c["page_indices"]),
-                                  attn_logits_soft_cap=50.0)
+def test_paged_gqa_attention_matches_jax(dtype, chain):
+    c = _parts_case(4, dtype, chain=chain, h=8, hkv=4, hd=32,
+                    lens=(7, 129, 256))
+    r = _repeated(c, chain)
+    want = jpa.paged_gqa_attention(
+        *(jnp.asarray(r[k]) for k in ("q", "k_pages", "v_pages", "lengths")),
+        page_indices=jnp.asarray(r["page_indices"]),
+        attn_logits_soft_cap=50.0)
+    got = tpa.paged_gqa_attention(
+        *(_t(c[k]) for k in ("q", "k_pages", "v_pages", "lengths")),
+        page_indices=_t(c["page_indices"]), attn_logits_soft_cap=50.0,
+        chain=chain)
     assert got.dtype == torch.float32
     _close(got, want)
 
@@ -215,4 +241,8 @@ def test_wrappers_refuse_other_devices_and_page_types():
     idx = torch.zeros((1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tpa.paged_flash_parts(q, pages, pages, lens, idx)
+    # q's rows must be chain x the cache rows
+    for fn in (tpa.paged_flash_parts, tpa.paged_gqa_attention):
+        with pytest.raises(ValueError, match="chain 2"):
+            fn(q, pages, pages, lens, page_indices=idx, chain=2)
     assert tpa.KV_STORE_DTYPES["f8"] == torch.float8_e4m3fn

@@ -1,9 +1,9 @@
-"""The split-KV schedules of the two attention kernels, on the CPU.
+"""The split-KV schedules of the attention kernels, on the CPU.
 
-Both kernels cut a row's pages over CTAs (``ops/fused_attn.py::split_plan``)
-and merge the partials. Here:
+Kernels 1, 2, 5 and 7 cut a row's pages over CTAs
+(``ops/fused_attn.py::split_plan``) and merge the partials. Here:
 
-- both planners: every token of the capacity is covered exactly once, by
+- the planners: every token of the capacity is covered exactly once, by
   chunks that divide the page and never straddle a page or segment; the
   plan reads shapes only (page tables and slabs on the ``meta`` device,
   which has no values, plan the same), so a launch needs no host sync; and
@@ -18,6 +18,12 @@ and merge the partials. Here:
   segment A: its schedule, emulated the same way, against the JAX
   package's ``fused_decode_attention`` in interpret mode, to 1e-5, with
   empty splits and empty prompt segments;
+- kernel 5 (the one-segment paged attention) emulated the same way: each
+  split's tokens through ``paged_flash_parts_plain`` with the chain's
+  queries sharing their cache row's chunk, the unnormalized partials, then
+  the merge of the live splits in split order, against the JAX package's
+  ``paged_flash_parts`` on the inputs repeated over the chain, to 1e-5,
+  empty rows exactly (0, -inf, 0);
 - kernel 2's attention under its two-pass schedule (see
   ``_split_slab_attention``: each split rounds p to bf16 relative to its
   128-token block's running max, the prefix max of the chunk maxima)
@@ -59,6 +65,13 @@ def _kernel1_plan(b, hkv, pp_a, pp_b):
     return plan, b * hkv, (pp_a * PS, pp_b * PS)
 
 
+def _kernel5_plan(b, hkv, pp):
+    """Kernel 5's plan and capacity at B cache rows of ``pp`` pages."""
+    plan = tpa.parts_plan(_meta(hkv, b * pp, PS, 16, dtype=torch.bfloat16),
+                          _meta(b, pp))
+    return plan, b * hkv, (pp * PS,)
+
+
 def _kernel2_plans(bc, hkv, tp, tg, tx, layers=26):
     dims = tconfig.backbone_preset("2b-2b").decoder
     assert dims.num_layers == layers and dims.num_kv_heads == hkv
@@ -87,6 +100,12 @@ MAIN_PATHS = {
     # kernel 7 plans its prompt and generation pages as kernel 1 plans
     # segments A and B: 4g's bf16 (and e4m3) batch of 4
     "k7 B=4 self (4g)": _kernel1_plan(4, 4, 1, 4),
+    # kernel 5: the 4e verify pass (one cache row; its prompt and encoder
+    # segments one page, the generation segment four) and 4g's cross
+    # attention (B = 4, one encoder page)
+    "k5 4e prompt / cross": _kernel5_plan(1, 4, 1),
+    "k5 4e gen": _kernel5_plan(1, 4, 4),
+    "k5 4g cross B=4": _kernel5_plan(4, 4, 1),
 }
 OTHER = {
     "k1 hd16 3 rows": _kernel1_plan(3, 2, 2, 2),
@@ -132,6 +151,10 @@ def test_split_plan_reads_no_lengths():
         torch.zeros((4, 1), dtype=torch.int32),
         torch.arange(16, dtype=torch.int32).reshape(4, 4)) == \
         _kernel1_plan(4, 4, 1, 4)[0]
+    # kernel 5's: cache rows, not pseudo-rows, and no lengths
+    assert tpa.parts_plan(torch.zeros((4, 3, PS, 16), dtype=torch.bfloat16),
+                          torch.tensor([[2], [0], [1]], dtype=torch.int32)
+                          ) == _kernel5_plan(3, 4, 1)[0]
     dims = tconfig.backbone_preset("test").decoder
     slab = torch.zeros((2, dims.num_layers * 3, PS, 16), dtype=torch.int8)
     meta = torch.empty(slab.shape, dtype=torch.int8, device="meta")
@@ -254,6 +277,86 @@ def test_kernel7_schedule_matches_jax(cap):
     clamped, _, _ = _kernel1_schedule(c, cap, True)
     assert not np.allclose(clamped[:2].numpy(), want[:2], rtol=1e-3,
                            atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: its schedule from the plain pieces, against JAX
+# ---------------------------------------------------------------------------
+
+def _kernel5_schedule(c, cap, chain):
+    """Kernel 5 as its CTAs compute it: each split's tokens through
+    paged_flash_parts_plain at ``chain`` (the chunk as a page of its own,
+    the chain's queries sharing their cache row's chunk), the unnormalized
+    partials (out * l, m, l), then each pseudo-row's live splits (those
+    holding its row's tokens) merged in split order. Returns ((out, m, l),
+    the plan, the number of neutral partials)."""
+    t = {k: _torch(v) for k, v in c.items()}
+    k, v, idx = t["k_pages"], t["v_pages"], t["page_indices"]
+    hkv, n_pages, _, hd = k.shape
+    chunk, splits = tpa.parts_plan(k, idx)
+    per_page = PS // chunk
+    lens = t["lengths"].clamp(0, idx.shape[1] * PS)
+    parts, neutral = [], 0
+    for s in range(splits):
+        tok = s * chunk
+        sub = idx[:, tok // PS].long() * per_page + (tok % PS) // chunk
+        n = (lens - tok).clamp(0, chunk).to(torch.int32)
+        out, m, l = tpa.paged_flash_parts_plain(
+            t["q"], k.reshape(hkv, n_pages * per_page, chunk, hd),
+            v.reshape(hkv, n_pages * per_page, chunk, hd), n,
+            sub[:, None].to(torch.int32), attn_logits_soft_cap=cap,
+            chain=chain)
+        empty = (n == 0).repeat_interleave(chain)
+        neutral += int(empty.sum())
+        assert bool((out[empty] == 0).all() and (m[empty] == -torch.inf).all()
+                    and (l[empty] == 0).all())
+        parts.append((out * l[..., None], m, l))
+    live = ((lens + chunk - 1) // chunk).repeat_interleave(chain)[:, None]
+    m = torch.full_like(parts[0][1], -torch.inf)
+    for s, (_, ms, _) in enumerate(parts):
+        m = torch.where(s < live, torch.maximum(m, ms), m)
+    acc, l = torch.zeros_like(parts[0][0]), torch.zeros_like(m)
+    for s, (a, ms, ls) in enumerate(parts):
+        w = torch.where(s < live, torch.exp(ms - m), 0.0)
+        l = l + ls * w
+        acc = acc + a * w[..., None]
+    out = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return (out, m, l), (chunk, splits), neutral
+
+
+@pytest.mark.parametrize("cap", [None, 50.0], ids=["nocap", "cap50"])
+def test_kernel5_schedule_matches_jax(cap):
+    """Chain 3 over 5 cache rows of two pages in a permuted page table
+    (H 4, Hkv 2, hd 16), lengths 0, 1, 127 (ends inside a chunk), 128 and
+    256 (the capacity): a chunk of 16 tokens, 16 splits a row, most of the
+    short rows' partials neutral."""
+    chain, b, h, hkv, hd, pp = 3, 5, 4, 2, 16, 2
+    rng = np.random.default_rng(25)
+
+    def pages():
+        x = rng.standard_normal((hkv, 2 * b * pp, PS, hd)).astype(np.float32)
+        return np.asarray(jnp.asarray(x).astype(jnp.bfloat16))
+
+    c = dict(q=(rng.standard_normal((b * chain, h, hd))
+                * hd ** -0.5).astype(np.float32),
+             k_pages=pages(), v_pages=pages(),
+             lengths=np.asarray([0, 1, 127, 128, 256], np.int32),
+             page_indices=rng.permutation(2 * b * pp)[:b * pp].reshape(
+                 b, pp).astype(np.int32))
+    want = jpa.paged_flash_parts(
+        jnp.asarray(c["q"]), jnp.asarray(c["k_pages"]),
+        jnp.asarray(c["v_pages"]), jnp.asarray(np.repeat(c["lengths"], chain)),
+        jnp.asarray(np.repeat(c["page_indices"], chain, axis=0)),
+        attn_logits_soft_cap=cap)
+    got, plan, neutral = _kernel5_schedule(c, cap, chain)
+    assert plan == (16, 16)
+    assert neutral > 0
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+    empty = got[1][:chain] == -torch.inf          # cache row 0, length 0
+    assert bool(empty.all()) and bool((got[2][:chain] == 0).all())
+    assert bool((got[0][:chain] == 0).all())
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Two checkouts of the PyTorch/CUDA port, compared on one card.
 
-    python3 tools/torch_prefill_ab.py PARENT CHANGE [--decode | --host]
+    python3 tools/torch_prefill_ab.py PARENT CHANGE [--decode [--attention]
+                                                    | --host]
 
 PARENT and CHANGE are the roots of the two checkouts. For each checkout,
 in turns (parent, change, change, parent), one process builds that
@@ -28,7 +29,13 @@ attentions also alone, kernel 7's work), bf16 pages at batch 4 and e4m3
 pages at batch 1, also as host time (the median over 21 steps of
 the time to enqueue one step's calls on an idle card); kernel 7's 26
 launches of one 4g step (the v1 self-attention of 26 layers, bf16 and
-e4m3 pages at batch 4), graph and eager; the head's products (W8A8 w1
+e4m3 pages at batch 4), graph and eager; kernel 5's 78 launches of one 4e
+verify pass (prompt 1, generated ``GEN`` and encoder pages of one cache row
+for each of 26 layers, e4m3 pages, a chain of 5) and its 26 launches of a
+4g step's cross attention (bf16 pages, batch 4), graph and eager (a
+checkout whose wrapper takes no ``chain`` gets the lengths and page tables
+repeated over the pseudo-rows, built outside the timed calls); with
+``--attention`` the process stops here. Then the head's products (W8A8 w1
 and w2 at M = 1, 4 and 5; W4A8 w2 at M = 1 and 5); and kernel 6 (W8A16)
 over 26 layers of seeded random int8 weights at 2b-2b widths: the 158
 products of one decode step at M = 4 (6 x 26 layer products and the
@@ -44,16 +51,23 @@ and with W8A16 weights (4f: kernels 6 and 1); one step and 65 steps in
 turns, five times each; the step's wall ms is (median of the 65-step
 walls - median of one step's) / 64.
 
-Host mode (``--host``): kernel 1's host time a call (the 52 calls of a
+Host mode (``--host``): whether kernels 1 and 7 give the parent's output
+bits (kernel 1's bf16 B = 4 and e4m3 B = 1 step, kernel 7's bf16 and e4m3
+4g step); kernel 1's host time a call (the 52 calls of a
 bf16 B = 4 and of an e4m3 B = 1 step as in decode mode), kernel 7's (the
-26 calls of a bf16 B = 4 4g step) and kernel 6's (the 158 products of a
-4f step at M = 4), both checkouts' wrappers in one process and in turns,
-41 rounds; quartiles in ms.
+26 calls of a bf16 B = 4 4g step), kernel 5's (the 26 cross calls of a 4g
+step; the 78 calls of a 4e verify pass, the parent's wrapper once on
+pseudo-row inputs repeated beforehand and once with the
+``repeat_interleave`` of the page tables that its caller ran each call and
+of the lengths once a pass) and kernel 6's (the 158 products of a 4f step
+at M = 4), both checkouts' wrappers in one process and in turns, 41
+rounds; quartiles in ms.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -124,10 +138,12 @@ def measure(root: str) -> dict:
 
 
 ENC4 = [42, 46, 31, 36]       # about the four requests' text widths
+PAGE = 128                    # tokens a KV page
 GEN = 225                     # generated length: the mean of a 451-step run
 
 
-def measure_decode(root: str, iters: int = 5) -> dict:
+def measure_decode(root: str, iters: int = 5,
+                   attention_only: bool = False) -> dict:
     """One checkout's decode-kernel device times (run inside its root)."""
     os.chdir(root)
     sys.path.insert(0, root)
@@ -139,6 +155,7 @@ def measure_decode(root: str, iters: int = 5) -> dict:
     from t5gemma_tts_tpu_torch.ops import cuda_build
     from t5gemma_tts_tpu_torch.ops import fused_attn as fa
     from t5gemma_tts_tpu_torch.ops import megakernel as mk
+    from t5gemma_tts_tpu_torch.ops import paged_attn as pa
     from t5gemma_tts_tpu_torch.ops import quant
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -146,6 +163,8 @@ def measure_decode(root: str, iters: int = 5) -> dict:
     dev = torch.device("cuda")
     dims = VoiceConfig().backbone.decoder
     out = {"tree": root}
+    if attention_only:
+        return attention_kernels(out, cs, fa, pa, dims, dev, iters)
 
     def stack_ms(layers, args, chain=1):
         return cs.graph_ms(lambda: mk.decode_stack(layers, dims, chain=chain,
@@ -168,6 +187,33 @@ def measure_decode(root: str, iters: int = 5) -> dict:
     out["k2 w4 chain 5 bf16 pages"] = stack_ms(w4, args, chain=5)
     del w4, args
     torch.cuda.empty_cache()
+
+    attention_kernels(out, cs, fa, pa, dims, dev, iters)
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    d = dims.hidden_size
+    for int4, n, ms in ((False, 2304, (1, 4, 5)), (False, 65541, (1, 4, 5)),
+                        (True, 65541, (1, 5))):
+        w = cs.random_product_weight(int4, n, d, gen)
+        product = quant.w4a8_matmul if int4 else quant.w8a8_matmul
+        for m in ms:
+            x = torch.randn((m, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            out[f"head {'w4a8' if int4 else 'w8a8'} N={n} M={m}"] = (
+                cs.graph_ms(lambda: product(x, w), iters * 4))
+    del w
+    torch.cuda.empty_cache()
+    out.update(w8a16_step(cs, quant, dims, dev, iters))
+    torch.cuda.empty_cache()
+    out.update(eager_steps_ms(cs))
+    return out
+
+
+def attention_kernels(out, cs, fa, pa, dims, dev, iters: int) -> dict:
+    """Kernels 1, 7 and 5 at the main paths' shapes, graph-replayed and
+    eager (ms a launch), into ``out``."""
+    import numpy as np
 
     rng = np.random.default_rng(1)
     for b, f8 in ((4, False), (1, True)):
@@ -193,26 +239,98 @@ def measure_decode(root: str, iters: int = 5) -> dict:
         tag = f"k7 {'e4m3' if f8 else 'bf16'} B=4"
         out[f"{tag} graph"] = cs.graph_ms(step7, iters) / len(calls)
         out[f"{tag} eager"] = cs.cuda_ms(step7, iters) / len(calls)
-    del calls
-    torch.cuda.empty_cache()
 
-    gen = torch.Generator(device=dev).manual_seed(7)
-    d = dims.hidden_size
-    for int4, n, ms in ((False, 2304, (1, 4, 5)), (False, 65541, (1, 4, 5)),
-                        (True, 65541, (1, 5))):
-        w = cs.random_product_weight(int4, n, d, gen)
-        product = quant.w4a8_matmul if int4 else quant.w8a8_matmul
-        for m in ms:
-            x = torch.randn((m, d), generator=gen, device=dev).to(
-                torch.bfloat16)
-            out[f"head {'w4a8' if int4 else 'w8a8'} N={n} M={m}"] = (
-                cs.graph_ms(lambda: product(x, w), iters * 4))
-    del w
-    torch.cuda.empty_cache()
-    out.update(w8a16_step(cs, quant, dims, dev, iters))
-    torch.cuda.empty_cache()
-    out.update(eager_steps_ms(cs))
+    for tag, calls in (("k5 4e verify pass", kernel5_pass(dims, rng, dev)),
+                       ("k5 4g cross B=4", kernel5_cross(dims, rng, dev))):
+        calls = kernel5_form(pa, calls)
+
+        def step5():
+            run_kernel5(pa, calls)
+
+        out[f"{tag} graph"] = cs.graph_ms(step5, iters) / len(calls)
+        out[f"{tag} eager"] = cs.cuda_ms(step5, iters) / len(calls)
     return out
+
+
+def kernel5_case(dims, rng, dev, *, rows, chain, lens, pp, f8, layers):
+    """One segment's inputs of kernel 5 in the chain form: ``rows`` cache
+    rows of ``pp`` pages each in a slab of ``layers`` layers (layer 0's
+    page tables), q of ``chain`` pseudo-rows a cache row."""
+    import numpy as np
+    import torch
+
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    hkv, hd = dims.num_kv_heads, dims.head_dim
+    dtype = torch.float8_e4m3fn if f8 else torch.bfloat16
+    return dict(q=t(rows * chain, dims.num_heads, hd),
+                k_pages=t(hkv, layers * rows * pp, PAGE, hd).to(dtype),
+                v_pages=t(hkv, layers * rows * pp, PAGE, hd).to(dtype),
+                lengths=torch.tensor(lens, dtype=torch.int32, device=dev),
+                page_indices=torch.arange(rows * pp, dtype=torch.int32,
+                                          device=dev).reshape(rows, pp),
+                chain=chain)
+
+
+def kernel5_layers(case, pp, rows, layers) -> list:
+    """``case`` for each of ``layers`` layers (layer li's page tables)."""
+    return [dict(case, page_indices=case["page_indices"] + li * rows * pp)
+            for li in range(layers)]
+
+
+def kernel5_pass(dims, rng, dev, chain: int = 5) -> list:
+    """The inputs of kernel 5's 78 calls in one 4e verify pass: prompt
+    (1 token of one page), generation (``GEN`` of four pages) and cross
+    (the 4.0 s request's text width, one page) for each layer, one cache
+    row, e4m3 pages, a chain of ``chain``."""
+    segs = [kernel5_layers(kernel5_case(dims, rng, dev, rows=1, chain=chain,
+                                        lens=[n], pp=pp, f8=True,
+                                        layers=dims.num_layers),
+                           pp, 1, dims.num_layers)
+            for n, pp in ((1, 1), (GEN, 4), (ENC4[-1], 1))]
+    return [seg[li] for li in range(dims.num_layers) for seg in segs]
+
+
+def kernel5_cross(dims, rng, dev) -> list:
+    """The inputs of kernel 5's 26 calls of a 4g step's cross attention:
+    batch 4 over one encoder page each, bf16 pages."""
+    return kernel5_layers(kernel5_case(dims, rng, dev, rows=4, chain=1,
+                                       lens=ENC4, pp=1, f8=False,
+                                       layers=dims.num_layers),
+                          1, 4, dims.num_layers)
+
+
+def kernel5_form(pa, calls) -> list:
+    """``calls`` as ``pa.paged_flash_parts`` takes them: as they are, or,
+    where the wrapper takes no ``chain``, with the lengths and page tables
+    repeated over the pseudo-rows (chain-position-major)."""
+    if "chain" in inspect.signature(pa.paged_flash_parts).parameters:
+        return calls
+    return [{k: v for k, v in dict(
+        a, lengths=a["lengths"].repeat_interleave(a["chain"]),
+        page_indices=a["page_indices"].repeat_interleave(a["chain"], 0)
+    ).items() if k != "chain"} for a in calls]
+
+
+def run_kernel5(pa, calls) -> None:
+    for a in calls:
+        pa.paged_flash_parts(**a, attn_logits_soft_cap=50.0)
+
+
+def run_kernel5_repeating(pa, calls) -> None:
+    """A chain-less wrapper's verify pass as its caller ran it: the
+    lengths repeated once a pass, each call's page table repeated."""
+    reps = {}
+    for a in calls:
+        s = a["chain"]
+        key = id(a["lengths"])
+        if key not in reps:
+            reps[key] = a["lengths"].repeat_interleave(s)
+        pa.paged_flash_parts(a["q"], a["k_pages"], a["v_pages"], reps[key],
+                             a["page_indices"].repeat_interleave(s, dim=0),
+                             attn_logits_soft_cap=50.0)
 
 
 # kernel 6's products of a decode step, (name, K, N) at 2b-2b widths
@@ -333,13 +451,13 @@ def run_kernel1(fa, calls) -> None:
 
 
 def measure_host(parent: str, change: str, reps: int = 41) -> dict:
-    """Kernel 1's, kernel 7's and kernel 6's host time a call, both
+    """Kernel 1's, kernel 7's, kernel 5's and kernel 6's host time a call, both
     checkouts' wrappers in one process and in turns (parent, change,
     change, parent; ``reps`` rounds), so that the host's speed, which
     differs between processes, is the same for both. Each checkout's
     package is imported under a name of its own and builds its own
-    kernels; the inputs are those of ``kernel1_step``, ``kernel7_step``
-    and ``w8a16_step_calls``."""
+    kernels; the inputs are those of ``kernel1_step``, ``kernel7_step``,
+    ``kernel5_cross``, ``kernel5_pass`` and ``w8a16_step_calls``."""
     import importlib
     import importlib.util
 
@@ -351,7 +469,7 @@ def measure_host(parent: str, change: str, reps: int = 41) -> dict:
     import chip_smoke as cs
     from t5gemma_tts_tpu_torch.config import VoiceConfig
 
-    fas, quants = {}, {}
+    fas, pas, quants = {}, {}, {}
     for tag, root in (("parent", parent), ("change", change)):
         name = f"_ab_{tag}"
         pkg = os.path.join(root, "t5gemma_tts_tpu_torch")
@@ -362,8 +480,9 @@ def measure_host(parent: str, change: str, reps: int = 41) -> dict:
         spec.loader.exec_module(sys.modules[name])
         importlib.import_module(f"{name}.ops.cuda_build").build(
             ["batch_paged_attention", "fused_decode_attention",
-             "w8a16_matmul"])
+             "paged_flash_parts", "w8a16_matmul"])
         fas[tag] = importlib.import_module(f"{name}.ops.fused_attn")
+        pas[tag] = importlib.import_module(f"{name}.ops.paged_attn")
         quants[tag] = importlib.import_module(f"{name}.ops.quant")
     dev = torch.device("cuda")
     dims = VoiceConfig().backbone.decoder
@@ -371,15 +490,40 @@ def measure_host(parent: str, change: str, reps: int = 41) -> dict:
     out = {}
     for b, f8 in ((4, False), (1, True)):
         calls = kernel1_step(cs, dims, rng, b, f8, dev)
+        label = f"k1 {'e4m3' if f8 else 'bf16'} B={b}"
+        out[f"{label} outputs bit-equal"] = same_bits(
+            {tag: [fa.batch_paged_attention(**a, attn_logits_soft_cap=50.0,
+                                            include_current=cur)
+                   for a, cur in calls] for tag, fa in fas.items()})
         out.update(host_turns(
-            f"k1 {'e4m3' if f8 else 'bf16'} B={b}",
-            {tag: (lambda fa=fa: run_kernel1(fa, calls))
-             for tag, fa in fas.items()}, len(calls), reps))
-    calls = kernel7_step(cs, dims, rng, 4, False, dev)
+            label, {tag: (lambda fa=fa: run_kernel1(fa, calls))
+                    for tag, fa in fas.items()}, len(calls), reps))
+    for f8 in (True, False):
+        calls = kernel7_step(cs, dims, rng, 4, f8, dev)
+        out[f"k7 {'e4m3' if f8 else 'bf16'} B=4 outputs bit-equal"] = (
+            same_bits({tag: [fa.fused_decode_attention(
+                **a, attn_logits_soft_cap=50.0) for a in calls]
+                for tag, fa in fas.items()}))
     out.update(host_turns(
         "k7 bf16 B=4", {tag: (lambda fa=fa: run_kernel7(fa, calls))
                         for tag, fa in fas.items()}, len(calls), reps))
-    del calls
+    calls = kernel5_cross(dims, rng, dev)
+    out.update(host_turns(
+        "k5 4g cross B=4", {tag: (lambda pa=pa, c=kernel5_form(pa, calls):
+                                  run_kernel5(pa, c))
+                            for tag, pa in pas.items()}, len(calls), reps))
+    calls = kernel5_pass(dims, rng, dev)
+    forms = {tag: kernel5_form(pa, calls) for tag, pa in pas.items()}
+    out.update(host_turns(
+        "k5 4e verify pass", {tag: (lambda pa=pa, c=forms[tag]:
+                                    run_kernel5(pa, c))
+                              for tag, pa in pas.items()}, len(calls), reps))
+    out.update(host_turns(
+        "k5 4e verify pass, the parent with its repeats",
+        {"parent": lambda: run_kernel5_repeating(pas["parent"], calls),
+         "change": lambda: run_kernel5(pas["change"], forms["change"])},
+        len(calls), reps))
+    del calls, forms
     raw = w8a16_step_calls(dims, w8a16_weights(dims, dev)[0])
     steps = {tag: [(x, q.QuantWeight(*w)) for x, w in raw]
              for tag, q in quants.items()}
@@ -388,6 +532,15 @@ def measure_host(parent: str, change: str, reps: int = 41) -> dict:
             q.w8a16_matmul(x, w) for x, w in st])
             for tag, q in quants.items()}, len(raw), reps))
     return out
+
+
+def same_bits(outs: dict) -> bool:
+    """Whether the parent's and the change's outputs are equal bit for
+    bit."""
+    import torch
+
+    return all(torch.equal(x, y)
+               for x, y in zip(outs["parent"], outs["change"]))
 
 
 def host_turns(label: str, fns: dict, calls: int, reps: int) -> dict:
@@ -494,8 +647,11 @@ def main(argv=None) -> int:
                     help="measure the first root only (one process)")
     ap.add_argument("--decode", action="store_true",
                     help="the decode kernels instead of the prefill")
+    ap.add_argument("--attention", action="store_true",
+                    help="with --decode: the attention kernels (1, 7, 5) "
+                    "alone")
     ap.add_argument("--host", action="store_true",
-                    help="kernels 1, 7 and 6's host time a call, both "
+                    help="kernels 1, 7, 5 and 6's host time a call, both "
                     "checkouts in one process")
     args = ap.parse_args(argv)
     if args.host:
@@ -505,15 +661,17 @@ def main(argv=None) -> int:
               flush=True)
         return 0
     if args.one:
-        fn = measure_decode if args.decode else measure
-        print("AB " + json.dumps(fn(os.path.abspath(args.parent))),
-              flush=True)
+        root = os.path.abspath(args.parent)
+        res = (measure_decode(root, attention_only=args.attention)
+               if args.decode else measure(root))
+        print("AB " + json.dumps(res), flush=True)
         return 0
     print(card_line(), flush=True)
+    mode = (["--decode"] if args.decode else []) + (
+        ["--attention"] if args.attention else [])
     for root in (args.parent, args.change, args.change, args.parent):
         subprocess.run([sys.executable, os.path.abspath(__file__), root,
-                        root, "--one"] + (["--decode"] if args.decode else []),
-                       check=True)
+                        root, "--one"] + mode, check=True)
     return 0
 
 
