@@ -35,19 +35,33 @@ Phases, in order; any failure exits non-zero before the result line:
    kernels' line);
 3. reference: a tiny f32 model decoded greedily on the card (kernels) and on
    the CPU (plain versions) must give the same tokens and waveforms, with
-   bf16 weights and paged pages, with int8 weights and int8 pages, and with
-   int4 weights and int8 pages; and the same tokens from the speculative
-   engine (k = 4) with int4 weights over bf16 pages (the decode layer's
-   chain) and with f32 weights over e4m3 pages (the one-segment kernel);
-   then W8A16 weights over paged pages (a row may part only at a near-tie,
-   see ``near_tie_parting``), and f32 weights with T5G_FUSED_ATTN = 0 and 1
+   bf16 weights and paged pages, with the dense cache, sampled (top-k 8,
+   top-p 0.9, T 0.8: the draws are a hash of (seed, step), the same on
+   both devices) over paged pages, with int8 weights and int8 pages, and
+   with int4 weights and int8 pages; the card serves through the graphed
+   loop (engine.graphed_decoder) and runs the eager loop too, and the two
+   must give the same tokens; prefill + run_segment slices (5, 11, the
+   buffer's end) through graphed_segment_fns equal one decode, on both
+   devices; and the same tokens from the speculative engine (k = 4) with
+   int4 weights over bf16 pages (the decode layer's chain) and with f32
+   weights over e4m3 pages (the one-segment kernel); then W8A16 weights
+   over paged pages (a row may part only at a near-tie, see
+   ``near_tie_parting``), and f32 weights with T5G_FUSED_ATTN = 0 and 1
    over paged pages and 1 over e4m3 pages;
 4. main path, bf16: TTSPipeline at the full width of the 2b-2b preset
    (seeded random bf16 weights, the full-width XCodec2 decoder) synthesizes
-   four requests with the paged cache; the attention kernel's launch count
-   must be 2 x 26 x decode steps; it prints steps, tokens/s and RTF;
+   four requests with the paged cache through the graphed loop (its first
+   request captures the bucket's step); the attention kernel's launch count
+   must be 2 x 26 x the step bodies launched (the steps, the eager warm-up
+   step of a new session and the no-op replays launched before the host
+   read the end; each replay adds the launches its capture recorded); it
+   prints steps, tokens/s and RTF; then the same decode graphed and eager
+   (``engine.decode_tokens``) on the same inputs: tokens equal, each one's
+   ms per step, the capture's ms and the session's bytes (``[graph/...]``);
 5. profile: device time by kernel (torch.profiler) over a prefill and 32
-   decode steps of that batch, and the device's idle share;
+   decode steps of that batch, graphed and eager, and the device's idle
+   share of each; in the graphed window the kernel 1/7 merge kernels that
+   the profiler sees are printed beside the wrappers' counts;
 6. step timing: one decode step's 52 attention launches at the main
    path's cache shapes, graph-replayed and eager, kernel against plain
    version, beside their bound, with each split plan (a wave of CTAs at
@@ -107,6 +121,8 @@ Phases, in order; any failure exits non-zero before the result line:
    shapes, each with the library call torch._weight_int8pack_mm and a
    bf16 matmul over the weight dequantized beforehand.
 
+Every main path (4, 4b, 4c's int4 run, 4f, 4g) runs its decode graphed and
+eager and is profiled both ways; a ``[graph]`` line sums them up as JSON.
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -1790,17 +1806,13 @@ def attn_mode(mode):
             os.environ["T5G_FUSED_ATTN"] = old
 
 
-def phase_reference(devices=("cpu", "cuda"), weights="f32",
-                    kv_cache="paged", mode=None) -> dict:
-    """Tiny f32 model: greedy paged decode on the card == on the CPU, with
-    ``T5G_FUSED_ATTN`` = ``mode`` where given. Returns the card run's
-    kernel launches."""
-    from t5gemma_tts_tpu_torch.codec.model import tiny_codec_config
-    from t5gemma_tts_tpu_torch.config import (
-        DecodeConfig, backbone_preset, tiny_voice_config)
-    from t5gemma_tts_tpu_torch.inference.pipeline import Request
-
+def tiny_setup():
+    """The tiny reference model's config (the paged cache inside the
+    sliding window) and its two requests."""
     import dataclasses
+
+    from t5gemma_tts_tpu_torch.config import backbone_preset, tiny_voice_config
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request
 
     bb = backbone_preset("test")
     dims = dataclasses.replace(bb.decoder, sliding_window=512)
@@ -1809,8 +1821,47 @@ def phase_reference(devices=("cpu", "cuda"), weights="f32",
         bb, encoder=dims, decoder=dims), extra_cutoff=0.5)
     reqs = [Request(target_text=t, target_duration=d, lang="en")
             for t, d in (("hello world", 0.4), ("a test of the port", 0.6))]
-    dcfg = DecodeConfig(top_k=1, kv_cache=kv_cache)
-    out, logits, tokens = {}, {}, {}
+    return cfg, reqs
+
+
+@contextlib.contextmanager
+def eager_engine():
+    """TTSPipeline decodes through the eager loop (``engine.decode_tokens``)
+    for the block instead of the graphed one, so that one process compares
+    the two on the same pipeline."""
+    from t5gemma_tts_tpu_torch.decode import engine
+
+    graphed = engine.graphed_decoder
+
+    def eager(cfg, dcfg):
+        return lambda params, *args: engine.decode_tokens(params, cfg, dcfg,
+                                                          *args)
+
+    engine.graphed_decoder = eager
+    try:
+        yield
+    finally:
+        engine.graphed_decoder = graphed
+
+
+SAMPLED = dict(top_k=8, top_p=0.9, temperature=0.8)
+
+
+def phase_reference(devices=("cpu", "cuda"), weights="f32",
+                    kv_cache="paged", mode=None, sampled=False) -> dict:
+    """Tiny f32 model: paged (or dense) decode on the card == on the CPU,
+    greedy or ``sampled`` (top-k 8, top-p 0.9, T 0.8: the draws are a hash
+    of (seed, step), the same on both devices), with ``T5G_FUSED_ATTN`` =
+    ``mode`` where given. The card serves through the graphed loop, and its
+    eager loop runs too: the two must give the same tokens; the CPU runs
+    the eager loop. Returns the card's graphed run's kernel launches."""
+    from t5gemma_tts_tpu_torch.codec.model import tiny_codec_config
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+
+    cfg, reqs = tiny_setup()
+    dcfg = DecodeConfig(kv_cache=kv_cache,
+                        **(SAMPLED if sampled else dict(top_k=1)))
+    out, logits, tokens, launches = {}, {}, {}, {}
     for device in devices:
         pipe = build_pipeline(cfg, tiny_codec_config(), device, seed=0,
                               init_device="cpu", int8=weights == "int8",
@@ -1818,15 +1869,26 @@ def phase_reference(devices=("cpu", "cuda"), weights="f32",
                               w8a16=weights == "w8a16")
         logits[device], tokens[device] = {}, {}
         with attn_mode(mode):
-            out[device], _, launches = _counted(lambda: _recorded(
-                lambda: pipe.synthesize_batch(reqs, dcfg, seed=0,
-                                              quiet=True),
-                logits[device], tokens[device]))
+            def run():
+                return pipe.synthesize_batch(reqs, dcfg, seed=0, quiet=True)
+
+            if device == "cuda":
+                graphed, _, launches = _counted(run)
+                with eager_engine():
+                    out[device] = _recorded(run, logits[device],
+                                            tokens[device])
+                for r, (rg, re) in enumerate(zip(graphed, out[device])):
+                    if not np.array_equal(rg.gen_frames, re.gen_frames):
+                        raise AssertionError(
+                            f"row {r}: graphed {rg.gen_frames} != eager "
+                            f"{re.gen_frames} on the card")
+            else:
+                out[device] = _recorded(run, logits[device], tokens[device])
     worst, partings = 0.0, []
     for r, (rc, rg) in enumerate(zip(out[devices[0]], out[devices[-1]])):
         if np.array_equal(rc.gen_frames, rg.gen_frames):
             worst = max(worst, float(np.abs(rc.wav - rg.wav).max()))
-        elif weights == "w8a16":
+        elif weights == "w8a16" or sampled:
             partings.append(near_tie_parting(
                 r, *(logits[d] for d in devices), *(tokens[d]
                                                     for d in devices)))
@@ -1837,8 +1899,10 @@ def phase_reference(devices=("cpu", "cuda"), weights="f32",
         raise AssertionError(f"tiny wav differs from the CPU by {worst:.3e}")
     mode_note = f" T5G_FUSED_ATTN={mode}" if mode is not None else ""
     equal = len(out[devices[-1]]) - len(partings)
-    print(f"[reference] tiny {weights}-weight greedy {kv_cache}{mode_note} "
-          f"decode: tokens equal on card and CPU for {equal} of "
+    print(f"[reference] tiny {weights}-weight "
+          f"{'sampled' if sampled else 'greedy'} {kv_cache}{mode_note} "
+          f"decode: the card's graphed and eager loops give the same tokens; "
+          f"tokens equal on card and CPU for {equal} of "
           f"{len(out[devices[-1]])} rows "
           f"({[len(r.gen_frames) for r in out[devices[-1]]]} frames), "
           f"wav max abs diff {worst:.3e} over those (tol 1e-4)"
@@ -1847,23 +1911,63 @@ def phase_reference(devices=("cpu", "cuda"), weights="f32",
     return launches
 
 
+def phase_segments(devices=("cpu", "cuda")) -> None:
+    """Tiny f32 model, sampled, paged: prefill + run_segment slices (5, 11,
+    the buffer's end) through graphed_segment_fns on the card == one
+    graphed decode == the CPU's eager segments."""
+    from t5gemma_tts_tpu_torch.codec.model import tiny_codec_config
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+    from t5gemma_tts_tpu_torch.decode import engine
+
+    cfg, reqs = tiny_setup()
+    got = {}
+    for device in devices:
+        pipe = build_pipeline(cfg, tiny_codec_config(), device, seed=0,
+                              init_device="cpu")
+        inputs, max_frames = planned_inputs(pipe, reqs)
+        x, x_lens, prompt, plens, targets = inputs
+        dcfg = DecodeConfig(kv_cache="paged", max_frames=max_frames,
+                            **SAMPLED)
+        prefill_fn, segment_fn = engine.graphed_segment_fns(cfg, dcfg)
+        state = prefill_fn(pipe.params, x, x_lens, prompt, plens, targets)
+        for until in (5, 11, max_frames):
+            state = segment_fn(pipe.params, state, x_lens, plens, targets, 3,
+                               until)
+        whole = engine.graphed_decoder(cfg, dcfg)(pipe.params, *inputs, 3)
+        if not (torch.equal(state.tokens, whole.tokens)
+                and int(state.step) == whole.steps):
+            raise AssertionError(f"{device}: segments {state.tokens} != one "
+                                 f"decode {whole.tokens}")
+        got[device] = (whole.tokens.cpu(), whole.steps)
+    first, last = got[devices[0]], got[devices[-1]]
+    if not torch.equal(first[0], last[0]):
+        raise AssertionError(f"sampled segments: {devices[0]} {first[0]} "
+                             f"{devices[-1]} {last[0]}")
+    print(f"[reference] tiny f32 sampled paged: run_segment slices (5, 11, "
+          f"{max_frames}) == one decode, graphed on the card and eager on "
+          f"the CPU, and the two devices agree ({last[1]} steps)")
+
+
 def near_tie_parting(row, cpu_logits, card_logits, cpu_tokens,
                      card_tokens) -> str:
-    """Where a W8A16 row's card stream parts from its CPU stream, held to
-    the parting protocol: the product rounds f32 activations to bf16, so an
+    """Where a row's card stream parts from its CPU stream, held to the
+    parting protocol: W8A16 rounds f32 activations to bf16, so an
     activation that the two devices compute one f32 rounding apart next to
     a bf16 rounding midpoint rounds to neighbouring values, and the flip
-    grows through the later layers. Before the parting step the two
-    devices' logits agree within a flip cascade's bound
-    (REL_FRO_TOL_STACK); at it the CPU's margin between its token and the
-    card's is within the gap between the devices' logits there (a
-    near-tie). Returns the report."""
+    grows through the later layers; a sampled stream draws the same
+    uniforms on both devices, but their logits differ in the last f32
+    bits. Before the parting step the two devices' logits agree within a
+    flip cascade's bound (REL_FRO_TOL_STACK); at it the CPU's margin
+    between its token and the card's is within the gap between the
+    devices' logits there (a near-tie). The card's logits come from its
+    eager loop, which gives the graphed loop's tokens. Returns the
+    report."""
     steps = sorted(set(cpu_tokens) & set(card_tokens))
     parted = [s for s in steps
               if int(cpu_tokens[s][row]) != int(card_tokens[s][row])]
     if not parted:
-        raise AssertionError(f"w8a16 row {row}: the frames differ but no "
-                             f"sampled token does")
+        raise AssertionError(f"row {row}: the frames differ but no sampled "
+                             f"token does")
     t = parted[0]
 
     def rel(s):
@@ -1875,7 +1979,7 @@ def near_tie_parting(row, cpu_logits, card_logits, cpu_tokens,
     ls, lp = cpu_logits[t][row], card_logits[t][row].cpu()
     margin, gap = float(ls[a] - ls[b]), float((lp - ls).abs().max())
     if before > REL_FRO_TOL_STACK or margin > gap:
-        raise AssertionError(f"w8a16 row {row} parts at step {t}: logits "
+        raise AssertionError(f"row {row} parts at step {t}: logits "
                              f"{before:.2e} apart before it (tol "
                              f"{REL_FRO_TOL_STACK:g}); CPU margin {margin:.3e}"
                              f" against a logit gap of {gap:.3e}")
@@ -1909,20 +2013,11 @@ def phase_spec_reference(weights: str, kv_cache: str) -> None:
     """Tiny f32 model: greedy speculative decode (k = 4, drafted from the
     CPU's sequential trace) on the card == on the CPU, and == the
     sequential trace."""
-    import dataclasses
-
     from t5gemma_tts_tpu_torch.codec.model import tiny_codec_config
-    from t5gemma_tts_tpu_torch.config import (
-        DecodeConfig, backbone_preset, tiny_voice_config)
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
     from t5gemma_tts_tpu_torch.decode import engine, speculative
-    from t5gemma_tts_tpu_torch.inference.pipeline import Request
 
-    bb = backbone_preset("test")
-    dims = dataclasses.replace(bb.decoder, sliding_window=512)
-    cfg = tiny_voice_config(backbone=dataclasses.replace(
-        bb, encoder=dims, decoder=dims), extra_cutoff=0.5)
-    reqs = [Request(target_text=t, target_duration=d, lang="en")
-            for t, d in (("hello world", 0.4), ("a test of the port", 0.6))]
+    cfg, reqs = tiny_setup()
     out, trace = {}, None
     for device in ("cpu", "cuda"):
         pipe = build_pipeline(cfg, tiny_codec_config(), device, seed=0,
@@ -2133,16 +2228,21 @@ DURATIONS = (2.0, 2.5, 3.0, 4.0)
 
 
 def phase_main_path(card: str, seed: int, weights: str = "bf16",
-                    batch: int = 4, pipe=None, mode=None) -> dict:
-    """Requests through TTSPipeline at 2b-2b: the four requests, or with
-    ``batch=1`` the 4.0 s one alone; bf16 or W8A16 (``weights="w8a16"``)
-    weights and bf16 pages, or W8A8 (``"int8"``) or int4 (``"int4"``)
-    weights and int8 pages; ``mode`` sets ``T5G_FUSED_ATTN`` for the run
-    (bf16 weights, mode 1: the v1 attention). ``pipe`` reuses a pipeline
-    built for the same weights. The launch counts are set to 0 just before
-    the run and read just after."""
+                    batch: int = 4, pipe=None, mode=None,
+                    ab: bool = True) -> dict:
+    """Requests through TTSPipeline at 2b-2b (the graphed decode loop): the
+    four requests, or with ``batch=1`` the 4.0 s one alone; bf16 or W8A16
+    (``weights="w8a16"``) weights and bf16 pages, or W8A8 (``"int8"``) or
+    int4 (``"int4"``) weights and int8 pages; ``mode`` sets
+    ``T5G_FUSED_ATTN`` for the run (bf16 weights, mode 1: the v1
+    attention). ``pipe`` reuses a pipeline built for the same weights. The
+    launch counts are set to 0 just before the run and read just after;
+    each replay of the captured step adds the launches its capture
+    recorded. With ``ab`` the same decode then runs graphed and eager
+    (``graphed_vs_eager``)."""
     from t5gemma_tts_tpu_torch.codec.model import XCodec2Config
     from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
+    from t5gemma_tts_tpu_torch.decode import engine
     from t5gemma_tts_tpu_torch.inference.pipeline import Request
 
     cfg = VoiceConfig()                      # 2b-2b preset, bf16
@@ -2171,31 +2271,37 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
             lambda: pipe.synthesize_batch(reqs, dcfg, seed=seed))
 
     steps = results[0].steps
+    # step bodies the card ran: the steps, a new session's eager warm-up
+    # step and the no-op replays launched before the host read the end
+    launched = results[0].launched_steps
     layers = cfg.backbone.decoder.num_layers
     n = launches
     unquantized = (n["decode_stack"] == n["w8a8_matmul"] == 0
                    and n["w4a8_matmul"] == 0)
     if mode == "1":                  # v1 self-attention, one-segment cross
         ok = (unquantized and n["w8a16_matmul"] == 0
-              and n["fused_decode_attention"] == layers * steps
-              and n["paged_flash_parts"] == layers * steps
+              and n["fused_decode_attention"] == layers * launched
+              and n["paged_flash_parts"] == layers * launched
               and n["batch_paged_attention"] == 0)
     elif weights in ("bf16", "w8a16"):
-        w16 = w8a16_launches(layers, steps) if weights == "w8a16" else 0
+        w16 = w8a16_launches(layers, launched) if weights == "w8a16" else 0
         ok = (unquantized and n["w8a16_matmul"] == w16
-              and n["batch_paged_attention"] == 2 * layers * steps
+              and n["batch_paged_attention"] == 2 * layers * launched
               and n["paged_flash_parts"] == n["fused_decode_attention"] == 0)
     else:
-        ok = (n["decode_stack"] == steps and n["batch_paged_attention"] == 0
+        ok = (n["decode_stack"] == launched and n["batch_paged_attention"] == 0
               and n["decode_layer"] == n["paged_flash_parts"] == 0
               and n["w8a16_matmul"] == n["fused_decode_attention"] == 0)
         if weights == "int8":        # the head's w1 and w2
-            ok = ok and n["w8a8_matmul"] >= 2 * steps and n["w4a8_matmul"] == 0
+            ok = (ok and n["w8a8_matmul"] >= 2 * launched
+                  and n["w4a8_matmul"] == 0)
         else:                        # the head's w1 (int8) and w2 (int4)
-            ok = ok and n["w8a8_matmul"] >= steps and n["w4a8_matmul"] >= steps
+            ok = (ok and n["w8a8_matmul"] >= launched
+                  and n["w4a8_matmul"] >= launched)
+    ok = ok and steps <= launched <= steps + 1 + engine.LOOKAHEAD
     if not ok:
-        raise AssertionError(f"{tag} main path over {steps} steps: launches "
-                             f"{launches}")
+        raise AssertionError(f"{tag} main path over {steps} steps "
+                             f"({launched} launched): launches {launches}")
     hop = ccfg.hop_length
     frames = 0
     for r in results:
@@ -2207,26 +2313,91 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
         frames += len(r.gen_frames)
     audio_s = frames / cfg.encodec_sr
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[main/{tag}] {batch} request(s) ({kv_cache} cache): {steps} "
-          f"decode steps, {frames} frames, {frames / wall:.2f} tokens/s, RTF "
+    print(f"[main/{tag}] {batch} request(s) ({kv_cache} cache, graphed): "
+          f"{steps} decode steps ({launched} step bodies launched), "
+          f"{frames} frames, {frames / wall:.2f} tokens/s, RTF "
           f"{audio_s / wall:.3f}x (audio s per wall s, decode+vocode "
           f"{wall:.2f}s), {1e3 * wall / steps:.2f} ms per step, launches "
           f"{launches}, peak {peak:.2f} GB allocated [{card}]")
     planned = [pipe.plan_request(r) for r in reqs]
     tx, p_max, _ = pipe.widths(planned)
-    return {"pipe": pipe, "tag": tag, "batch": batch, "launches": launches,
-            "steps": steps, "tokens_per_s": frames / wall,
-            "rtf": audio_s / wall, "step_ms": 1e3 * wall / steps,
-            "enc_lens": [len(p.text) for p in planned],
-            "gen_slab": max(pipe.frame_bucket(p) for p in planned),
-            "prefill_rows": batch * (p_max + 1), "cross_rows": batch * tx}
+    out = {"pipe": pipe, "tag": tag, "batch": batch, "launches": launches,
+           "steps": steps, "tokens_per_s": frames / wall,
+           "rtf": audio_s / wall, "step_ms": 1e3 * wall / steps,
+           "enc_lens": [len(p.text) for p in planned],
+           "gen_slab": max(pipe.frame_bucket(p) for p in planned),
+           "prefill_rows": batch * (p_max + 1), "cross_rows": batch * tx}
+    if ab:
+        with attn_mode(mode):
+            out["ab"] = graphed_vs_eager(pipe, reqs, dcfg, seed, tag, card)
+    return out
+
+
+def graphed_vs_eager(pipe, reqs, dcfg, seed: int, tag: str,
+                     card: str) -> dict:
+    """The main path's decode (prefill + steps, no vocoder) on the same
+    inputs, graphed (the bucket's session, captured by the main run) and
+    eager (``engine.decode_tokens``): the tokens must be equal; each one's
+    ms per step (wall less the prefill's, over the steps), the session's
+    capture ms and bytes."""
+    import dataclasses
+
+    from t5gemma_tts_tpu_torch.decode import engine
+
+    cfg = pipe.cfg
+    inputs, max_frames = planned_inputs(pipe, reqs)
+    dcfg = dataclasses.replace(dcfg, max_frames=max_frames)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        _, prefill_s = timed(lambda: engine.prefill(pipe.params, cfg, dcfg,
+                                                    *inputs))
+    graphed, graphed_s = timed(lambda: engine.graphed_decoder(cfg, dcfg)(
+        pipe.params, *inputs, seed))
+    session = engine.sessions()[-1]
+    eager, eager_s = timed(lambda: engine.decode_tokens(
+        pipe.params, cfg, dcfg, *inputs, seed))
+    if not (torch.equal(graphed.tokens, eager.tokens)
+            and torch.equal(graphed.gen_lens, eager.gen_lens)
+            and graphed.steps == eager.steps):
+        differ = (graphed.tokens != eager.tokens).nonzero()
+        raise AssertionError(f"{tag}: graphed tokens differ from eager at "
+                             f"(row, step) {differ[:8].tolist()}")
+    steps = eager.steps
+    res = dict(steps=steps, launched=graphed.launched_steps,
+               prefill_ms=1e3 * prefill_s,
+               eager_step_ms=1e3 * (eager_s - prefill_s) / steps,
+               graphed_step_ms=1e3 * (graphed_s - prefill_s) / steps,
+               capture_ms=session.capture_ms,
+               session_bytes=session.state_bytes,
+               pool_bytes=session.pool_bytes)
+    print(f"[graph/{tag}] {steps} steps, tokens equal graphed and eager; "
+          f"eager {res['eager_step_ms']:.3f} ms per step, graphed "
+          f"{res['graphed_step_ms']:.3f} ms per step "
+          f"({res['eager_step_ms'] / res['graphed_step_ms']:.2f}x; "
+          f"{graphed.launched_steps} bodies launched, prefill "
+          f"{res['prefill_ms']:.1f} ms taken off both), capture "
+          f"{session.capture_ms:.1f} ms, session {session.state_bytes / 1e9:.3f}"
+          f" GB of buffers + {session.pool_bytes / 1e9:.3f} GB graph pool "
+          f"[{card}]")
+    return res
 
 
 def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
-                  kv_cache: str = "paged", weights: str = "bf16") -> None:
+                  kv_cache: str = "paged", weights: str = "bf16") -> dict:
     """Device time by kernel over a prefill and ``steps`` decode steps of
-    the main path's batch (torch.profiler), and the device's idle share of
-    that wall time."""
+    the main path's batch (torch.profiler), graphed and eager, and the
+    device's idle share of each one's wall time. In the graphed window the
+    two-segment and v1 attention kernels' merge kernels seen by the
+    profiler must not exceed their wrappers' counts (a replay adds what its
+    capture recorded), nor be none where they count some; both are
+    printed. Returns each form's wall, busy and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from t5gemma_tts_tpu_torch.config import DecodeConfig
@@ -2243,53 +2414,81 @@ def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
     prompt_lens = torch.zeros((b,), dtype=torch.int32, device=dev)
     targets = torch.full((b,), 200, dtype=torch.int32, device=dev)
     dcfg = DecodeConfig(kv_cache=kv_cache, max_frames=steps)
+    args = (x, x_lens, prompt, prompt_lens, targets, 0)
+    forms = {"graphed": lambda: engine.graphed_decoder(cfg, dcfg)(
+                 pipe.params, *args),
+             "eager": lambda: engine.decode_tokens(pipe.params, cfg, dcfg,
+                                                   *args)}
+    res = {}
+    for form, decode in forms.items():
+        def run():
+            out = decode()
+            torch.cuda.synchronize()
+            return out
 
-    def run():
-        out = engine.decode_tokens(pipe.params, cfg, dcfg, x, x_lens, prompt,
-                                   prompt_lens, targets, 0)
-        torch.cuda.synchronize()
-        return out
-
-    run()
-    t0 = time.time()
-    run()
-    wall_ms = (time.time() - t0) * 1e3       # without the profiler's cost
-    # device activity only: the rows read are kernels, and recording every
-    # host op of a layer loop would add tens of seconds to the run
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if form == "graphed":
+            run()                    # the bucket's capture
+        t0 = time.time()
         run()
-    rows = []
-    for e in prof.key_averages():
-        # kernels only: a CPU op's row repeats the time of its kernels
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    # the union of the kernels' intervals: a kernel launched as a
-    # programmatic dependent starts before its primary ends, and the sum
-    # counts that overlap twice
-    union_us, end = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA):
-        if hi > end:
-            union_us += hi - max(lo, end)
-            end = hi
-    print(f"[profile] prefill + {steps} decode steps of the 2b-2b batch of "
-          f"{b} ({kv_cache} cache, {weights} weights): wall {wall_ms:.1f} ms "
-          f"(unprofiled), device busy {union_us / 1e3:.1f} ms (the union of "
-          f"the kernels' intervals; their sum {busy_ms:.1f} ms), idle share "
-          f"{1 - union_us / 1e3 / wall_ms:.3f} [{card}]")
-    if not rows:
-        print("[profile] torch.profiler recorded no device time")
-    for ms, count, key in rows[:12]:
-        print(f"[profile] {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% "
-              f"x{count:<6d} {key[:90]}")
+        wall_ms = (time.time() - t0) * 1e3   # without the profiler's cost
+        # device activity only: the rows read are kernels, and recording
+        # every host op of a layer loop would add tens of seconds to the run
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, _, launches = _counted(run)
+        rows = []
+        for e in prof.key_averages():
+            # kernels only: a CPU op's row repeats the time of its kernels
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = e.self_cuda_time_total
+            if dev_us > 0:
+                rows.append((dev_us / 1e3, e.count, e.key))
+        rows.sort(reverse=True)
+        busy_ms = sum(r[0] for r in rows)
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        # the union of the kernels' intervals: a kernel launched as a
+        # programmatic dependent starts before its primary ends, and the
+        # sum counts that overlap twice
+        union_us, end = 0.0, float("-inf")
+        for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                             for e in kernels):
+            if hi > end:
+                union_us += hi - max(lo, end)
+                end = hi
+        merges = sum("t5g_split" in e.name and "merge_kernel" in e.name
+                     for e in kernels)
+        counted = (launches["batch_paged_attention"]
+                   + launches["fused_decode_attention"])
+        # the profiler may drop a few events at the window's edges, but
+        # never adds any
+        if form == "graphed" and kernels and (
+                merges > counted or (counted and not merges)):
+            raise AssertionError(
+                f"profile {weights}: {merges} kernel 1/7 merge kernels ran in "
+                f"the graphed window, the wrappers counted {counted}")
+        idle = 1 - union_us / 1e3 / wall_ms
+        res[form] = dict(wall_ms=wall_ms, busy_ms=union_us / 1e3, idle=idle)
+        print(f"[profile] {form}: prefill + {steps} decode steps of the "
+              f"2b-2b batch of {b} ({kv_cache} cache, {weights} weights): "
+              f"wall {wall_ms:.1f} ms (unprofiled), device busy "
+              f"{union_us / 1e3:.1f} ms (the union of the kernels' "
+              f"intervals; their sum {busy_ms:.1f} ms), idle share "
+              f"{idle:.3f}; kernel 1/7 merges in the window {merges}, "
+              f"wrapper counts {counted} [{card}]")
+        if not rows:
+            print("[profile] torch.profiler recorded no device time")
+        for ms, count, key in rows[:12 if form == "graphed" else 6]:
+            print(f"[profile] {form} {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% "
+                  f"x{count:<6d} {key[:90]}")
+    print(f"[profile] {weights}: graphed wall {res['graphed']['wall_ms']:.1f}"
+          f" ms vs eager {res['eager']['wall_ms']:.1f} ms "
+          f"({res['eager']['wall_ms'] / res['graphed']['wall_ms']:.2f}x), "
+          f"idle share {res['graphed']['idle']:.3f} vs "
+          f"{res['eager']['idle']:.3f} [{card}]")
+    return res
 
 
 def n_params(tree) -> int:
@@ -2318,6 +2517,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from t5gemma_tts_tpu_torch.config import VoiceConfig
+    from t5gemma_tts_tpu_torch.decode import engine
     from t5gemma_tts_tpu_torch.ops import cuda_build
 
     card = card_line()
@@ -2349,6 +2549,9 @@ def main(argv=None) -> int:
     worst_fused = phase_fused_attention(card, args.iters)
     stamp("2 (kernels)")
     phase_reference()
+    phase_reference(kv_cache="dense")
+    phase_reference(sampled=True)
+    phase_segments()
     phase_reference(weights="int8", kv_cache="paged_i8")
     phase_reference(weights="int4", kv_cache="paged_i8")
     phase_spec_reference("int4", "paged")
@@ -2361,7 +2564,7 @@ def main(argv=None) -> int:
     stamp("3 (references)")
 
     main = phase_main_path(card, args.seed)
-    phase_profile(main["pipe"], card, main["enc_lens"])
+    prof = {"bf16": phase_profile(main["pipe"], card, main["enc_lens"])}
     timing = main_path_step_timing(
         card, prompt_len=1, gen_len=main["steps"] // 2,
         enc_lens=main["enc_lens"], gen_slab=main["gen_slab"],
@@ -2376,7 +2579,8 @@ def main(argv=None) -> int:
           f"{main['tokens_per_s']:.2f}; ms per step {main1['step_ms']:.2f} "
           f"vs {main['step_ms']:.2f} [{card}]")
     with attn_mode("1"):
-        phase_profile(pipe16, card, main1["enc_lens"], weights="bf16 mode 1")
+        prof["bf16 mode 1"] = phase_profile(pipe16, card, main1["enc_lens"],
+                                            weights="bf16 mode 1")
     fused_timing = fused_step_timing(
         card, prompt_len=1, gen_len=main1["steps"] // 2, batch=4,
         gen_slab=main1["gen_slab"], iters=step_iters)
@@ -2388,8 +2592,8 @@ def main(argv=None) -> int:
     stamp("4 and 4g (bf16)")
     main8 = phase_main_path(card, args.seed, "int8")
     worst8, prod8 = phase_products(card, main8, args.iters)
-    phase_profile(main8["pipe"], card, main8["enc_lens"], kv_cache="paged_i8",
-                  weights="int8")
+    prof["int8"] = phase_profile(main8["pipe"], card, main8["enc_lens"],
+                                 kv_cache="paged_i8", weights="int8")
     timing8 = quant_step_timing(main8["pipe"], card, main8["steps"],
                                 main8["enc_lens"], main8["gen_slab"],
                                 iters=step_iters)
@@ -2398,11 +2602,14 @@ def main(argv=None) -> int:
     # 4c: int4 at batch 1, against int8 at batch 1 on the same request, in
     # turns (int8, int4, int4, int8)
     pipe8 = main8.pop("pipe")
-    runs8 = [phase_main_path(card, args.seed, "int8", 1, pipe=pipe8)]
+    runs8 = [phase_main_path(card, args.seed, "int8", 1, pipe=pipe8,
+                             ab=False)]
     main4 = phase_main_path(card, args.seed, "int4", 1)
     pipe4 = main4.pop("pipe")
-    runs4 = [main4, phase_main_path(card, args.seed, "int4", 1, pipe=pipe4)]
-    runs8.append(phase_main_path(card, args.seed, "int8", 1, pipe=pipe8))
+    runs4 = [main4, phase_main_path(card, args.seed, "int4", 1, pipe=pipe4,
+                                    ab=False)]
+    runs8.append(phase_main_path(card, args.seed, "int8", 1, pipe=pipe8,
+                                 ab=False))
     # the int8 decode_stack and head at the int4 run's batch-1 shapes, so
     # that the two weight formats' layer times compare
     quant_step_timing(pipe8, card, main4["steps"], main4["enc_lens"],
@@ -2410,6 +2617,7 @@ def main(argv=None) -> int:
     for r in runs8 + runs4:
         r.pop("pipe", None)
     del pipe8
+    engine.release_sessions()
     torch.cuda.empty_cache()
 
     def pair(key, fmt):
@@ -2422,8 +2630,8 @@ def main(argv=None) -> int:
           f"{pair('rtf', '{:.3f}x')} [{card}]")
     worst4, prod4 = phase_products(card, dict(main4, pipe=pipe4),
                                    args.iters)
-    phase_profile(pipe4, card, main4["enc_lens"], kv_cache="paged_i8",
-                  weights="int4")
+    prof["int4 b1"] = phase_profile(pipe4, card, main4["enc_lens"],
+                                    kv_cache="paged_i8", weights="int4")
     timing4 = quant_step_timing(pipe4, card, main4["steps"],
                                 main4["enc_lens"], main4["gen_slab"],
                                 iters=step_iters)
@@ -2438,6 +2646,7 @@ def main(argv=None) -> int:
                                      iters=step_iters)
     spec4.pop("pipe")
     del pipe4
+    engine.release_sessions()
     torch.cuda.empty_cache()
 
     stamp("4d (speculative int4)")
@@ -2454,6 +2663,7 @@ def main(argv=None) -> int:
         enc_len=spec8["enc_lens"][0], gen_slab=spec8["gen_slab"],
         iters=step_iters)
     del pipe16
+    engine.release_sessions()
     torch.cuda.empty_cache()
 
     stamp("4e (bf16 over e4m3)")
@@ -2462,11 +2672,21 @@ def main(argv=None) -> int:
     main16 = phase_main_path(card, args.seed, "w8a16")
     worst_run16, prod16 = phase_w8a16_products(card, main16, args.iters)
     worst16 = max(worst16, worst_run16)
-    phase_profile(main16["pipe"], card, main16["enc_lens"], weights="w8a16")
+    prof["w8a16"] = phase_profile(main16["pipe"], card, main16["enc_lens"],
+                                  weights="w8a16")
     timing16 = w8a16_step_timing(main16.pop("pipe"), card, 4, step_iters)
+    engine.release_sessions()
     torch.cuda.empty_cache()
 
     stamp("4f (w8a16)")
+    # the graphed loop against the eager one, path by path
+    graph = {run["tag"]: dict(run["ab"], **{
+                 f"profile_{form}_{k}": v
+                 for form, r in prof[name].items() for k, v in r.items()})
+             for name, run in (("bf16", main), ("bf16 mode 1", main1),
+                               ("int8", main8), ("int4 b1", main4),
+                               ("w8a16", main16))}
+    print(f"[graph] {json.dumps(graph)}")
     src = "t5gemma_tts_tpu_torch/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -3,10 +3,8 @@
 Counterpart of ``t5gemma_tts_tpu/decode/engine.py``: text encoding, the
 cross K/V built once, prompt prefill into a dense or paged KV cache, and a
 loop that per step runs the prediction head, the guarded sampling and the
-stop rules, then the decoder on one token. Every piece of loop state is a
-[B] tensor on the device; the only host synchronisation per step is the
-all-done check that ends the loop. Stop-rule semantics (guard order and
-values) are those of the JAX engine:
+stop rules, then the decoder on one token. Stop-rule semantics (guard order
+and values) are those of the JAX engine:
 
   1. the first generated token can never be EOG (-1e9); steps up to
      sr // 5 suppress EOG at -10000;
@@ -15,31 +13,60 @@ values) are those of the JAX engine:
      logits is EOG;
   4. text-guard and target-duration budgets, and the buffer's end.
 
-Draws are step-indexed: the draws of step s come from a generator seeded
-from (seed, s) alone (:func:`step_generator`, the counterpart of the JAX
-engine's ``fold_in(rng, step)``), so any pass that samples step s -- the
-sequential loop or a speculative verify pass (decode/speculative.py) --
-draws the same numbers for each row. Greedy decoding (``top_k=1``) is
-token-equal to the JAX engine.
+The step body is the JAX body: every piece of loop state, the step counter
+included, is a device tensor, and every step-dependent rule is a ``where``
+on it, so the body reads nothing back to the host. It is predicated as
+JAX's ``cond`` is: a body run once every row is done, or at the buffer's
+end, leaves ``tokens``, ``gen_lens``, ``done`` and ``step`` as they were.
+
+Two ways to run the loop:
+
+- :func:`decode_tokens`, the eager loop (the counterpart of the un-jitted
+  JAX ``decode_tokens``): the body's ops launched one by one, and the
+  all-done flag read each step. Tests and A/B runs use it.
+- :func:`graphed_decoder` (the counterpart of ``jitted_decoder``) and
+  :func:`graphed_segment_fns` (of ``jitted_segment_fns``): on the card, the
+  step is captured once per shape bucket as a CUDA graph (the counterpart
+  of ``jax.jit`` + ``lax.while_loop``) and replayed; the host reads the
+  all-done flag a few replays late, through pinned memory and events, and
+  never waits on the step it just launched; the replays that it launches
+  past the end are no-ops by the predication. On the CPU they run the
+  eager loop, because the caller asked for the CPU. A capture or a replay
+  that fails raises: there is no eager fallback on the card.
+
+Draws are step-indexed: step s draws ``ops/sampling.step_uniform(seed, s,
+...)``, a counter-based hash of (seed, step, row, column) alone (the
+counterpart of the JAX engine's ``fold_in(rng, step)``), so any pass that
+samples step s -- the eager loop, a graph replay or a speculative verify
+pass (decode/speculative.py) -- draws the same numbers, on the CPU and on
+the card. Greedy decoding (``top_k=1``) is token-equal to the JAX engine.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
+import time
 from typing import Any, NamedTuple, Optional, Union
 
 import torch
 
 from ..config import DecodeConfig, VoiceConfig
 from ..models import t5gemma, voice
+from ..ops import fused_attn, megakernel, paged_attn, quant
 from ..ops import masks as mask_ops
-from ..ops import paged_attn
 from ..ops import rope as rope_ops
 from ..ops import sampling
 
 PyTree = Any
 INT32_MAX = 2 ** 31 - 1
-_U64 = 2 ** 64 - 1
+# Graph sessions kept, least recently used first out (the JAX engine keeps
+# 32 compiled programs; a session also holds its bucket's KV cache).
+MAX_SESSIONS = 8
+# Replays that the host keeps in flight past the newest all-done flag it
+# has read: the most no-op replays a finished decode can launch.
+LOOKAHEAD = 2
 
 
 def resolve_kv_mode(cfg: VoiceConfig, dcfg: DecodeConfig, prompt_len: int,
@@ -80,32 +107,45 @@ def decode_budgets(cfg: VoiceConfig, x_lens, prompt_lens, target_totals):
     return est_total, time_budget, text_budget
 
 
-def apply_stop_rules(cfg: VoiceConfig, token, argmax_tok, step: int,
+def silence_tensor(dcfg: DecodeConfig, device) -> Optional[torch.Tensor]:
+    """The silence tokens as an int32 device tensor (None without any),
+    built once per decode: a host-to-device copy has no place in a
+    captured step."""
+    if not dcfg.silence_tokens:
+        return None
+    return torch.tensor(dcfg.silence_tokens, dtype=torch.int32, device=device)
+
+
+def apply_stop_rules(cfg: VoiceConfig, token, argmax_tok, step,
                      text_budget, time_budget, max_steps: int):
     """Force-stop guard: EOG sampled or argmax, text budget, duration
-    budget, buffer exhaustion."""
+    budget, buffer exhaustion. ``step`` is an int or a 0-dim tensor."""
     eog = cfg.eog_inference
     force = (token == eog) | (argmax_tok == eog)
     force = force | (step > text_budget) | (step > time_budget)
-    if step >= max_steps - 1:
-        force = torch.ones_like(force)
+    force = force | (step >= max_steps - 1)
     return torch.where(force, eog, token)
 
 
-def silence_counter_update(dcfg: DecodeConfig, token, prev_token, consec):
-    """Consecutive-silence run-length bookkeeping."""
-    if dcfg.silence_tokens:
-        silence = torch.tensor(dcfg.silence_tokens, dtype=token.dtype,
-                               device=token.device)
-        is_sil = (token[:, None] == silence[None, :]).any(dim=1)
-        return torch.where(is_sil & (token == prev_token), consec + 1, 0)
-    return torch.zeros_like(consec)
+def silence_counter_update(silence: Optional[torch.Tensor], token,
+                           prev_token, consec):
+    """Consecutive-silence run-length bookkeeping (``silence`` from
+    :func:`silence_tensor`)."""
+    if silence is None:
+        return torch.zeros_like(consec)
+    is_sil = (token[:, None] == silence[None, :]).any(dim=1)
+    return torch.where(is_sil & (token == prev_token), consec + 1, 0)
 
 
 class DecodeOutputs(NamedTuple):
     tokens: torch.Tensor     # [B, max_steps] generated tokens (incl. EOG)
     gen_lens: torch.Tensor   # [B] generated tokens incl. EOG
-    steps: int               # loop iterations executed
+    steps: int               # loop iterations that advanced the step
+    # step bodies launched on the device for this decode: ``steps`` in the
+    # eager loop; with the graph also a first session's eager warm-up step
+    # and the no-op replays launched before the host read that every row
+    # was done (at most LOOKAHEAD)
+    launched_steps: int = 0
 
 
 @dataclasses.dataclass
@@ -113,7 +153,7 @@ class LoopState:
     cache: Union[t5gemma.DecoderCache, t5gemma.PagedDecoderCache]
     last_hidden: torch.Tensor      # [B, 1, D]
     tokens: torch.Tensor           # [B, max_steps] int32
-    step: int                      # == generated count (uniform clock)
+    step: torch.Tensor             # 0-dim int32 == generated count
     current_length: torch.Tensor   # [B] absolute length incl. BOS
     prev_token: torch.Tensor       # [B]
     consec_silence: torch.Tensor   # [B]
@@ -121,17 +161,43 @@ class LoopState:
     gen_lens: torch.Tensor         # [B]
 
 
-def _adjust_logits(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step: int,
-                   prev_token, consec_silence):
-    """EOG suppression + silence-repetition penalty on raw f32 logits."""
+@dataclasses.dataclass
+class StepInputs:
+    """A request's per-row inputs to the step body, as device tensors: a
+    graph session copies a new request's into its own."""
+
+    x_lens: torch.Tensor          # [B] int32
+    prompt_offset: torch.Tensor   # [B] int32, prompt length + BOS
+    est_total: torch.Tensor       # [B]
+    time_budget: torch.Tensor     # [B]
+    text_budget: torch.Tensor     # [B]
+    seed: torch.Tensor            # 0-dim int64
+
+
+def step_inputs(cfg: VoiceConfig, x_lens, prompt_lens, target_totals,
+                seed: Union[int, torch.Tensor]) -> StepInputs:
+    """A request's StepInputs: its budgets (:func:`decode_budgets`) and
+    its seed as a device tensor."""
+    x_lens = x_lens.to(torch.int32)
+    est_total, time_budget, text_budget = decode_budgets(
+        cfg, x_lens, prompt_lens, target_totals)
+    return StepInputs(
+        x_lens=x_lens, prompt_offset=(prompt_lens + 1).to(torch.int32),
+        est_total=est_total, time_budget=time_budget,
+        text_budget=text_budget,
+        seed=sampling.as_int64(seed, x_lens.device))
+
+
+def _adjust_logits(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
+                   prev_token, consec_silence, silence):
+    """EOG suppression + silence-repetition penalty on raw f32 logits
+    (``step`` a 0-dim tensor)."""
     eog = cfg.eog_inference
     logits = logits.clone()
-    if step == 0:
-        logits[:, eog] = -1e9
-    elif step <= int(cfg.encodec_sr) // 5:
-        logits[:, eog] = -10000.0
-    if dcfg.stop_repetition > 0 and dcfg.silence_tokens:
-        silence = torch.tensor(dcfg.silence_tokens, device=logits.device)
+    col = torch.where(step <= int(cfg.encodec_sr) // 5, -10000.0,
+                      logits[:, eog])
+    logits[:, eog] = torch.where(step == 0, -1e9, col)
+    if dcfg.stop_repetition > 0 and silence is not None:
         is_silence = (prev_token[:, None] == silence[None, :]).any(dim=1)
         active = is_silence & (consec_silence > dcfg.stop_repetition)
         factor = (consec_silence - (dcfg.stop_repetition - 1)).float()
@@ -225,7 +291,7 @@ def prefill(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens,
         cache=cache,
         last_hidden=last_hidden,
         tokens=torch.full((b, max_steps), s.pad, dtype=torch.int32, device=dev),
-        step=0,
+        step=torch.zeros((), dtype=torch.int32, device=dev),
         current_length=cated_lens.to(torch.int32),
         prev_token=torch.full((b,), -1, dtype=torch.int32, device=dev),
         consec_silence=torch.zeros((b,), dtype=torch.int32, device=dev),
@@ -239,9 +305,8 @@ def prefill(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens,
 # ---------------------------------------------------------------------------
 
 
-def _candidate_sample(cfg: VoiceConfig, dcfg: DecodeConfig, logits,
-                      step: int, prev_token, consec_silence,
-                      generator: Optional[torch.Generator]):
+def _candidate_sample(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
+                      prev_token, consec_silence, seed, silence):
     """Top-(k+2) candidate path: every adjustment lowers at most two tokens
     (EOG + the repeated silence token), so the adjusted top-k lies inside
     the raw top-(k+2) candidates."""
@@ -250,12 +315,10 @@ def _candidate_sample(cfg: VoiceConfig, dcfg: DecodeConfig, logits,
     vals, idx = torch.topk(logits, kk, dim=-1)
     vals = vals.float()
     is_eog = idx == eog
-    if step == 0:
-        vals = torch.where(is_eog, -1e9, vals)
-    elif step <= int(cfg.encodec_sr) // 5:
-        vals = torch.where(is_eog, -10000.0, vals)
-    if dcfg.stop_repetition > 0 and dcfg.silence_tokens:
-        silence = torch.tensor(dcfg.silence_tokens, device=logits.device)
+    vals = torch.where(is_eog & (step <= int(cfg.encodec_sr) // 5),
+                       -10000.0, vals)
+    vals = torch.where(is_eog & (step == 0), -1e9, vals)
+    if dcfg.stop_repetition > 0 and silence is not None:
         prev_is_sil = (prev_token[:, None] == silence[None, :]).any(dim=1)
         active = prev_is_sil & (consec_silence > dcfg.stop_repetition)
         factor = (consec_silence - (dcfg.stop_repetition - 1)).float()
@@ -264,81 +327,83 @@ def _candidate_sample(cfg: VoiceConfig, dcfg: DecodeConfig, logits,
                           vals / factor.clamp_min(1.0)[:, None])
         vals = torch.where(at_prev & active[:, None], pen, vals)
     argmax_tok = torch.gather(idx, 1, vals.argmax(dim=-1, keepdim=True))[:, 0]
+    uniforms = sampling.step_uniform(seed, step, *vals.shape, logits.device)
     token = sampling.sample_from_candidates(
-        generator, vals, idx, top_k=dcfg.top_k, top_p=dcfg.top_p,
+        uniforms, vals, idx, top_k=dcfg.top_k, top_p=dcfg.top_p,
         temperature=dcfg.temperature)
     return token, argmax_tok.to(torch.int32)
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of decode step ``step``: seeded from (seed, step)
-    alone, so its draws do not depend on which pass samples the step. The
-    pair is mixed by splitmix64, so that every bit of the 64-bit seed (the
-    CPU generator reads only the low 32) depends on both."""
-    z = ((((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
-         + 0x9E3779B97F4A7C15) & _U64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _U64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _U64
-    return torch.Generator(device=device).manual_seed(z ^ (z >> 31))
-
-
-def sample_step_token(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step: int,
-                      prev_token, consec_silence, seed: int):
+def sample_step_token(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
+                      prev_token, consec_silence, seed,
+                      silence: Optional[torch.Tensor] = None):
     """One step's guarded sampling -> (token [B], argmax_tok [B]), drawn
-    from :func:`step_generator` (seed, step)."""
-    generator = step_generator(seed, step, logits.device)
+    from ``sampling.step_uniform(seed, step, ...)``. ``step`` and ``seed``
+    are ints or 0-dim device tensors; ``silence`` comes from
+    :func:`silence_tensor`."""
+    step = sampling.as_int64(step, logits.device)
     if dcfg.top_k and dcfg.top_k > 0 and not (0.0 < dcfg.min_p < 1.0):
         return _candidate_sample(cfg, dcfg, logits, step, prev_token,
-                                 consec_silence, generator)
+                                 consec_silence, seed, silence)
     adjusted = _adjust_logits(cfg, dcfg, logits.float(), step, prev_token,
-                              consec_silence)
-    token = sampling.sample(adjusted, generator, top_k=dcfg.top_k,
+                              consec_silence, silence)
+    uniforms = sampling.step_uniform(seed, step, *adjusted.shape,
+                                     logits.device)
+    token = sampling.sample(adjusted, uniforms, top_k=dcfg.top_k,
                             top_p=dcfg.top_p, min_p=dcfg.min_p,
                             temperature=dcfg.temperature)
     return token, sampling.greedy(adjusted)
 
 
-def _make_body(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x_lens,
-               prompt_lens, target_totals, seed: int):
+def _make_body(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig,
+               inp: StepInputs):
+    """The loop body (JAX ``engine.py::_make_body``): LoopState -> the next
+    LoopState, with the caches written in place. It reads no device value
+    on the host, so a CUDA graph captures it; past the buffer's end or once
+    every row is done it leaves ``tokens``, ``gen_lens``, ``done`` and
+    ``step`` unchanged."""
     s = cfg.special
     eog = cfg.eog_inference
     dims = cfg.backbone.decoder
     cdt = voice.compute_dtype(cfg)
     max_steps = dcfg.max_frames
-    prompt_offset = (prompt_lens + 1).to(torch.int32)
-    x_lens = x_lens.to(torch.int32)
-    est_total, time_budget, text_budget = decode_budgets(
-        cfg, x_lens, prompt_lens, target_totals)
+    silence = silence_tensor(dcfg, inp.x_lens.device)
 
     def body(st: LoopState) -> LoopState:
+        step = st.step
         paged = isinstance(st.cache, t5gemma.PagedDecoderCache)
+        go = (step < max_steps) & ~st.done.all()
         logits = voice.predict_head(params["head"], st.last_hidden)[:, 0]
         token, argmax_tok = sample_step_token(
-            cfg, dcfg, logits, st.step, st.prev_token, st.consec_silence,
-            seed)
-        token = apply_stop_rules(cfg, token, argmax_tok, st.step,
-                                 text_budget, time_budget, max_steps)
+            cfg, dcfg, logits, step, st.prev_token, st.consec_silence,
+            inp.seed, silence)
+        token = apply_stop_rules(cfg, token, argmax_tok, step,
+                                 inp.text_budget, inp.time_budget, max_steps)
 
-        newly_active = ~st.done
-        st.tokens[:, st.step] = torch.where(newly_active, token, s.pad)
+        newly_active = ~st.done & go
+        col = step.clamp_max(st.tokens.shape[1] - 1).long().reshape(1)
+        write = torch.where(~st.done, token, s.pad)
+        kept = st.tokens.index_select(1, col)[:, 0]
+        st.tokens.index_copy_(1, col, torch.where(go, write, kept)[:, None])
         stopped = newly_active & (token == eog)
         now_done = st.done | stopped
-        gen_lens = torch.where(stopped, st.step + 1, st.gen_lens)
-        consec = silence_counter_update(dcfg, token, st.prev_token,
+        gen_lens = torch.where(stopped, step + 1, st.gen_lens)
+        consec = silence_counter_update(silence, token, st.prev_token,
                                         st.consec_silence)
 
         emb = voice.embed_audio(params, token[:, None]).to(cdt)
         if cfg.use_pm_rope:
             pos = rope_ops.decode_step_position(
-                st.current_length, est_total, cfg.progress_scale)[:, None]
+                st.current_length, inp.est_total,
+                cfg.progress_scale)[:, None]
         else:
             pos = st.current_length.float()[:, None]
         pm = pos if cfg.use_pm_rope else None
         if paged:
             hidden, cache = t5gemma.paged_decode_step(
                 params["decoder"], dims, inputs_embeds=emb, position_ids=pos,
-                pm_decoder_positions=pm, cache=st.cache, step=st.step,
-                prompt_lengths=prompt_offset, enc_lengths=x_lens)
+                pm_decoder_positions=pm, cache=st.cache, step=step,
+                prompt_lengths=inp.prompt_offset, enc_lengths=inp.x_lens)
         else:
             t_max = st.cache.self_k.shape[3]
             t_enc = st.cache.cross_k.shape[3]
@@ -348,22 +413,29 @@ def _make_body(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x_lens,
                     st.current_length, t_max),
                 self_sliding_bias=mask_ops.step_self_bias(
                     st.current_length, t_max, window=dims.sliding_window),
-                cross_bias=mask_ops.cross_bias(x_lens, 1, t_enc),
+                cross_bias=mask_ops.cross_bias(inp.x_lens, 1, t_enc),
                 position_ids=pos, pm_decoder_positions=pm,
                 cross_k=st.cache.cross_k, cross_v=st.cache.cross_v,
                 cache=st.cache, cache_pos=st.current_length.long())
         current_length = torch.where(now_done, st.current_length,
                                      st.current_length + 1)
         return LoopState(cache=cache, last_hidden=hidden, tokens=st.tokens,
-                         step=st.step + 1, current_length=current_length,
-                         prev_token=token, consec_silence=consec,
-                         done=now_done, gen_lens=gen_lens)
+                         step=step + go.to(step.dtype),
+                         current_length=current_length, prev_token=token,
+                         consec_silence=consec, done=now_done,
+                         gen_lens=gen_lens)
 
     return body
 
 
+def _outputs(state: LoopState, steps: int, launched: int) -> DecodeOutputs:
+    gen_lens = torch.where(state.done, state.gen_lens, state.step)
+    return DecodeOutputs(tokens=state.tokens, gen_lens=gen_lens, steps=steps,
+                         launched_steps=launched)
+
+
 # ---------------------------------------------------------------------------
-# full decode
+# the eager loop
 # ---------------------------------------------------------------------------
 
 
@@ -372,14 +444,299 @@ def decode_tokens(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x,
                   x_lens, prompt, prompt_lens, target_totals,
                   seed: int) -> DecodeOutputs:
     """Full batched synthesis of audio tokens (all inputs int32 tensors on
-    the device where the model runs); step s draws from
-    :func:`step_generator` (``seed``, s)."""
+    the device where the model runs), eagerly: the all-done flag is read
+    each step. Step s draws ``sampling.step_uniform(seed, s, ...)``;
+    :func:`graphed_decoder` is the served form."""
     state = prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
                     target_totals)
-    body = _make_body(params, cfg, dcfg, x_lens, prompt_lens, target_totals,
-                      seed)
-    while state.step < dcfg.max_frames and not bool(state.done.all()):
+    body = _make_body(params, cfg, dcfg, step_inputs(
+        cfg, x_lens, prompt_lens, target_totals, seed))
+    steps = 0
+    while steps < dcfg.max_frames and not bool(state.done.all()):
         state = body(state)
-    gen_lens = torch.where(state.done, state.gen_lens, state.step)
-    return DecodeOutputs(tokens=state.tokens, gen_lens=gen_lens,
-                         steps=state.step)
+        steps += 1
+    return _outputs(state, steps, steps)
+
+
+@torch.inference_mode()
+def run_segment(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig,
+                state: LoopState, x_lens, prompt_lens, target_totals, seed,
+                until) -> LoopState:
+    """Advance the decode loop while ``step < until`` (and the buffer has
+    room and a row is active), with the semantics of the corresponding
+    slice of :func:`decode_tokens` (JAX ``engine.py::run_segment``): the
+    block that streaming synthesis is built on. On the CPU the body runs
+    eagerly. On the card ``state`` must come from the prefill of
+    :func:`graphed_segment_fns` (a graph session's state), and the segment
+    replays the session's captured step; returns ``state``, advanced."""
+    until = int(until)
+    if state.tokens.device.type == "cuda":
+        session = next((ses for ses in _SESSIONS.values()
+                        if ses.state is state), None)
+        if session is None or session.params is not params:
+            raise ValueError(
+                "on the card run_segment advances the state that the prefill "
+                "of graphed_segment_fns returned, with the same params")
+        session.set_inputs(step_inputs(cfg, x_lens, prompt_lens,
+                                       target_totals, seed))
+        session.advance(until)
+        return state
+    body = _make_body(params, cfg, dcfg, step_inputs(
+        cfg, x_lens, prompt_lens, target_totals, seed))
+    end = min(until, dcfg.max_frames)
+    while int(state.step) < end and not bool(state.done.all()):
+        state = body(state)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# the graphed loop: one captured step per shape bucket
+# ---------------------------------------------------------------------------
+
+
+def _counted_wrappers():
+    """Every kernel wrapper that counts its launches in ``.launches``."""
+    return (fused_attn.batch_paged_attention,
+            fused_attn.fused_decode_attention, paged_attn.paged_flash_parts,
+            megakernel.decode_layer, megakernel.decode_stack,
+            quant.quantize_act, quant.w8a8_matmul, quant.w4a8_matmul,
+            quant.w8a16_matmul)
+
+
+def _tensors(obj):
+    """(name, tensor) of a LoopState / StepInputs / cache, depth first."""
+    if isinstance(obj, torch.Tensor):
+        yield "", obj
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            for name, t in _tensors(obj[k]):
+                yield f"{k}.{name}", t
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            for name, t in _tensors(getattr(obj, f.name)):
+                yield f"{f.name}.{name}", t
+
+
+def _copy_into(dst, src) -> None:
+    """Copy every tensor of ``src`` into the same-shaped tensor of ``dst``
+    (a LoopState, StepInputs or cache)."""
+    for (dn, d), (sn, s) in zip(_tensors(dst), _tensors(src), strict=True):
+        if dn != sn or d.shape != s.shape:
+            raise ValueError(f"session buffer {dn} {tuple(d.shape)} cannot "
+                             f"take {sn} {tuple(s.shape)}")
+        d.copy_(s)
+
+
+def _clone(obj):
+    """A copy of a LoopState / StepInputs with every tensor cloned."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, dict):
+        return {k: _clone(v) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _clone(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+class _Session:
+    """One shape bucket's graphed decode loop: static state and input
+    buffers (the KV cache, the LoopState, the request's StepInputs), the
+    step captured over them as a CUDA graph, and the host's read of the
+    all-done flag. A new request writes into the buffers with ``copy_``."""
+
+    def __init__(self, params, cfg: VoiceConfig, dcfg: DecodeConfig,
+                 state: LoopState, inp: StepInputs):
+        self.params, self.cfg, self.dcfg = params, cfg, dcfg
+        self.state, self.inp = _clone(state), _clone(inp)
+        dev = state.tokens.device
+        self.finished = torch.zeros((), dtype=torch.bool, device=dev)
+        self.flags = torch.zeros((LOOKAHEAD + 1,), dtype=torch.bool,
+                                 pin_memory=True)
+        self.events = [torch.cuda.Event() for _ in range(LOOKAHEAD + 1)]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launch_delta = ()
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
+        self.issued = 0          # replays since the request's prefill
+        self.launched = 0        # step bodies launched for this request
+        self.ended = False       # the host has read the all-done flag
+        self.body = None
+
+    @property
+    def state_bytes(self) -> int:
+        """Bytes of the session's buffers (the KV cache dominates)."""
+        return sum(t.numel() * t.element_size()
+                   for obj in (self.state, self.inp)
+                   for _, t in _tensors(obj))
+
+    def _step(self) -> None:
+        new = self.body(self.state)
+        st = self.state
+        for name in ("last_hidden", "step", "current_length", "prev_token",
+                     "consec_silence", "done", "gen_lens"):
+            getattr(st, name).copy_(getattr(new, name))
+        self.finished.copy_((st.step >= self.dcfg.max_frames)
+                            | st.done.all())
+
+    def capture(self) -> None:
+        """One eager warm-up step (the kernels' first-call work: builds,
+        attributes, workspaces), then the capture, both on a stream of the
+        session's own, so that a capture that fails leaves no other stream
+        in capture mode. The capture launches nothing: the wrappers' counts
+        move by what it recorded only when a replay launches it."""
+        self.body = _make_body(self.params, self.cfg, self.dcfg, self.inp)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            self._step()
+        wrappers = _counted_wrappers()
+        before = [w.launches for w in wrappers]
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin()
+                try:
+                    self._step()
+                finally:
+                    graph.capture_end()
+        finally:
+            delta = [w.launches - n for w, n in zip(wrappers, before)]
+            for w, n in zip(wrappers, before):
+                w.launches = n
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.launch_delta = tuple((w, d) for w, d in zip(wrappers, delta)
+                                  if d)
+        self.graph = graph
+
+    def load(self, state: LoopState, inp: StepInputs) -> None:
+        """A new request: its prefilled state and inputs into the
+        buffers."""
+        _copy_into(self.state, state)
+        self.set_inputs(inp)
+        self.issued = self.launched = 0
+        self.ended = False
+
+    def set_inputs(self, inp: StepInputs) -> None:
+        _copy_into(self.inp, inp)
+
+    def advance(self, until: int) -> None:
+        """Replay the step until ``until`` replays since the prefill (the
+        buffer's end at most), or until the host reads that the loop's
+        condition failed; at most LOOKAHEAD replays are in flight past the
+        newest flag read."""
+        end = min(until, self.dcfg.max_frames)
+        in_flight = collections.deque()
+        slot = 0
+        while not self.ended and self.issued < end:
+            self.graph.replay()
+            self.issued += 1
+            self.launched += 1
+            for wrapper, n in self.launch_delta:
+                wrapper.launches += n
+            self.flags[slot].copy_(self.finished, non_blocking=True)
+            self.events[slot].record()
+            in_flight.append(slot)
+            slot = (slot + 1) % len(self.events)
+            if len(in_flight) > LOOKAHEAD:
+                oldest = in_flight.popleft()
+                self.events[oldest].synchronize()
+                self.ended = bool(self.flags[oldest])
+
+    def outputs(self) -> DecodeOutputs:
+        out = _outputs(self.state, int(self.state.step), self.launched)
+        return out._replace(tokens=out.tokens.clone())
+
+
+_SESSIONS: "collections.OrderedDict[tuple, _Session]" = (
+    collections.OrderedDict())
+
+
+def release_sessions() -> None:
+    """Drop every graph session (their graphs, caches and the references
+    to their params)."""
+    _SESSIONS.clear()
+
+
+def sessions() -> list:
+    """The live graph sessions, least recently used first (for reports:
+    ``capture_ms``, ``state_bytes``, ``pool_bytes``, ``launched``)."""
+    return list(_SESSIONS.values())
+
+
+def _session(params, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens, prompt,
+             prompt_lens, target_totals, seed) -> _Session:
+    """Prefill eagerly, then load the result into the bucket's session
+    (made and captured on first use)."""
+    state = prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
+                    target_totals)
+    inp = step_inputs(cfg, x_lens, prompt_lens, target_totals, seed)
+    # the capture bakes in the shapes (with cfg and dcfg they fix the KV
+    # mode), the attention mode and the params' addresses; a session keeps
+    # its params alive, so their id is not reused while it lives
+    key = (cfg, dcfg, *x.shape, prompt.shape[1],
+           os.environ.get("T5G_FUSED_ATTN", "3"), id(params), x.device)
+    session = _SESSIONS.get(key)
+    if session is not None:
+        _SESSIONS.move_to_end(key)
+        session.load(state, inp)
+        return session
+    session = _Session(params, cfg, dcfg, state, inp)
+    session.capture()
+    session.load(state, inp)
+    session.launched = 1         # the capture's warm-up step ran this request
+    _SESSIONS[key] = session
+    while len(_SESSIONS) > MAX_SESSIONS:
+        _SESSIONS.popitem(last=False)
+    return session
+
+
+def graphed_decoder(cfg: VoiceConfig, dcfg: DecodeConfig):
+    """The served entry point (JAX ``engine.py::jitted_decoder``):
+    ``run(params, x, x_lens, prompt, prompt_lens, target_totals, seed) ->
+    DecodeOutputs``. On the card: an eager prefill into the bucket's
+    session, then replays of its captured step; on the CPU:
+    :func:`decode_tokens`."""
+
+    @torch.inference_mode()
+    def run(params, x, x_lens, prompt, prompt_lens, target_totals, seed):
+        if x.device.type != "cuda":
+            return decode_tokens(params, cfg, dcfg, x, x_lens, prompt,
+                                 prompt_lens, target_totals, seed)
+        session = _session(params, cfg, dcfg, x, x_lens, prompt,
+                           prompt_lens, target_totals, seed)
+        session.advance(dcfg.max_frames)
+        return session.outputs()
+
+    return run
+
+
+def graphed_segment_fns(cfg: VoiceConfig, dcfg: DecodeConfig):
+    """(prefill_fn, segment_fn) for streaming decode (JAX
+    ``engine.py::jitted_segment_fns``): ``prefill_fn(params, x, x_lens,
+    prompt, prompt_lens, target_totals) -> LoopState`` and
+    ``segment_fn(params, state, x_lens, prompt_lens, target_totals, seed,
+    until) -> LoopState`` (:func:`run_segment`). On the card the state is
+    the bucket's session state, advanced by replays of the captured step."""
+
+    @torch.inference_mode()
+    def prefill_fn(params, x, x_lens, prompt, prompt_lens, target_totals):
+        if x.device.type != "cuda":
+            return prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
+                           target_totals)
+        return _session(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
+                        target_totals, 0).state
+
+    def segment_fn(params, state, x_lens, prompt_lens, target_totals, seed,
+                   until):
+        return run_segment(params, cfg, dcfg, state, x_lens, prompt_lens,
+                           target_totals, seed, until)
+
+    return prefill_fn, segment_fn

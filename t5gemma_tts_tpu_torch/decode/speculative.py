@@ -8,7 +8,7 @@ accepted.
 
 - Exactness by construction: every token is sampled with the engine's own
   ``sample_step_token`` at its absolute step, whose draws depend only on
-  (seed, step) (``engine.step_generator``). A token sampled at step s from
+  (seed, step) (``ops/sampling.step_uniform``). A token sampled at step s from
   the same logits is the same whether the sequential loop or a verify pass
   draws it, so the draft changes how many passes the stream takes, not the
   stream. The verify pass sums otherwise than the sequential step (the
@@ -152,18 +152,19 @@ def decode_tokens_speculative(params: PyTree, cfg: VoiceConfig,
     est_total, time_budget, text_budget = engine.decode_budgets(
         cfg, x_lens, prompt_lens, target_totals)
     offs = torch.arange(k + 1, dtype=torch.int32, device=dev)[None, :]
+    silence = engine.silence_tensor(dcfg, dev)
 
     def guarded_token(logits, step, prev, consec):
         """sample + the engine's force-stop rules at absolute ``step``."""
         token, argmax_tok = engine.sample_step_token(
-            cfg, dcfg, logits, step, prev, consec, seed)
+            cfg, dcfg, logits, step, prev, consec, seed, silence)
         return engine.apply_stop_rules(cfg, token, argmax_tok, step,
                                        text_budget, time_budget, max_steps)
 
     def chain_update(token, prev, consec, done):
         """(prev token, silence counter, done) after emitting ``token``."""
         now_done = done | (~done & (token == eog))
-        return (token, engine.silence_counter_update(dcfg, token, prev,
+        return (token, engine.silence_counter_update(silence, token, prev,
                                                      consec), now_done)
 
     tokens, step, passes = st.tokens, 0, 0

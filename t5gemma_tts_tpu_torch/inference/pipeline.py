@@ -5,7 +5,10 @@ target length (prompt + codec_sr * target_secs), batched decode, sep/EOG
 stripping, codec decode and the ``[Speed]`` report. Text, prompt and
 generation buffers are padded to the same buckets as the JAX package, so a
 request decodes over the same shapes. PyTorch compiles nothing, so there is
-no warm-shape routing and no padding rows. ``int8=True`` serves with W8A8
+no warm-shape routing and no padding rows. The decode serves through
+``engine.graphed_decoder``: on the card one captured CUDA graph of the step
+per shape bucket, replayed (the JAX pipeline serves through
+``jitted_decoder``); on the CPU the eager loop. ``int8=True`` serves with W8A8
 decode weights (``ops/quant.quantize_params_for_decode``), whose paged decode
 steps run through the decode-layer kernels; ``int4=True`` is the batch-1
 latency mode: the six decode-layer products and the head's ``w2`` become
@@ -50,6 +53,7 @@ class SynthesisResult:
     rtf: float                        # audio seconds per wall second
     inference_time: float
     steps: int = 0                    # decode-loop iterations of the batch
+    launched_steps: int = 0           # step bodies the device ran for it
 
 
 @dataclasses.dataclass
@@ -202,10 +206,11 @@ class TTSPipeline:
             return torch.from_numpy(a).to(dev)
 
         stime = time.time()
-        out = engine.decode_tokens(
-            self.params, cfg, dataclasses.replace(dcfg, max_frames=max_frames),
-            dev_i32(x), dev_i32(x_lens), dev_i32(prm), dev_i32(prm_lens),
-            dev_i32(targets), dcfg.seed if seed is None else seed)
+        decode = engine.graphed_decoder(
+            cfg, dataclasses.replace(dcfg, max_frames=max_frames))
+        out = decode(self.params, dev_i32(x), dev_i32(x_lens), dev_i32(prm),
+                     dev_i32(prm_lens), dev_i32(targets),
+                     dcfg.seed if seed is None else seed)
         tokens = out.tokens.cpu().numpy()
         gen_lens = out.gen_lens.cpu().numpy()
         elapsed = time.time() - stime
@@ -232,7 +237,8 @@ class TTSPipeline:
                 gen_frames=g, concat_frames=concat,
                 tokens_per_sec=len(g) / per_utt_time if per_utt_time else 0.0,
                 rtf=(len(g) / sr) / per_utt_time if per_utt_time else 0.0,
-                inference_time=per_utt_time, steps=out.steps))
+                inference_time=per_utt_time, steps=out.steps,
+                launched_steps=out.launched_steps))
         if not quiet:
             print(f"[Speed] {total_tokens / elapsed:.2f} tokens/s | "
                   f"RTF: {total_tokens / sr / elapsed:.2f}x | Generated "

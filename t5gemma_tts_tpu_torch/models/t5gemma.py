@@ -498,18 +498,33 @@ def paged_prefill(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     return rms_norm(h, params["final_norm"], eps), cache
 
 
-def _flush_block(buf, pending, scale_buf, start: int):
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` viewed as the integer dtype of its element size (an
+    ``index_copy_`` then moves bytes, whatever the page dtype)."""
+    return t.view({1: torch.int8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()])
+
+
+def _write_slots(buf, block, start):
+    """``buf[:, :, start:start + S] = block``, written by ``index_copy_``:
+    ``start`` (an int or a 0-dim device tensor) stays on the device, so the
+    host reads nothing (a CUDA graph captures it)."""
+    idx = torch.arange(block.shape[2], device=buf.device) + start
+    _bits(buf).index_copy_(2, idx, _bits(block))
+
+
+def _flush_block(buf, pending, scale_buf, start):
     """Write a pending [L, B, S, Hkv, hd] bf16 block into gen slots
     start .. start + S - 1 (int8 pages: quantized per token, with its
-    scale-plane block)."""
+    scale-plane block); ``start`` an int or a 0-dim device tensor."""
     hkv, lb, _, hd = buf.shape
     s_len = pending.shape[2]
     if scale_buf is not None:
         pending, sc = fused_attn.quantize_kv(pending)
-        scale_buf[:, :, start:start + s_len] = sc.permute(3, 0, 1, 2).reshape(
-            hkv, lb, s_len)
-    buf[:, :, start:start + s_len] = pending.permute(3, 0, 1, 2, 4).reshape(
-        hkv, lb, s_len, hd).to(buf.dtype)
+        _write_slots(scale_buf, sc.permute(3, 0, 1, 2).reshape(
+            hkv, lb, s_len), start)
+    _write_slots(buf, pending.permute(3, 0, 1, 2, 4).reshape(
+        hkv, lb, s_len, hd).to(buf.dtype), start)
 
 
 def _fused_attn_mode(cache: PagedDecoderCache) -> int:
@@ -541,18 +556,22 @@ def _fused_attn_mode(cache: PagedDecoderCache) -> int:
 
 def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
                       position_ids, pm_decoder_positions,
-                      cache: PagedDecoderCache, step: int, prompt_lengths,
+                      cache: PagedDecoderCache, step, prompt_lengths,
                       enc_lengths):
     """One decode step over the paged cache.
 
-    Flushes the previous step's pending K/V into gen slot max(step - 1, 0)
-    (on the first step slot 0 gets zeros, invisible at gen length 0), then
+    ``step`` is an int or a 0-dim int32 device tensor (the engine's step
+    counter: then the step reads nothing on the host, and a CUDA graph
+    captures it). Flushes the previous step's pending K/V into gen slot
+    max(step - 1, 0) (on the first step slot 0 gets zeros, invisible at gen
+    length 0) at a device index, then
     runs the layers: self-attention over the prompt pages, the ``step``
     generated tokens and the in-flight token (unrounded), and
     cross-attention over the encoder pages, through the kernels of the
     attention mode (:func:`_fused_attn_mode`; by default one
     ``batch_paged_attention`` call each). The new token's K/V become the
-    pending block (bf16). ``prompt_lengths``/``enc_lengths`` are int32 [B].
+    pending block (bf16, written into ``cache.pending_k/v`` in place).
+    ``prompt_lengths``/``enc_lengths`` are int32 [B].
 
     In mode 3, when ``megakernel.supports`` the decoder's (W8A8 or int4)
     layers and the pages (bf16 or int8; float8 pages take the loop), one
@@ -563,12 +582,14 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     h = _embed_scale(inputs_embeds, dims)
     cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
                                           dims)
-    slot = max(step - 1, 0)
+    if not isinstance(step, torch.Tensor):
+        step = torch.full((), step, dtype=torch.int32, device=h.device)
+    slot = (step - 1).clamp_min(0)
     _flush_block(cache.gen_k, cache.pending_k[:, :, None], cache.gen_k_scale,
                  slot)
     _flush_block(cache.gen_v, cache.pending_v[:, :, None], cache.gen_v_scale,
                  slot)
-    gen_lengths = torch.full((b,), step, dtype=torch.int32, device=h.device)
+    gen_lengths = step.to(torch.int32).reshape(1).expand(b).contiguous()
     mode = _fused_attn_mode(cache)
     if mode == 3:
         if megakernel.supports(params["layers"], dims, cache):
@@ -642,8 +663,8 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         k_new.append(k[:, :, 0])
         v_new.append(v[:, :, 0])
     h = rms_norm(h, params["final_norm"], eps)
-    cache.pending_k = torch.stack(k_new).to(torch.bfloat16)
-    cache.pending_v = torch.stack(v_new).to(torch.bfloat16)
+    cache.pending_k.copy_(torch.stack(k_new))
+    cache.pending_v.copy_(torch.stack(v_new))
     return h, cache
 
 
@@ -798,8 +819,8 @@ def _decode_step_stacked(params, dims, h, cos, sin, q_cos, q_sin, cache,
         gen_k=cache.gen_k, gen_v=cache.gen_v, cross_k=cache.cross_k,
         cross_v=cache.cross_v, kv_scales=kv_scales)
     h3 = rms_norm(h3, params["final_norm"], dims.rms_norm_eps)
-    cache.pending_k = k_new.to(torch.bfloat16)
-    cache.pending_v = v_new.to(torch.bfloat16)
+    cache.pending_k.copy_(k_new)
+    cache.pending_v.copy_(v_new)
     return h3[:, None, :].to(h.dtype), cache
 
 

@@ -3,19 +3,73 @@
 Counterpart of ``t5gemma_tts_tpu/ops/sampling.py`` with the same filtering
 semantics (top-k keeps ties at the threshold, top-p keeps the first token
 that crosses it, min-p is active only when every row keeps a survivor and
-then bypasses top-k/top-p). The draw takes its randomness from an explicit
-``torch.Generator`` (Gumbel-max, like ``jax.random.categorical``); JAX's
-threefry stream has no torch counterpart, so draws are held to the JAX
-package by their distribution and greedy paths by token equality.
+then bypasses top-k/top-p). The draw is Gumbel-max, like
+``jax.random.categorical``, over uniforms that the caller passes in.
+
+The decode engine's uniforms come from :func:`step_uniform`, a
+counter-based hash of (seed, step, row, column) computed in integer tensor
+ops (the counterpart of JAX's ``fold_in(rng, step)``): no generator state,
+so a CUDA graph captures it with the seed and the step in device tensors,
+and the CPU and the card draw the same bits. JAX's threefry stream has no
+torch counterpart, so draws are held to the JAX package by their
+distribution and greedy paths by token equality.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple, Union
 
 import torch
 
 from .masks import NEG_INF
+
+_M32 = 0xFFFFFFFF
+IntLike = Union[int, torch.Tensor]
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit avalanche finaliser on int64 lanes that hold uint32 values.
+    Both multipliers are odd and below 2**31, so no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x31848BAB) & _M32
+    return x ^ (x >> 16)
+
+
+def _absorb(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Mix a 32-bit word ``v`` into the hash state ``h``."""
+    return _fmix32(h ^ _fmix32((v + 0x9E3779B9) & _M32))
+
+
+def as_int64(v: IntLike, device) -> torch.Tensor:
+    """An int, or an integer tensor, as int64 on ``device`` (a Python int
+    is taken modulo 2**64, as a signed 64-bit value)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int64)
+    v = (int(v) + 2 ** 63) % 2 ** 64 - 2 ** 63
+    return torch.full((), v, dtype=torch.int64, device=device)
+
+
+def step_uniform(seed: IntLike, step: IntLike, rows: int, cols: int,
+                 device=None) -> torch.Tensor:
+    """Uniforms [rows, cols] f32 in (0, 1), a function of (seed, step, row,
+    column) alone: a counter-based hash, so the draws of a decode step do
+    not depend on which pass makes them, nor on the device. ``seed`` (64
+    bits) and ``step`` may be ints or 0-dim device tensors. Each value is
+    ``(2 m + 1) / 2**24`` for the hash's top 23 bits ``m``: exact in f32,
+    never 0 or 1."""
+    if device is None:
+        device = next((v.device for v in (seed, step)
+                       if isinstance(v, torch.Tensor)), "cpu")
+    seed, step = as_int64(seed, device), as_int64(step, device)
+    h = _absorb(_fmix32(seed & _M32), (seed >> 32) & _M32)
+    h = _absorb(h, step & _M32)
+    r = _absorb(h, torch.arange(rows, dtype=torch.int64, device=device))
+    c = _fmix32(torch.arange(cols, dtype=torch.int64, device=device)
+                + 0x632BE5AB)
+    x = _fmix32(r[:, None] ^ c[None, :])
+    return ((x >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
 
 
 def _desc_order(x: torch.Tensor) -> torch.Tensor:
@@ -66,24 +120,21 @@ def filter_logits(logits: torch.Tensor, top_k: int = 0, top_p: float = 1.0,
     return filtered
 
 
-def categorical(logits: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One draw per row from softmax(logits) by the Gumbel-max trick ->
-    int64 [B]."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32).clamp_(min=tiny, max=1.0 - 2 ** -24)
-    return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
+def categorical(logits: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """One draw per row from softmax(logits) by the Gumbel-max trick over
+    ``uniforms`` (logits' shape, values in (0, 1)) -> int64 [B]."""
+    return torch.argmax(logits.float() - torch.log(-torch.log(uniforms)),
+                        dim=-1)
 
 
-def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
-           top_k: int = 0, top_p: float = 1.0, min_p: float = 0.0,
+def sample(logits: torch.Tensor, uniforms: torch.Tensor, top_k: int = 0,
+           top_p: float = 1.0, min_p: float = 0.0,
            temperature: float = 1.0) -> torch.Tensor:
     """Temperature + filter + categorical draw -> int32 [B]."""
     if temperature != 1.0:
         logits = logits / temperature
     filtered = filter_logits(logits, top_k=top_k, top_p=top_p, min_p=min_p)
-    return categorical(filtered, generator).to(torch.int32)
+    return categorical(filtered, uniforms).to(torch.int32)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -111,14 +162,15 @@ def filter_candidates(vals: torch.Tensor, idx: torch.Tensor, top_k: int,
     return kept, idx
 
 
-def sample_from_candidates(generator: Optional[torch.Generator],
+def sample_from_candidates(uniforms: torch.Tensor,
                            vals: torch.Tensor, idx: torch.Tensor, top_k: int,
                            top_p: float = 1.0,
                            temperature: float = 1.0) -> torch.Tensor:
     """Sampling over a pre-extracted top-(k+2) candidate set -> int32 [B].
     The engine's logit adjustments only lower at most two tokens, so the
     adjusted top-k lies inside the raw top-(k+2) and filtering here equals
-    adjust-then-filter over the whole vocabulary."""
+    adjust-then-filter over the whole vocabulary. ``uniforms`` [B, K] in
+    (0, 1) drive the draw, one per candidate slot in sorted order."""
     kept, idx = filter_candidates(vals, idx, top_k, top_p, temperature)
-    choice = categorical(kept, generator)
+    choice = categorical(kept, uniforms)
     return torch.gather(idx, -1, choice[:, None])[:, 0].to(torch.int32)

@@ -143,10 +143,10 @@ def test_draw_follows_the_filtered_distribution():
     idx = torch.arange(6, dtype=torch.int32)[None]
     kept, order = tsampling.filter_candidates(vals, idx, top_k=4, top_p=0.95)
     probs = torch.softmax(kept, dim=-1)[0]
-    gen = torch.Generator().manual_seed(0)
     n = 20000
     draws = tsampling.sample_from_candidates(
-        gen, vals.expand(n, 6), idx.expand(n, 6), top_k=4, top_p=0.95)
+        tsampling.step_uniform(0, 0, n, 6), vals.expand(n, 6),
+        idx.expand(n, 6), top_k=4, top_p=0.95)
     freq = torch.bincount(draws.long(), minlength=6).double() / n
     want = torch.zeros(6, dtype=torch.float64)
     want[order[0].long()] = probs.double()

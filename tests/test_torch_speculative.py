@@ -12,7 +12,7 @@ against the JAX package, and against the port's own sequential engine.
 - The port against itself: speculative == sequential, token for token, for
   greedy and sampled decoding (top-k 8, top-p 0.9, T 0.8) with both
   drafts, on the dense, paged and paged_f8 caches. This holds because the
-  draws of step s depend only on (seed, s) (``engine.step_generator``).
+  draws of step s depend only on (seed, s) (``sampling.step_uniform``).
 - The chain paths (int8 and int4 decode weights over ``paged`` and
   ``paged_i8`` pages: ``decode_stack(chain=5)``, plain on the CPU): the
   decode layer at chain 5 against the JAX megakernel's chain variant in
@@ -53,6 +53,7 @@ from t5gemma_tts_tpu_torch.decode import engine as teng
 from t5gemma_tts_tpu_torch.decode import speculative as tspec
 from t5gemma_tts_tpu_torch.ops import megakernel as tmk
 from t5gemma_tts_tpu_torch.ops import paged_attn as tpa
+from t5gemma_tts_tpu_torch.ops import sampling as tsampling
 
 from test_torch_int4 import CASCADE_REL, F32_REL, FLIP_REL
 from test_torch_megakernel import _dims, _layer_params, _rel, _slabs
@@ -210,14 +211,12 @@ def test_spec_equals_sequential(setup, kv, mode):
 
 
 def test_step_draws_depend_on_seed_and_step_only():
-    a = teng.step_generator(7, 12, "cpu")
-    b = teng.step_generator(7, 12, "cpu")
-    c = teng.step_generator(7, 13, "cpu")
-    d = teng.step_generator(8, 12, "cpu")
-    x = torch.rand(4, generator=a)
-    assert torch.equal(x, torch.rand(4, generator=b))
-    assert not torch.equal(x, torch.rand(4, generator=c))
-    assert not torch.equal(x, torch.rand(4, generator=d))
+    x = tsampling.step_uniform(7, 12, 2, 4)
+    assert torch.equal(x, tsampling.step_uniform(7, 12, 2, 4))
+    assert torch.equal(x, tsampling.step_uniform(torch.tensor(7),
+                                                 torch.tensor(12), 2, 4))
+    assert not torch.equal(x, tsampling.step_uniform(7, 13, 2, 4))
+    assert not torch.equal(x, tsampling.step_uniform(8, 12, 2, 4))
 
 
 # ---------------------------------------------------------------------------
