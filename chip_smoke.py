@@ -121,8 +121,29 @@ Phases, in order; any failure exits non-zero before the result line:
    shapes, each with the library call torch._weight_int8pack_mm and a
    bf16 matmul over the weight dequantized beforehand.
 
+4h. voice cloning at full width: seeded encoder weights at the width of
+   ``XCodec2Config()`` join phase 4's codec; four reference recordings
+   (2.0-4.0 s at 16 kHz, seeded tones plus noise, written to a temporary
+   directory), one of them encoded on the card and on the CPU (codes equal
+   but where the pre-quantization value lies within 1e-4 of an FSQ
+   rounding boundary, counted; the card's encode wall ms); phase 4's four
+   requests, each with a reference and its transcript (prompt bucket 256),
+   graphed and eager (tokens equal; the attention kernel 2 x 26 x the step
+   bodies launched); kernel 1 at the cloned prompt lengths (phase 6, the
+   prompt over three pages); the cloned batch through the int8 pipeline
+   (decode_stack once a step; its W8A8 products, the prefill at M = 4 x
+   257, and one decode_stack call at the cloned prompt lengths against
+   their plain versions) and the cloned 4.0 s request through the int4
+   pipeline at batch 1 (its W4A8 / W8A8 products, the prefill at M = 257).
+   Phase 3 also encodes a recording with the tiny codec (a 2-layer LSTM)
+   on both devices, runs the tiny voice-clone pipeline on both (greedy
+   tokens equal), and holds two interleaved segment streams of one bucket,
+   with a one-shot request between their segments and, with
+   MAX_SESSIONS = 1, an eviction, each to its one-shot decode.
+
 Every main path (4, 4b, 4c's int4 run, 4f, 4g) runs its decode graphed and
 eager and is profiled both ways; a ``[graph]`` line sums them up as JSON.
+
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -135,6 +156,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -383,13 +405,15 @@ def phase_kernel_splits(card: str, rng, page: str) -> float:
     return worst
 
 
-def main_path_step_timing(card: str, prompt_len: int, gen_len: int,
+def main_path_step_timing(card: str, prompt_len, gen_len: int,
                           enc_lens, gen_slab: int, iters: int,
-                          f8: bool = False) -> dict:
+                          f8: bool = False, prompt_pages: int = 1) -> dict:
     """One decode step's 52 launches (self + cross for each of 26 layers)
     at the main path's cache shapes (bf16 pages, or e4m3 with ``f8``),
     kernel (graph-replayed, and eager) against plain version, with the
-    split plans, which must fill a wave."""
+    split plans, which must fill a wave. ``prompt_len`` (BOS included) is
+    one length or one a row, over ``prompt_pages`` pages a row (a cloned
+    prompt's bucket)."""
     from t5gemma_tts_tpu_torch.ops import fused_attn as fa
 
     rng = np.random.default_rng(1)
@@ -398,16 +422,20 @@ def main_path_step_timing(card: str, prompt_len: int, gen_len: int,
     tx = -(-max(enc_lens) // PAGE) * PAGE
     common = dict(b=b, h=8, hkv=4, hd=256, quant=False, layers=MODEL_LAYERS,
                   li=0, f8=f8)
+    a_lens = (list(prompt_len) if isinstance(prompt_len, (list, tuple))
+              else [prompt_len] * b)
     self_args = attention_case(
-        rng, device=dev, a_lens=[prompt_len] * b, b_lens=[gen_len] * b,
-        pp_a=1, pp_b=gen_slab // PAGE, include_current=True, **common)
+        rng, device=dev, a_lens=a_lens, b_lens=[gen_len] * b,
+        pp_a=prompt_pages, pp_b=gen_slab // PAGE, include_current=True,
+        **common)
     cross_args = attention_case(
         rng, device=dev, a_lens=list(enc_lens), b_lens=None,
         pp_a=tx // PAGE, pp_b=0, include_current=False, **common)
     per_layer = []
     for li in range(MODEL_LAYERS):
         s = dict(self_args)
-        s["a_page_indices"] = self_args["a_page_indices"] + li * b
+        s["a_page_indices"] = (self_args["a_page_indices"]
+                               + li * b * prompt_pages)
         s["b_page_indices"] = (self_args["b_page_indices"]
                                + li * b * (gen_slab // PAGE))
         c = dict(cross_args)
@@ -438,7 +466,7 @@ def main_path_step_timing(card: str, prompt_len: int, gen_len: int,
     b_ms, by = bound_ms((sb + cb) / 2, (sf + cf) / 2)
     splits = {"self": attention_plan(self_args),
               "cross": attention_plan(cross_args)}
-    print(f"[kernel] main-path step (B={b}, prompt {prompt_len}, gen "
+    print(f"[kernel] main-path step (B={b}, prompt {a_lens}, gen "
           f"{gen_len}, enc {list(enc_lens)}, {'e4m3' if f8 else 'bf16'} "
           f"pages; mean of {n} launches): "
           f"kernel_ms={k_ms:.4f} (graph; eager {eager_ms:.4f}) plain_ms="
@@ -703,10 +731,12 @@ def rel_fro(got, want) -> float:
 
 
 def decode_layer_inputs(dims, b, quant, prompt, gen_lens, enc_lens, gen_slab,
-                        device, seed, layers=None, chain=1):
+                        device, seed, layers=None, chain=1,
+                        prompt_slab=PAGE):
     """Seeded slabs, lengths, rope tables and hidden rows of one decode-layer
     call (``layers``: the stack depth the slabs hold; ``chain``: b rows are
-    b / chain cache rows of the slabs, chain pseudo-rows each)."""
+    b / chain cache rows of the slabs, chain pseudo-rows each; ``prompt``:
+    one length or one a row, in a ``prompt_slab``-token slab)."""
     from t5gemma_tts_tpu_torch.ops import rope
     from t5gemma_tts_tpu_torch.ops.fused_attn import quantize_kv
 
@@ -720,8 +750,8 @@ def decode_layer_inputs(dims, b, quant, prompt, gen_lens, enc_lens, gen_slab,
                         device=device) * 0.5
         return quantize_kv(x) if quant else (x.to(torch.bfloat16), None)
 
-    slabs, scales = zip(*(slab(t) for t in (PAGE, PAGE, gen_slab, gen_slab,
-                                            tx, tx)))
+    slabs, scales = zip(*(slab(t) for t in (prompt_slab, prompt_slab,
+                                            gen_slab, gen_slab, tx, tx)))
     pos = torch.rand((b, 1), generator=g, device=device) * 100
     cos, sin = rope.rope_cos_sin(pos, hd, dims.rope_theta)
     qcos, qsin = rope.rope_cos_sin(pos * 10, hd, dims.rope_theta)
@@ -732,7 +762,8 @@ def decode_layer_inputs(dims, b, quant, prompt, gen_lens, enc_lens, gen_slab,
     args = dict(
         h=torch.randn((b, dims.hidden_size), generator=g, device=device),
         cos=cos[:, 0], sin=sin[:, 0], qcos=qcos[:, 0], qsin=qsin[:, 0],
-        plens=i32([prompt] * b), glens=i32(list(gen_lens)),
+        plens=i32(list(prompt) if isinstance(prompt, (list, tuple))
+                  else [prompt] * b), glens=i32(list(gen_lens)),
         elens=i32(list(enc_lens)),
         prompt_k=slabs[0], prompt_v=slabs[1], gen_k=slabs[2],
         gen_v=slabs[3], cross_k=slabs[4], cross_v=slabs[5],
@@ -909,12 +940,15 @@ def product_timing(calls, card: str, label: str, iters: int) -> dict:
 
 
 def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
-                      iters: int) -> dict:
+                      iters: int, prompts=1, prompt_slab: int = PAGE,
+                      parts: bool = True) -> dict:
     """One decode step's quantized work at the main path's cache shapes, on
     the main path's own weights: the decode_stack call (26 layers, int8
-    pages) and the step's two head products, each against its plain
-    version. Int8 weights: the two W8A8 head products as one mean; int4
-    weights: the head's w1 (W8A8) and w2 (W4A8) each on its own."""
+    pages; ``prompts`` one prompt length, BOS included, or one a row, in a
+    ``prompt_slab``-token slab; with ``parts`` its device time by part)
+    and the step's two head products, each against its plain version. Int8
+    weights: the two W8A8 head products as one mean; int4 weights: the
+    head's w1 (W8A8) and w2 (W4A8) each on its own."""
     from t5gemma_tts_tpu_torch.ops import megakernel as mk
     from t5gemma_tts_tpu_torch.ops import quant
 
@@ -924,9 +958,10 @@ def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
     int4 = isinstance(layers["mlp"]["down"], quant.Int4Weight)
     weights = "int4" if int4 else "int8"
     b = len(enc_lens)
-    args = decode_layer_inputs(dims, b, True, prompt=1,
+    args = decode_layer_inputs(dims, b, True, prompt=prompts,
                                gen_lens=[steps // 2] * b, enc_lens=enc_lens,
-                               gen_slab=gen_slab, device=dev, seed=6)
+                               gen_slab=gen_slab, device=dev, seed=6,
+                               prompt_slab=prompt_slab)
     got = mk.decode_stack(layers, dims, **args)
     want = mk.decode_stack_plain(layers, dims, **args)
     torch.cuda.synchronize()
@@ -948,7 +983,8 @@ def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
         dims.num_layers * decode_layer_bytes(dims, args,
                                              0.5 if int4 else 1.0), 0)
     stack["splits"] = layer_plans(dims, args)
-    print(f"[kernel] decode_stack {weights} main-path step (B={b}, prompt 1, "
+    print(f"[kernel] decode_stack {weights} main-path step (B={b}, prompt "
+          f"{prompts}, "
           f"gen {steps // 2}, enc {list(enc_lens)}, int8 pages, 26 layers): "
           f"relative error h/k/v {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
           f"(tol {REL_FRO_TOL_STACK:g}), max_abs_err="
@@ -959,9 +995,10 @@ def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
           f"{plan_note(stack['splits']['self'])}, cross "
           f"{plan_note(stack['splits']['cross'])} [{card}]")
     check_wave("decode_stack", stack["splits"])
-    stack["parts"] = stack_breakdown(
-        lambda: mk.decode_stack(layers, dims, **args), card,
-        f"decode_stack {weights} B={b}")
+    if parts:
+        stack["parts"] = stack_breakdown(
+            lambda: mk.decode_stack(layers, dims, **args), card,
+            f"decode_stack {weights} B={b}")
 
     head = pipe.params["head"]
     g = torch.Generator(device=dev).manual_seed(7)
@@ -1762,16 +1799,18 @@ def char_tokenizer(vocab: int):
 
 
 def build_pipeline(cfg, ccfg, device, seed, init_device=None, int8=False,
-                   int4=False, w8a16=False):
+                   int4=False, w8a16=False, encoder=False):
     """A pipeline on ``device`` with seeded random weights, made on
     ``init_device`` (default: ``device``); ``int8`` / ``int4`` quantize its
     decode weights on ``device``, and so does ``w8a16`` by the W8A16 route
     (``quantize_params_for_decode(fuse_for_decode(params), act_bits=16)``,
-    then ``TTSPipeline(params, fuse_matmuls=False)``). The CPU's and the
-    card's generators draw different numbers from one seed, so two
-    pipelines that must hold the same weights make them on one device."""
+    then ``TTSPipeline(params, fuse_matmuls=False)``); ``encoder`` adds the
+    codec's encoder weights (voice cloning). The CPU's and the card's
+    generators draw different numbers from one seed, so two pipelines that
+    must hold the same weights make them on one device."""
     from t5gemma_tts_tpu_torch.codec.audio_tokenizer import AudioTokenizer
-    from t5gemma_tts_tpu_torch.codec.model import init_decoder_params
+    from t5gemma_tts_tpu_torch.codec.model import (init_decoder_params,
+                                                   init_encoder_params_for)
     from t5gemma_tts_tpu_torch.device import tree_to
     from t5gemma_tts_tpu_torch.inference.pipeline import TTSPipeline
     from t5gemma_tts_tpu_torch.models import voice
@@ -1781,6 +1820,9 @@ def build_pipeline(cfg, ccfg, device, seed, init_device=None, int8=False,
     init_device = init_device or device
     params = voice.init_params(seed, cfg, device=init_device)
     cparams = init_decoder_params(seed + 1, ccfg, device=init_device)
+    if encoder:
+        cparams.update(init_encoder_params_for(seed + 2, ccfg,
+                                               device=init_device))
     if w8a16:
         params = quantize_params_for_decode(fuse_for_decode(
             tree_to(params, torch.device(device))), act_bits=16)
@@ -1946,6 +1988,207 @@ def phase_segments(devices=("cpu", "cuda")) -> None:
     print(f"[reference] tiny f32 sampled paged: run_segment slices (5, 11, "
           f"{max_frames}) == one decode, graphed on the card and eager on "
           f"the CPU, and the two devices agree ({last[1]} steps)")
+
+
+def phase_streams() -> None:
+    """Segment streams on the card keep their own state: two prefill +
+    run_segment streams of one bucket, interleaved (5, 11, the buffer's
+    end), with a one-shot graphed_decoder request between their segments,
+    each token-equal to its own one-shot decode (engine.decode_tokens);
+    then again with engine.MAX_SESSIONS lowered to 1 and the one-shot
+    request in another bucket, so that it evicts the streams' session and
+    each next segment captures it anew."""
+    import dataclasses
+
+    from t5gemma_tts_tpu_torch.codec.model import tiny_codec_config
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+    from t5gemma_tts_tpu_torch.decode import engine
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request
+
+    cfg, reqs = tiny_setup()
+    pipe = build_pipeline(cfg, tiny_codec_config(), "cuda", seed=0,
+                          init_device="cpu")
+    other_reqs = [Request(target_text=t, target_duration=r.target_duration,
+                          lang="en")
+                  for t, r in zip(("a second stream", "of the same bucket"),
+                                  reqs)]
+    (ia, frames_a), (ib, frames_b) = (planned_inputs(pipe, rs)
+                                      for rs in (reqs, other_reqs))
+    if [t.shape for t in ia] != [t.shape for t in ib] or frames_a != frames_b:
+        raise AssertionError("the two streams' requests are not one bucket")
+    dcfg = DecodeConfig(kv_cache="paged", max_frames=frames_a, **SAMPLED)
+    streams = [(ia, 3), (ib, 8)]
+    wants = [engine.decode_tokens(pipe.params, cfg, dcfg, *i, sd)
+             for i, sd in streams]
+    limit = engine.MAX_SESSIONS
+    left = []
+    try:
+        for max_sessions in (limit, 1):
+            engine.MAX_SESSIONS = max_sessions
+            engine.release_sessions()
+            other = dcfg if max_sessions > 1 else dataclasses.replace(
+                dcfg, top_k=4)
+            one_shot_want = engine.decode_tokens(pipe.params, cfg, other,
+                                                 *ib, 5)
+            prefill_fn, segment_fn = engine.graphed_segment_fns(cfg, dcfg)
+            states = [prefill_fn(pipe.params, *i) for i, _ in streams]
+            for until in (5, 11, frames_a):
+                for k, ((x, x_lens, _, plens, targets), sd) in enumerate(
+                        streams):
+                    states[k] = segment_fn(pipe.params, states[k], x_lens,
+                                           plens, targets, sd, until)
+                one_shot = engine.graphed_decoder(cfg, other)(
+                    pipe.params, *ib, 5)
+                if not torch.equal(one_shot.tokens, one_shot_want.tokens):
+                    raise AssertionError("a one-shot request between the "
+                                         "streams' segments differs")
+            for k, (state, want) in enumerate(zip(states, wants)):
+                if not (torch.equal(state.tokens, want.tokens)
+                        and int(state.step) == want.steps):
+                    raise AssertionError(
+                        f"MAX_SESSIONS={max_sessions}: stream {k} differs "
+                        f"from its one-shot decode")
+            left.append(f"MAX_SESSIONS={max_sessions}: "
+                        f"{len(engine.sessions())} session(s) left")
+    finally:
+        engine.MAX_SESSIONS = limit
+        engine.release_sessions()
+    print(f"[reference] tiny f32 sampled paged on the card: two run_segment "
+          f"streams of one bucket, interleaved (5, 11, {frames_a}) with a "
+          f"one-shot graphed_decoder request between segments, each "
+          f"token-equal to its one-shot decode ({wants[0].steps} / "
+          f"{wants[1].steps} steps); {'; '.join(left)}")
+
+
+def reference_wavs(directory: str, rate: int, durations, seed: int) -> list:
+    """Seeded recordings (a tone and its overtone plus noise, 16-bit PCM)
+    of ``durations`` seconds at ``rate``, written under ``directory``."""
+    from t5gemma_tts_tpu_torch.inference.audio_io import write_wav
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, secs in enumerate(durations):
+        t = np.arange(int(rate * secs)) / rate
+        f0 = rng.uniform(0.02, 0.1) * rate
+        wav = (0.3 * np.sin(2 * np.pi * f0 * t)
+               + 0.1 * np.sin(2 * np.pi * 2.5 * f0 * t)
+               + 0.05 * rng.standard_normal(t.size))
+        path = os.path.join(directory, f"reference_{i}.wav")
+        write_wav(path, wav.astype(np.float32), rate)
+        paths.append(path)
+    return paths
+
+
+FLIP_MARGIN = 1e-4   # an FSQ code may round apart only this near a boundary
+
+
+def encode_both(params_cpu, params_card, ccfg, path: str, card: str,
+                tag: str) -> dict:
+    """One recording encoded on the CPU and on the card (the same weights,
+    bucket-padded with wav_lens, as AudioTokenizer.encode pads it): the
+    codes must be equal but at frames whose pre-quantization value lies
+    within FLIP_MARGIN of an FSQ rounding boundary on either device; those
+    are counted. The card's encode wall ms (synchronized, the mean of 3
+    after one warm-up) is printed."""
+    from t5gemma_tts_tpu_torch.codec import audio_tokenizer as at
+    from t5gemma_tts_tpu_torch.codec import fsq
+    from t5gemma_tts_tpu_torch.codec import model as cm
+    from t5gemma_tts_tpu_torch.inference.audio_io import load_for_encode
+
+    wav = load_for_encode(path, ccfg.encode_sample_rate)
+    s = wav.shape[0]
+    padded = np.pad(wav, (0, at._bucket(s) - s))[None]
+    codes, margins = {}, {}
+    for dev, params in (("cpu", params_cpu), ("cuda", params_card)):
+        w = torch.from_numpy(padded).to(dev)
+        lens = torch.tensor([s], device=dev)
+        with torch.inference_mode():
+            z = cm.encode_prior(params, ccfg, w, lens) \
+                @ params["fsq"]["project_in"]["w"] \
+                + params["fsq"]["project_in"]["b"]
+            codes[dev] = fsq.codes_to_indices(
+                ccfg.fsq, fsq.quantize(ccfg.fsq, z)).cpu()
+            margins[dev] = fsq.rounding_margin(ccfg.fsq, z).cpu()
+    near = torch.minimum(margins["cpu"], margins["cuda"]) < FLIP_MARGIN
+    differ = codes["cpu"] != codes["cuda"]
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"{tag} encode: codes differ on the CPU and the "
+                             f"card away from a rounding boundary at frames "
+                             f"{(differ & ~near).nonzero()[:8].tolist()}")
+    tok = at.AudioTokenizer(params_card, ccfg, device="cuda")
+    tok.encode(wav)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        tok.encode(wav)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 3
+    print(f"[encode] {tag}: {s / ccfg.encode_sample_rate:.2f} s at "
+          f"{ccfg.encode_sample_rate} Hz -> {codes['cpu'].shape[1]} codes, "
+          f"equal on the CPU and the card but at {int(differ.sum())} "
+          f"frame(s); {int(near.sum())} frame(s) within {FLIP_MARGIN:g} of "
+          f"a rounding boundary; card encode wall {ms:.1f} ms "
+          f"(AudioTokenizer.encode, synchronized) [{card}]")
+    return {"codes": codes["cpu"].shape[1], "flips": int(differ.sum()),
+            "near_boundary": int(near.sum()), "encode_ms": ms}
+
+
+def tiny_clone_codec():
+    """The tiny codec config with a 2-layer LSTM in its acoustic encoder."""
+    import dataclasses
+
+    from t5gemma_tts_tpu_torch.codec.model import tiny_codec_config
+
+    ccfg = tiny_codec_config()
+    return dataclasses.replace(ccfg, acoustic_cfg=dataclasses.replace(
+        ccfg.acoustic_cfg, rnn_layers=2))
+
+
+def phase_clone_reference(card: str, directory: str) -> None:
+    """The tiny codec encoder (an LSTM of 2 layers) on the CPU and the card
+    (:func:`encode_both`), then the tiny voice-clone pipeline (a reference
+    and its transcript a request; repeat_prompt 0 and 1) greedy on both
+    devices: the same prompts, generated and concat frames."""
+    from t5gemma_tts_tpu_torch.codec import model as cm
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+    from t5gemma_tts_tpu_torch.device import tree_to
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request
+
+    ccfg = tiny_clone_codec()
+    refs = reference_wavs(directory, ccfg.encode_sample_rate, (30.0, 24.0),
+                          seed=5)
+    params = cm.init_decoder_params(1, ccfg, device="cpu")
+    params.update(cm.init_encoder_params_for(2, ccfg, device="cpu"))
+    enc = encode_both(params, tree_to(params, torch.device("cuda")), ccfg,
+                      refs[0], card, "tiny codec (rnn_layers=2)")
+    cfg, reqs = tiny_setup()
+    clones = [Request(target_text=r.target_text, lang="en",
+                      target_duration=r.target_duration, audio_path=ref,
+                      prompt_transcript="the reference words",
+                      repeat_prompt=i)
+              for i, (r, ref) in enumerate(zip(reqs, refs))]
+    dcfg = DecodeConfig(kv_cache="paged", top_k=1)
+    out = {}
+    for device in ("cpu", "cuda"):
+        pipe = build_pipeline(cfg, ccfg, device, seed=0, init_device="cpu",
+                              encoder=True)
+        out[device] = ([pipe.plan_request(r).prompt for r in clones],
+                       pipe.synthesize_batch(clones, dcfg, seed=0,
+                                             quiet=True))
+    (pc, rc), (pg, rg) = out["cpu"], out["cuda"]
+    if pc != pg:
+        raise AssertionError(f"tiny clone: prompts differ on the CPU and the "
+                             f"card ({enc['flips']} code flip(s) at a "
+                             f"rounding boundary in one encode)")
+    for r, (a, b) in enumerate(zip(rc, rg)):
+        if not (np.array_equal(a.gen_frames, b.gen_frames)
+                and np.array_equal(a.concat_frames, b.concat_frames)):
+            raise AssertionError(f"tiny clone row {r}: greedy tokens differ: "
+                                 f"cpu {a.gen_frames} cuda {b.gen_frames}")
+    print(f"[reference] tiny voice clone (greedy, paged): prompts "
+          f"{[len(p) for p in pg]} tokens (repeat_prompt 0 and 1, y_sep), "
+          f"generated {[len(r.gen_frames) for r in rg]} frames: prompts, "
+          f"generated and concat frames equal on the CPU and the card")
 
 
 def near_tie_parting(row, cpu_logits, card_logits, cpu_tokens,
@@ -2225,11 +2468,15 @@ TEXTS = ("Hello world, this is a test of the port.",
          "Speech synthesis on one card.",
          "Four requests decode in one batch.")
 DURATIONS = (2.0, 2.5, 3.0, 4.0)
+TRANSCRIPTS = ("This is how my voice sounds.",
+               "A reference recording for the port.",
+               "Cloned speech from a short prompt.",
+               "The fourth speaker reads this line.")
 
 
 def phase_main_path(card: str, seed: int, weights: str = "bf16",
                     batch: int = 4, pipe=None, mode=None,
-                    ab: bool = True) -> dict:
+                    ab: bool = True, refs=None) -> dict:
     """Requests through TTSPipeline at 2b-2b (the graphed decode loop): the
     four requests, or with ``batch=1`` the 4.0 s one alone; bf16 or W8A16
     (``weights="w8a16"``) weights and bf16 pages, or W8A8 (``"int8"``) or
@@ -2239,7 +2486,10 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
     launch counts are set to 0 just before the run and read just after;
     each replay of the captured step adds the launches its capture
     recorded. With ``ab`` the same decode then runs graphed and eager
-    (``graphed_vs_eager``)."""
+    (``graphed_vs_eager``). With ``refs`` (reference recordings, one a
+    request) each request clones its recording's voice: the codec encodes
+    it (``pipe``'s codec must hold encoder weights) and its transcript
+    leads the text."""
     from t5gemma_tts_tpu_torch.codec.model import XCodec2Config
     from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
     from t5gemma_tts_tpu_torch.decode import engine
@@ -2251,6 +2501,8 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
     tag = weights if batch == 4 else f"{weights} b{batch}"
     if mode is not None:
         tag += f" mode {mode}"
+    if refs is not None:
+        tag += " clone"
     if pipe is None:
         t0 = time.time()
         pipe = build_pipeline(cfg, ccfg, "cuda", seed,
@@ -2263,6 +2515,12 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
               f"allocated)")
     reqs = [Request(target_text=t, target_duration=d, lang="en")
             for t, d in zip(TEXTS, DURATIONS)][-batch:]
+    if refs is not None:
+        reqs = [Request(target_text=r.target_text,
+                        target_duration=r.target_duration, lang="en",
+                        audio_path=ref, prompt_transcript=tr)
+                for r, ref, tr in zip(reqs, refs[-batch:],
+                                      TRANSCRIPTS[-batch:])]
     dcfg = DecodeConfig(kv_cache=kv_cache, seed=seed)
 
     torch.cuda.reset_peak_memory_stats()
@@ -2313,24 +2571,52 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
         frames += len(r.gen_frames)
     audio_s = frames / cfg.encodec_sr
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[main/{tag}] {batch} request(s) ({kv_cache} cache, graphed): "
+    planned = [pipe.plan_request(r) for r in reqs]
+    tx, p_max, _ = pipe.widths(planned)
+    prompts = [len(p.prompt) for p in planned]
+    print(f"[main/{tag}] {batch} request(s) ({kv_cache} cache, graphed; "
+          f"prompts {prompts} tokens, bucket {p_max}): "
           f"{steps} decode steps ({launched} step bodies launched), "
           f"{frames} frames, {frames / wall:.2f} tokens/s, RTF "
           f"{audio_s / wall:.3f}x (audio s per wall s, decode+vocode "
           f"{wall:.2f}s), {1e3 * wall / steps:.2f} ms per step, launches "
           f"{launches}, peak {peak:.2f} GB allocated [{card}]")
-    planned = [pipe.plan_request(r) for r in reqs]
-    tx, p_max, _ = pipe.widths(planned)
     out = {"pipe": pipe, "tag": tag, "batch": batch, "launches": launches,
            "steps": steps, "tokens_per_s": frames / wall,
            "rtf": audio_s / wall, "step_ms": 1e3 * wall / steps,
            "enc_lens": [len(p.text) for p in planned],
            "gen_slab": max(pipe.frame_bucket(p) for p in planned),
+           "prompts": prompts, "p_max": p_max,
            "prefill_rows": batch * (p_max + 1), "cross_rows": batch * tx}
     if ab:
         with attn_mode(mode):
             out["ab"] = graphed_vs_eager(pipe, reqs, dcfg, seed, tag, card)
     return out
+
+
+def clone_setup(card: str, pipe, directory: str, seed: int) -> tuple:
+    """Phase 4h's codec: seeded encoder weights at the full width of
+    ``XCodec2Config()`` made on the card and added to ``pipe``'s codec,
+    four reference recordings (``DURATIONS`` seconds at 16 kHz), and one of
+    them encoded on the CPU and on the card (:func:`encode_both`). Returns
+    (the recordings, the encoder weights, the encode report)."""
+    from t5gemma_tts_tpu_torch.codec.model import init_encoder_params_for
+    from t5gemma_tts_tpu_torch.device import tree_to
+
+    tok = pipe.audio_tokenizer
+    t0 = time.time()
+    enc = init_encoder_params_for(seed + 2, tok.cfg, device="cuda")
+    tok.params.update(enc)
+    torch.cuda.synchronize()
+    print(f"[main/clone] full-width XCodec2 encoder weights made on the card "
+          f"in {time.time() - t0:.3f}s ({n_params(enc) / 1e6:.1f} M "
+          f"parameters, f32) [{card}]")
+    refs = reference_wavs(directory, tok.cfg.encode_sample_rate, DURATIONS,
+                          seed=seed + 7)
+    report = encode_both(tree_to(tok.params, torch.device("cpu")),
+                         tok.params, tok.cfg, refs[2], card,
+                         "full-width XCodec2Config()")
+    return refs, enc, report
 
 
 def graphed_vs_eager(pipe, reqs, dcfg, seed: int, tag: str,
@@ -2498,6 +2784,8 @@ def n_params(tree) -> int:
 
     if isinstance(tree, dict):
         return sum(n_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(n_params(v) for v in tree)
     if isinstance(tree, quant.Int4Weight):
         return 2 * tree.packed.numel()
     if isinstance(tree, quant.QuantWeight):
@@ -2514,6 +2802,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as refdir:
+        return run_all(args, refdir)
+
+
+def run_all(args, refdir: str) -> int:
+    """Every phase, in order (``refdir``: a directory for the reference
+    recordings); raises on the first failure."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from t5gemma_tts_tpu_torch.config import VoiceConfig
@@ -2560,6 +2855,8 @@ def main(argv=None) -> int:
     phase_reference(mode="0")
     phase_reference(mode="1")
     ref_f8 = phase_reference(kv_cache="paged_f8", mode="1")
+    phase_streams()
+    phase_clone_reference(card, refdir)
     step_iters = max(args.iters // 4, 2)
     stamp("3 (references)")
 
@@ -2588,8 +2885,21 @@ def main(argv=None) -> int:
         card, prompt_len=1, gen_len=main1["steps"] // 2, batch=4,
         gen_slab=main1["gen_slab"], iters=step_iters, f8=True)
     cross_timing = cross_parts_timing(card, main1["enc_lens"], step_iters)
-
     stamp("4 and 4g (bf16)")
+
+    # 4h: voice cloning at full width: the bf16 batch with a reference
+    # recording and its transcript a request (prompt bucket 256), graphed
+    # and eager; kernel 1 at the cloned prompt lengths
+    refs, enc, encode_report = clone_setup(card, pipe16, refdir, args.seed)
+    clone = phase_main_path(card, args.seed, pipe=pipe16, refs=refs)
+    clone.pop("pipe")
+    clone_pages = -(-(clone["p_max"] + 1) // PAGE)
+    clone_timing = main_path_step_timing(
+        card, prompt_len=[p + 1 for p in clone["prompts"]],
+        gen_len=clone["steps"] // 2, enc_lens=clone["enc_lens"],
+        gen_slab=clone["gen_slab"], iters=step_iters,
+        prompt_pages=clone_pages)
+    stamp("4h (bf16 clone)")
     main8 = phase_main_path(card, args.seed, "int8")
     worst8, prod8 = phase_products(card, main8, args.iters)
     prof["int8"] = phase_profile(main8["pipe"], card, main8["enc_lens"],
@@ -2597,6 +2907,18 @@ def main(argv=None) -> int:
     timing8 = quant_step_timing(main8["pipe"], card, main8["steps"],
                                 main8["enc_lens"], main8["gen_slab"],
                                 iters=step_iters)
+    # 4h, int8: the cloned batch at B = 4, its products (the prefill at
+    # M = 4 x 257) and one decode_stack call at the cloned prompt lengths
+    main8["pipe"].audio_tokenizer.params.update(enc)
+    clone8 = phase_main_path(card, args.seed, "int8", pipe=main8["pipe"],
+                             refs=refs, ab=False)
+    worst8c, prod8c = phase_products(card, clone8, args.iters)
+    timing8c = quant_step_timing(
+        main8["pipe"], card, clone8["steps"], clone8["enc_lens"],
+        clone8["gen_slab"], iters=step_iters,
+        prompts=[p + 1 for p in clone8["prompts"]],
+        prompt_slab=clone_pages * PAGE, parts=False)
+    clone8.pop("pipe")
 
     stamp("4b (int8)")
     # 4c: int4 at batch 1, against int8 at batch 1 on the same request, in
@@ -2630,6 +2952,13 @@ def main(argv=None) -> int:
           f"{pair('rtf', '{:.3f}x')} [{card}]")
     worst4, prod4 = phase_products(card, dict(main4, pipe=pipe4),
                                    args.iters)
+    # 4h, int4: the cloned 4.0 s request at B = 1 and its products (the
+    # prefill at M = 257)
+    pipe4.audio_tokenizer.params.update(enc)
+    clone4 = phase_main_path(card, args.seed, "int4", 1, pipe=pipe4,
+                             refs=refs, ab=False)
+    worst4c, prod4c = phase_products(card, clone4, args.iters)
+    clone4.pop("pipe")
     prof["int4 b1"] = phase_profile(pipe4, card, main4["enc_lens"],
                                     kv_cache="paged_i8", weights="int4")
     timing4 = quant_step_timing(pipe4, card, main4["steps"],
@@ -2686,7 +3015,13 @@ def main(argv=None) -> int:
              for name, run in (("bf16", main), ("bf16 mode 1", main1),
                                ("int8", main8), ("int4 b1", main4),
                                ("w8a16", main16))}
+    graph[clone["tag"]] = clone["ab"]
     print(f"[graph] {json.dumps(graph)}")
+    clone_keys = ("prompts", "p_max", "steps", "tokens_per_s", "rtf",
+                  "step_ms", "prefill_rows")
+    print(f"[clone] {json.dumps(dict(encode=encode_report, **{
+        r['tag']: {k: r[k] for k in clone_keys}
+        for r in (clone, clone8, clone4)}))}")
     src = "t5gemma_tts_tpu_torch/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
@@ -2695,7 +3030,8 @@ def main(argv=None) -> int:
              replaces="t5gemma_tts_tpu/ops/fused_attn.py:220",
              launches=main["launches"]["batch_paged_attention"],
              max_abs_err=max(*worst_attn.values(), timing["max_abs_err"],
-                             timing_f8["max_abs_err"]),
+                             timing_f8["max_abs_err"],
+                             clone_timing["max_abs_err"]),
              ms=timing["ms"], plain_ms=timing["plain_ms"],
              bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
              library_ms=None, eager_ms=timing["eager_ms"],
@@ -2704,18 +3040,24 @@ def main(argv=None) -> int:
                        max_abs_err=max(worst_attn["f8"],
                                        timing_f8["max_abs_err"]),
                        splits=timing_f8["splits"],
-                       **{k: timing_f8[k] for k in keys[:4]})),
+                       **{k: timing_f8[k] for k in keys[:4]}),
+             clone=dict(launches=clone["launches"]["batch_paged_attention"],
+                        max_abs_err=clone_timing["max_abs_err"],
+                        splits=clone_timing["splits"],
+                        **{k: clone_timing[k] for k in keys[:4]})),
         dict(name="w8a8_matmul", route="cuda",
              source=src + "w8a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:140",
              launches=main8["launches"]["w8a8_matmul"],
              max_abs_err=max(worst8["w8a8"], worst4["w8a8"],
                              worst_spec4["w8a8"], worst_edges["w8a8"],
+                             worst8c["w8a8"], worst4c["w8a8"],
                              timing8["w8a8"]["max_abs_err"]),
              **{k: timing8["w8a8"][k] for k in keys},
              products=[dict(p, run=f"{ph} {p['run']}")
                        for ph, r in (("4b", prod8), ("4c", prod4),
-                                     ("4d", prod_spec4))
+                                     ("4d", prod_spec4), ("4h", prod8c),
+                                     ("4h", prod4c))
                        for p in r.get("w8a8", [])]),
         dict(name="decode_stack", route="cuda",
              source=src + "decode_layer.cu",
@@ -2725,17 +3067,23 @@ def main(argv=None) -> int:
                              timing8["decode_stack"]["max_abs_err"]),
              **{k: timing8["decode_stack"][k] for k in keys},
              splits=timing8["decode_stack"]["splits"],
-             parts=timing8["decode_stack"]["parts"]),
+             parts=timing8["decode_stack"]["parts"],
+             clone=dict(launches=clone8["launches"]["decode_stack"],
+                        max_abs_err=timing8c["decode_stack"]["max_abs_err"],
+                        splits=timing8c["decode_stack"]["splits"],
+                        **{k: timing8c["decode_stack"][k]
+                           for k in keys[:4]})),
         dict(name="w4a8_matmul", route="cuda",
              source=src + "w4a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:656",
              launches=main4["launches"]["w4a8_matmul"],
              max_abs_err=max(worst4["w4a8"], worst_spec4["w4a8"],
-                             worst_edges["w4a8"],
+                             worst_edges["w4a8"], worst4c["w4a8"],
                              timing4["w4a8"]["max_abs_err"]),
              **{k: timing4["w4a8"][k] for k in keys},
              products=[dict(p, run=f"{ph} {p['run']}")
-                       for ph, r in (("4c", prod4), ("4d", prod_spec4))
+                       for ph, r in (("4c", prod4), ("4d", prod_spec4),
+                                     ("4h", prod4c))
                        for p in r.get("w4a8", [])]),
         dict(name="decode_stack_int4", route="cuda",
              source=src + "decode_layer.cu",
@@ -2746,6 +3094,7 @@ def main(argv=None) -> int:
              **{k: timing4["decode_stack"][k] for k in keys},
              splits=timing4["decode_stack"]["splits"],
              parts=timing4["decode_stack"]["parts"],
+             clone=dict(launches=clone4["launches"]["decode_stack"]),
              chain5=dict(launches=spec4["launches"]["decode_stack"],
                          max_abs_err=max(*worst_chain.values(),
                                          chain_timing["max_abs_err"]),

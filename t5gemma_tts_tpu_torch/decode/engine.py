@@ -48,6 +48,7 @@ import collections
 import dataclasses
 import os
 import time
+import weakref
 from typing import Any, NamedTuple, Optional, Union
 
 import torch
@@ -148,7 +149,7 @@ class DecodeOutputs(NamedTuple):
     launched_steps: int = 0
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)       # hashed by identity: a stream's key
 class LoopState:
     cache: Union[t5gemma.DecoderCache, t5gemma.PagedDecoderCache]
     last_hidden: torch.Tensor      # [B, 1, D]
@@ -467,19 +468,29 @@ def run_segment(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig,
     slice of :func:`decode_tokens` (JAX ``engine.py::run_segment``): the
     block that streaming synthesis is built on. On the CPU the body runs
     eagerly. On the card ``state`` must come from the prefill of
-    :func:`graphed_segment_fns` (a graph session's state), and the segment
-    replays the session's captured step; returns ``state``, advanced."""
+    :func:`graphed_segment_fns`, and the segment replays its bucket's
+    captured step over the session's buffers: it loads the stream into
+    them first if another stream or a one-shot request holds them, and
+    captures a new session if its own was evicted. Returns ``state``,
+    advanced: its loop tensors hold the progress, its KV cache is written
+    back when the session lets the stream go."""
     until = int(until)
     if state.tokens.device.type == "cuda":
-        session = next((ses for ses in _SESSIONS.values()
-                        if ses.state is state), None)
-        if session is None or session.params is not params:
+        stream = _STREAMS.get(state)
+        if stream is None or stream.params is not params:
             raise ValueError(
-                "on the card run_segment advances the state that the prefill "
+                "on the card run_segment advances a state that the prefill "
                 "of graphed_segment_fns returned, with the same params")
-        session.set_inputs(step_inputs(cfg, x_lens, prompt_lens,
-                                       target_totals, seed))
+        inp = step_inputs(cfg, x_lens, prompt_lens, target_totals, seed)
+        session, new = _bucket_session(stream.key, params, cfg, dcfg, state,
+                                       inp)
+        if session.holder is state:
+            session.set_inputs(inp)
+        else:
+            session.load(state, inp, holder=state)
+            session.launched += new      # the capture's warm-up step
         session.advance(until)
+        session.write_back(cache=False)
         return state
     body = _make_body(params, cfg, dcfg, step_inputs(
         cfg, x_lens, prompt_lens, target_totals, seed))
@@ -540,11 +551,28 @@ def _clone(obj):
     return obj
 
 
+@dataclasses.dataclass
+class _Stream:
+    """Host record of a segment stream (a LoopState that the card's
+    ``prefill_fn`` returned): its bucket's session key, its params, and
+    its replay counters while no session holds it."""
+
+    key: tuple
+    params: PyTree
+    issued: int = 0
+    launched: int = 0
+    ended: bool = False
+
+
 class _Session:
     """One shape bucket's graphed decode loop: static state and input
     buffers (the KV cache, the LoopState, the request's StepInputs), the
     step captured over them as a CUDA graph, and the host's read of the
-    all-done flag. A new request writes into the buffers with ``copy_``."""
+    all-done flag. A new request writes into the buffers with ``copy_``.
+    The buffers hold one request at a time: a one-shot request of
+    :func:`graphed_decoder`, or a segment stream (``holder``, the caller's
+    LoopState), whose buffers and counters are written back to it before
+    another request takes the session or the session is dropped."""
 
     def __init__(self, params, cfg: VoiceConfig, dcfg: DecodeConfig,
                  state: LoopState, inp: StepInputs):
@@ -562,6 +590,7 @@ class _Session:
         self.issued = 0          # replays since the request's prefill
         self.launched = 0        # step bodies launched for this request
         self.ended = False       # the host has read the all-done flag
+        self.holder: Optional[LoopState] = None   # the stream held
         self.body = None
 
     @property
@@ -616,13 +645,41 @@ class _Session:
                                   if d)
         self.graph = graph
 
-    def load(self, state: LoopState, inp: StepInputs) -> None:
-        """A new request: its prefilled state and inputs into the
-        buffers."""
+    def load(self, state: LoopState, inp: StepInputs,
+             holder: Optional[LoopState] = None) -> None:
+        """A request into the buffers: a one-shot request's prefilled state,
+        or the stream ``holder`` (``state`` itself) with its counters. The
+        stream held before is written back first."""
+        self.release()
         _copy_into(self.state, state)
         self.set_inputs(inp)
         self.issued = self.launched = 0
         self.ended = False
+        if holder is not None:
+            rec = _STREAMS[holder]
+            self.issued, self.launched, self.ended = (
+                rec.issued, rec.launched, rec.ended)
+        self.holder = holder
+
+    @torch.inference_mode()      # the stream's tensors are inference tensors
+    def write_back(self, cache: bool = True) -> None:
+        """The held stream's buffers (without ``cache``, all but its KV
+        cache) into its own tensors, and its counters into its record."""
+        if self.holder is None:
+            return
+        for f in dataclasses.fields(LoopState):
+            if cache or f.name != "cache":
+                _copy_into(getattr(self.holder, f.name),
+                           getattr(self.state, f.name))
+        rec = _STREAMS.get(self.holder)
+        if rec is not None:
+            rec.issued, rec.launched, rec.ended = (
+                self.issued, self.launched, self.ended)
+
+    def release(self) -> None:
+        """Let the held stream go, its state and counters written back."""
+        self.write_back()
+        self.holder = None
 
     def set_inputs(self, inp: StepInputs) -> None:
         _copy_into(self.inp, inp)
@@ -657,11 +714,16 @@ class _Session:
 
 _SESSIONS: "collections.OrderedDict[tuple, _Session]" = (
     collections.OrderedDict())
+# the segment streams alive, by their LoopState
+_STREAMS: "weakref.WeakKeyDictionary[LoopState, _Stream]" = (
+    weakref.WeakKeyDictionary())
 
 
 def release_sessions() -> None:
     """Drop every graph session (their graphs, caches and the references
-    to their params)."""
+    to their params), each held stream written back first."""
+    for session in _SESSIONS.values():
+        session.release()
     _SESSIONS.clear()
 
 
@@ -671,31 +733,48 @@ def sessions() -> list:
     return list(_SESSIONS.values())
 
 
-def _session(params, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens, prompt,
-             prompt_lens, target_totals, seed) -> _Session:
-    """Prefill eagerly, then load the result into the bucket's session
-    (made and captured on first use)."""
-    state = prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
-                    target_totals)
-    inp = step_inputs(cfg, x_lens, prompt_lens, target_totals, seed)
+def _session_key(params, cfg: VoiceConfig, dcfg: DecodeConfig, x,
+                 prompt) -> tuple:
     # the capture bakes in the shapes (with cfg and dcfg they fix the KV
     # mode), the attention mode and the params' addresses; a session keeps
     # its params alive, so their id is not reused while it lives
-    key = (cfg, dcfg, *x.shape, prompt.shape[1],
-           os.environ.get("T5G_FUSED_ATTN", "3"), id(params), x.device)
+    return (cfg, dcfg, *x.shape, prompt.shape[1],
+            os.environ.get("T5G_FUSED_ATTN", "3"), id(params), x.device)
+
+
+def _bucket_session(key: tuple, params, cfg: VoiceConfig, dcfg: DecodeConfig,
+                    state: LoopState, inp: StepInputs):
+    """(the bucket's session, whether it is new): made and captured over a
+    copy of ``state`` and ``inp`` on first use; the least recently used
+    sessions past MAX_SESSIONS are released and dropped."""
     session = _SESSIONS.get(key)
     if session is not None:
         _SESSIONS.move_to_end(key)
-        session.load(state, inp)
-        return session
+        return session, False
     session = _Session(params, cfg, dcfg, state, inp)
     session.capture()
-    session.load(state, inp)
-    session.launched = 1         # the capture's warm-up step ran this request
     _SESSIONS[key] = session
     while len(_SESSIONS) > MAX_SESSIONS:
-        _SESSIONS.popitem(last=False)
-    return session
+        _SESSIONS.popitem(last=False)[1].release()
+    return session, True
+
+
+def _prefilled_session(params, cfg: VoiceConfig, dcfg: DecodeConfig, x,
+                       x_lens, prompt, prompt_lens, target_totals, seed,
+                       stream: bool) -> tuple:
+    """Prefill eagerly, then load the result into the bucket's session;
+    with ``stream`` the prefilled state is a segment stream's, registered
+    and returned to the caller as its own. Returns (session, state)."""
+    state = prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
+                    target_totals)
+    inp = step_inputs(cfg, x_lens, prompt_lens, target_totals, seed)
+    key = _session_key(params, cfg, dcfg, x, prompt)
+    if stream:
+        _STREAMS[state] = _Stream(key, params)
+    session, new = _bucket_session(key, params, cfg, dcfg, state, inp)
+    session.load(state, inp, holder=state if stream else None)
+    session.launched += new      # the capture's warm-up step ran this request
+    return session, state
 
 
 def graphed_decoder(cfg: VoiceConfig, dcfg: DecodeConfig):
@@ -710,8 +789,9 @@ def graphed_decoder(cfg: VoiceConfig, dcfg: DecodeConfig):
         if x.device.type != "cuda":
             return decode_tokens(params, cfg, dcfg, x, x_lens, prompt,
                                  prompt_lens, target_totals, seed)
-        session = _session(params, cfg, dcfg, x, x_lens, prompt,
-                           prompt_lens, target_totals, seed)
+        session, _ = _prefilled_session(params, cfg, dcfg, x, x_lens, prompt,
+                                        prompt_lens, target_totals, seed,
+                                        stream=False)
         session.advance(dcfg.max_frames)
         return session.outputs()
 
@@ -723,16 +803,20 @@ def graphed_segment_fns(cfg: VoiceConfig, dcfg: DecodeConfig):
     ``engine.py::jitted_segment_fns``): ``prefill_fn(params, x, x_lens,
     prompt, prompt_lens, target_totals) -> LoopState`` and
     ``segment_fn(params, state, x_lens, prompt_lens, target_totals, seed,
-    until) -> LoopState`` (:func:`run_segment`). On the card the state is
-    the bucket's session state, advanced by replays of the captured step."""
+    until) -> LoopState`` (:func:`run_segment`). The state is the caller's
+    own, as JAX's is: on the card the bucket's session holds one stream at a
+    time and advances it by replays of the captured step, so any number of
+    streams of one bucket interleave, with one-shot requests and
+    evictions between their segments."""
 
     @torch.inference_mode()
     def prefill_fn(params, x, x_lens, prompt, prompt_lens, target_totals):
         if x.device.type != "cuda":
             return prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
                            target_totals)
-        return _session(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
-                        target_totals, 0).state
+        return _prefilled_session(params, cfg, dcfg, x, x_lens, prompt,
+                                  prompt_lens, target_totals, 0,
+                                  stream=True)[1]
 
     def segment_fn(params, state, x_lens, prompt_lens, target_totals, seed,
                    until):

@@ -9,9 +9,13 @@ serves with W8A8 decode weights (the decode-layer and W8A8 kernels);
 ``--quantize int4`` is the batch-1 latency mode (int4 decode-layer and head
 weights: the decode-layer kernels' int4 variant and the W4A8 kernel).
 ``--kv_cache paged_f8`` stores float8 e4m3 pages (the paged attention
-kernel's e4m3 variant). Not ported yet, and so refused with the ROADMAP
-entry that will bring them: ``--reference_speech`` (the codec encoder) and
-real XCodec2 weights (the codec converter; ``--random_codec`` works).
+kernel's e4m3 variant). The XCodec2 weights come from ``--codec_dir``
+(a ``model.safetensors``, converted by ``codec/convert.py``; without the
+flag the Hugging Face hub is asked for it), or are random with
+``--random_codec`` (decoder only). ``--reference_speech`` with
+``--reference_text`` clones the reference's voice (the codec encoder);
+a reference without its transcript needs Whisper, which is not ported yet
+(ROADMAP Queue 1 item 13), and is refused.
 """
 
 from __future__ import annotations
@@ -62,22 +66,64 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--approx_top_k", action="store_true",
                    help="accepted for compatibility; exact top-k is used")
     p.add_argument("--random_codec", action="store_true",
-                   help="random-init codec weights (smoke testing only)")
+                   help="random-init codec decoder weights (smoke testing "
+                        "only; no encoder, so no --reference_speech)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda or cpu)")
     return p
 
 
-def _check_ported(args) -> None:
-    if args.reference_speech and str(args.reference_speech).lower() not in {
-            "none", "null"}:
-        raise NotImplementedError(
-            "--reference_speech needs the codec encoder, which is not ported "
-            "yet (ROADMAP Queue 1 item 10)")
-    if not args.random_codec:
-        raise NotImplementedError(
-            "loading XCodec2 weights needs the codec converter, which is not "
-            "ported yet (ROADMAP Queue 1 item 15); pass --random_codec")
+def _given(value) -> bool:
+    return value is not None and str(value).strip().lower() not in {
+        "", "none", "null"}
+
+
+def _load_codec(args, hf_cfg, device):
+    """The XCodec2 tokenizer: random decoder weights with
+    ``--random_codec``, else ``model.safetensors`` from ``--codec_dir`` (or
+    the hub) through the port's converter."""
+    from ..codec.audio_tokenizer import AudioTokenizer
+    from ..codec.model import XCodec2Config, init_decoder_params
+
+    ccfg = XCodec2Config()
+    if args.random_codec:
+        return AudioTokenizer(init_decoder_params(0, ccfg, device), ccfg,
+                              device)
+    codec_dir = args.codec_dir
+    if codec_dir is None:
+        model_id = args.xcodec2_model_name or (hf_cfg or {}).get(
+            "xcodec2_model_name") or "NandemoGHS/Anime-XCodec2-44.1kHz-v2"
+        try:
+            from huggingface_hub import hf_hub_download
+
+            path = hf_hub_download(repo_id=model_id,
+                                   filename="model.safetensors")
+        except Exception as exc:
+            raise RuntimeError(
+                f"cannot download codec weights for {model_id}: {exc}. "
+                "Pass --codec_dir with a local model.safetensors.") from exc
+        codec_dir = os.path.dirname(path)
+    from safetensors import safe_open
+
+    from ..codec.convert import xcodec2_state_dict_to_params
+
+    with safe_open(os.path.join(codec_dir, "model.safetensors"),
+                   framework="np") as f:
+        sd = {k: f.get_tensor(k) for k in f.keys()}
+    return AudioTokenizer(
+        xcodec2_state_dict_to_params(sd, ccfg, device=device), ccfg, device)
+
+
+def _file_rate(path: str) -> int:
+    from .audio_io import read_wav
+
+    try:
+        import wave
+
+        with wave.open(path, "rb") as w:
+            return w.getframerate()
+    except (wave.Error, EOFError):
+        return read_wav(path)[1]
 
 
 def _text_tokenizer(hf_cfg):
@@ -90,8 +136,6 @@ def _text_tokenizer(hf_cfg):
 
 
 def run_inference(args: argparse.Namespace) -> str:
-    from ..codec.audio_tokenizer import AudioTokenizer
-    from ..codec.model import XCodec2Config, init_decoder_params
     from ..config import DecodeConfig
     from ..device import resolve_device
     from .audio_io import write_wav
@@ -100,15 +144,24 @@ def run_inference(args: argparse.Namespace) -> str:
     from .textnorm import normalize_text_with_lang
 
     device = resolve_device(args.device)
-    _check_ported(args)
-    if args.reference_text and str(args.reference_text).strip().lower() not in {
-            "", "none", "null"}:
+    reference = args.reference_speech if _given(args.reference_speech) \
+        else None
+    has_ref_text = _given(args.reference_text)
+    if reference is None and has_ref_text:
         raise ValueError("reference_text provided without reference_speech")
+    if reference is not None and not has_ref_text:
+        raise NotImplementedError(
+            "--reference_speech without --reference_text needs Whisper "
+            "auto-transcription, which is not ported yet (ROADMAP Queue 1 "
+            "item 13); pass --reference_text")
+    if reference is not None and args.random_codec:
+        raise ValueError(
+            "--random_codec gives random codec decoder weights and no "
+            "encoder, so it cannot encode --reference_speech; pass "
+            "--codec_dir")
 
     params, cfg, hf_cfg = load_voice_model(args.model_dir, device)
-    ccfg = XCodec2Config()
-    audio_tok = AudioTokenizer(init_decoder_params(0, ccfg, device), ccfg,
-                               device)
+    audio_tok = _load_codec(args, hf_cfg, device)
     pipe = TTSPipeline(params, cfg, _text_tokenizer(hf_cfg), audio_tok,
                        device=device, int8=args.quantize == "int8",
                        int4=args.quantize == "int4")
@@ -117,6 +170,13 @@ def run_inference(args: argparse.Namespace) -> str:
     target_text, lang_code = normalize_text_with_lang(args.target_text, lang)
     silence = tuple(json.loads(str(args.silence_tokens))) \
         if args.silence_tokens else ()
+    repeat = args.repeat_prompt
+    if isinstance(repeat, str) and repeat.lower() != "max":
+        repeat = int(repeat)
+    # the reference read stops at cut_off_sec, at the file's sample rate
+    # (reference inference_commandline_hf.py:173-182)
+    prompt_end_frame = -1 if reference is None else int(
+        args.cut_off_sec * _file_rate(reference))
     dcfg = DecodeConfig(
         top_k=args.top_k, top_p=args.top_p, min_p=args.min_p,
         temperature=args.temperature, stop_repetition=args.stop_repetition,
@@ -124,7 +184,10 @@ def run_inference(args: argparse.Namespace) -> str:
         approx_top_k=args.approx_top_k)
     res = pipe.synthesize(
         Request(target_text=target_text, lang=lang_code,
-                target_duration=args.target_duration),
+                audio_path=reference,
+                prompt_transcript=args.reference_text if reference else None,
+                target_duration=args.target_duration, repeat_prompt=repeat,
+                prompt_end_frame=prompt_end_frame),
         dcfg, seed=args.seed)
 
     os.makedirs(args.output_dir, exist_ok=True)

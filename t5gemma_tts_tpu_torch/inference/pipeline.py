@@ -1,7 +1,9 @@
-"""End-to-end TTS inference pipeline (text -> waveform), in PyTorch.
+"""End-to-end TTS inference pipeline (text [+ reference audio] ->
+waveform), in PyTorch.
 
-Counterpart of ``t5gemma_tts_tpu/inference/pipeline.py``: x_sep assembly,
-target length (prompt + codec_sr * target_secs), batched decode, sep/EOG
+Counterpart of ``t5gemma_tts_tpu/inference/pipeline.py``: reference-audio
+tokenization (voice cloning: the XCodec2 encoder), ``repeat_prompt`` (an int
+or ``"max"``), y_sep / x_sep assembly, target length (prompt + codec_sr * target_secs), batched decode, sep/EOG
 stripping, codec decode and the ``[Speed]`` report. Text, prompt and
 generation buffers are padded to the same buckets as the JAX package, so a
 request decodes over the same shapes. PyTorch compiles nothing, so there is
@@ -12,9 +14,7 @@ per shape bucket, replayed (the JAX pipeline serves through
 decode weights (``ops/quant.quantize_params_for_decode``), whose paged decode
 steps run through the decode-layer kernels; ``int4=True`` is the batch-1
 latency mode: the six decode-layer products and the head's ``w2`` become
-int4 (W4A8), everything else quantized stays int8. Voice cloning (a
-reference recording) needs the codec encoder, which comes with a later
-slice.
+int4 (W4A8), everything else quantized stays int8.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..codec.audio_tokenizer import AudioTokenizer
+from ..codec.audio_tokenizer import AudioTokenizer, tokenize_audio
 from ..config import DecodeConfig, VoiceConfig
 from ..decode import engine
 from ..device import DeviceLike, resolve_device, tree_to
@@ -83,7 +83,8 @@ class TTSPipeline:
                  fuse_matmuls: bool = True,
                  device: DeviceLike = "cuda",
                  int8: bool = False,
-                 int4: bool = False):
+                 int4: bool = False,
+                 audio_max_length: float = 120.0):
         self.device = resolve_device(device)
         params = tree_to(params, self.device)
         if fuse_matmuls or int8 or int4:
@@ -99,16 +100,38 @@ class TTSPipeline:
         self.cfg = cfg
         self.encode_text = text_tokenizer
         self.audio_tokenizer = audio_tokenizer
+        self.audio_max_length = audio_max_length
 
     # -- assembly -----------------------------------------------------------
 
-    def _prompt_tokens(self, req: Request) -> List[int]:
+    def _prompt_tokens(self, req: Request, codec_sr: int,
+                       target_secs: float) -> List[int]:
+        """The reference recording's codes (cut at ``prompt_end_frame``
+        samples of the file), repeated ``repeat_prompt`` more times (or, with
+        ``"max"``, while prompt + target + one more copy stay under
+        ``audio_max_length`` seconds), then y_sep; [] without a
+        recording."""
         if not req.audio_path or str(req.audio_path).lower() in {
                 "", "none", "null"}:
             return []
-        raise NotImplementedError(
-            "voice cloning needs the codec encoder, which is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
+        if self.audio_tokenizer is None:
+            raise ValueError("voice cloning needs an audio tokenizer")
+        frames = tokenize_audio(
+            self.audio_tokenizer, req.audio_path,
+            num_frames=req.prompt_end_frame if req.prompt_end_frame > 0
+            else -1)                                        # [1, T, 1]
+        base = frames[0, :, 0].tolist()
+        tokens = list(base)
+        if isinstance(req.repeat_prompt, int) and req.repeat_prompt > 0:
+            tokens = tokens + base * req.repeat_prompt
+        elif (isinstance(req.repeat_prompt, str)
+              and req.repeat_prompt.lower() == "max"):
+            while base and (len(tokens) + codec_sr * target_secs + len(base)
+                            < self.audio_max_length * codec_sr):
+                tokens += base
+        if tokens:
+            tokens.append(self.cfg.special.y_sep)
+        return tokens
 
     def _text_tokens(self, req: Request) -> Tuple[List[int], str]:
         target_text, lang = normalize_text_with_lang(req.target_text, req.lang)
@@ -138,7 +161,7 @@ class TTSPipeline:
             target_secs = estimate_duration(
                 req.target_text, req.audio_path, req.prompt_transcript,
                 req.lang)
-        prompt = self._prompt_tokens(req)
+        prompt = self._prompt_tokens(req, sr, target_secs)
         text, _ = self._text_tokens(req)
         return PlannedRequest(text=text, prompt=prompt,
                               target=len(prompt) + int(sr * target_secs))

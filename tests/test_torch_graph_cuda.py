@@ -2,9 +2,10 @@
 card: ``engine.graphed_decoder`` (the step captured as a CUDA graph and
 replayed, the all-done flag read a few replays late) token-equal to
 ``engine.decode_tokens``, greedy and sampled, over every KV cache and every
-``T5G_FUSED_ATTN`` mode; a second request into a session; the segment fns;
-and a capture that fails raises. This module imports no JAX; run it on the
-card with
+``T5G_FUSED_ATTN`` mode; a second request into a session; the segment fns,
+two streams of one bucket interleaved with one-shot requests and
+evictions between their segments; and a capture that fails raises. This
+module imports no JAX; run it on the card with
 
     python -m pytest -o addopts= --noconftest tests/test_torch_graph_cuda.py
 
@@ -148,6 +149,44 @@ def test_graphed_segments_equal_one_shot():
         engine.run_segment(params, cfg, dcfg, engine.prefill(
             params, cfg, dcfg, x, x_lens, prompt, plens, targets), x_lens,
             plens, targets, 4, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_sessions", [8, 1])
+def test_interleaved_streams_keep_their_own_state(monkeypatch, max_sessions):
+    """Two segment streams of one bucket, interleaved, with a one-shot
+    graphed_decoder request between their segments (of the same bucket, or
+    with MAX_SESSIONS = 1 of another one, which evicts the streams'
+    session): each stream stays token-equal to its own one-shot decode."""
+    dev = _card()
+    monkeypatch.setattr(engine, "MAX_SESSIONS", max_sessions)
+    cfg = _cfg()
+    params = _params(cfg, "f32", dev)
+    dcfg = tconfig.DecodeConfig(kv_cache="paged", max_frames=MAX_FRAMES,
+                                **SAMPLED)
+    other = dataclasses.replace(dcfg, top_k=4) if max_sessions == 1 else dcfg
+    reqs = [(_inputs(cfg, dev), 4),
+            (_inputs(cfg, dev, seed=9,
+                     lens=((9, 3, 25), (30, 0, 12), (2, 40, 18))), 7)]
+    engine.release_sessions()
+    wants = [engine.decode_tokens(params, cfg, dcfg, *inp, seed)
+             for inp, seed in reqs]
+    prefill_fn, segment_fn = engine.graphed_segment_fns(cfg, dcfg)
+    states = [prefill_fn(params, *inp) for inp, _ in reqs]
+    assert states[0].tokens.data_ptr() != states[1].tokens.data_ptr()
+    for until in (5, 11, 20, MAX_FRAMES):
+        for i, ((x, x_lens, _, plens, targets), seed) in enumerate(reqs):
+            states[i] = segment_fn(params, states[i], x_lens, plens, targets,
+                                   seed, until)
+            assert int(states[i].step) == min(until, wants[i].steps)
+        one_shot = engine.graphed_decoder(cfg, other)(
+            params, *reqs[1][0], 3)
+        _same(one_shot, engine.decode_tokens(params, cfg, other,
+                                             *reqs[1][0], 3))
+        assert len(engine.sessions()) <= max_sessions
+    for state, want in zip(states, wants):
+        assert torch.equal(state.tokens, want.tokens)
+        assert int(state.step) == want.steps
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ from t5gemma_tts_tpu_torch import bridge
 from t5gemma_tts_tpu_torch import config as tconfig
 from t5gemma_tts_tpu_torch.codec import audio_tokenizer as ttok
 from t5gemma_tts_tpu_torch.codec import model as tcodec
+from t5gemma_tts_tpu_torch.inference import audio_io
 from t5gemma_tts_tpu_torch.decode import engine as teng
 from t5gemma_tts_tpu_torch.inference import pipeline as tpipe
 from t5gemma_tts_tpu_torch.ops import megakernel as tmk
@@ -127,7 +128,7 @@ def _char_tokenizer(text):
     return [3 + (ord(c) % 500) for c in text]
 
 
-def test_int8_pipeline_gives_finite_waveforms():
+def test_int8_pipeline_gives_finite_waveforms(tmp_path):
     jcfg = _cfg(backbone_preset, tiny_voice_config)
     tcfg = _cfg(tconfig.backbone_preset, tconfig.tiny_voice_config)
     params = jvoice.init_params(jax.random.PRNGKey(7), jcfg)
@@ -153,11 +154,22 @@ def test_int8_pipeline_gives_finite_waveforms():
             assert len(r.gen_frames) > 0
             assert r.wav.shape == (len(r.gen_frames) * ccfg.hop_length,)
             assert np.isfinite(r.wav).all()
-    # voice cloning needs the codec encoder, which is not ported yet
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pipe.synthesize(tpipe.Request(target_text="hi", audio_path="ref.wav",
-                                      target_duration=0.3),
-                        quiet=True)
+    # voice cloning through the int8 pipeline: the reference's codes lead
+    # the concat frames
+    tok.params.update(tcodec.init_encoder_params_for(1, ccfg, "cpu"))
+    ref = str(tmp_path / "ref.wav")
+    t = np.arange(6000)
+    audio_io.write_wav(ref, (0.3 * np.sin(0.4 * t)).astype(np.float32),
+                       ccfg.encode_sample_rate)
+    res = pipe.synthesize(
+        tpipe.Request(target_text="hi", audio_path=ref, target_duration=0.3,
+                      prompt_transcript="the reference", lang="en"),
+        tconfig.DecodeConfig(top_k=4, kv_cache="paged_i8"), seed=0,
+        quiet=True)
+    base = ttok.tokenize_audio(tok, ref)[0, :, 0]
+    assert len(base) > 0 and len(res.gen_frames) > 0
+    np.testing.assert_array_equal(res.concat_frames[:len(base)], base)
+    assert np.isfinite(res.wav).all()
 
 
 def test_cli_serves_int8(tmp_path):
