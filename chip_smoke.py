@@ -141,6 +141,29 @@ Phases, in order; any failure exits non-zero before the result line:
    with a one-shot request between their segments and, with
    MAX_SESSIONS = 1, an eviction, each to its one-shot decode.
 
+4i. serving: ``TTSPipeline.warmup`` on the int8 pipeline as a server
+   starts (every session dropped first; the kernels' builds, a captured
+   session for batch 1 and 4 at the serving buckets, the vocoder's length
+   buckets, each timed); streaming on the bf16 pipeline, the 4.0 s request
+   at batch 1 (time to first audio and stream wall against the one-shot
+   wall; tokens equal the one-shot decode's, alone and with a one-shot
+   request between two segments; the waveform's max abs error); then on
+   the bf16 and the int8 pipelines, continuous batching in 4 slots of
+   eight requests 0.1 s apart (ragged texts): through ContinuousServer,
+   sampled (launches: kernel 1 2 x 26 a step body, or decode_stack one a
+   body and W8A8 at least two; aggregate RTF), each request alone in the
+   same resident state at the seed the server gave it (tokens equal,
+   exact; the continuous step and the admission timed, synchronized,
+   against phase 4's synchronized graphed step), the same requests through
+   BatchingServer (max batch 4), and greedy in a state of its own, each
+   stream against the request at batch 1, parting only under the stream
+   contract's near-tie rule (``cross_batch_parting``); kernel 1 (bf16),
+   decode_stack (int8) at the continuous path's ragged lengths (generation
+   50 / 0 / 343 / 350, encoder 48 / 52 / 37 / 42) and the W8A8 products
+   of the int8 continuous path (the head at M = 4, the batch-1 admission
+   prefill at M = 65, cross K/V at M = 64), each against its plain
+   version; a ``[serve]`` JSON line.
+
 Every main path (4, 4b, 4c's int4 run, 4f, 4g) runs its decode graphed and
 eager and is profiled both ways; a ``[graph]`` line sums them up as JSON.
 
@@ -405,7 +428,7 @@ def phase_kernel_splits(card: str, rng, page: str) -> float:
     return worst
 
 
-def main_path_step_timing(card: str, prompt_len, gen_len: int,
+def main_path_step_timing(card: str, prompt_len, gen_len,
                           enc_lens, gen_slab: int, iters: int,
                           f8: bool = False, prompt_pages: int = 1) -> dict:
     """One decode step's 52 launches (self + cross for each of 26 layers)
@@ -413,7 +436,8 @@ def main_path_step_timing(card: str, prompt_len, gen_len: int,
     kernel (graph-replayed, and eager) against plain version, with the
     split plans, which must fill a wave. ``prompt_len`` (BOS included) is
     one length or one a row, over ``prompt_pages`` pages a row (a cloned
-    prompt's bucket)."""
+    prompt's bucket); ``gen_len`` one length or one a row (the continuous
+    path's per-row clocks)."""
     from t5gemma_tts_tpu_torch.ops import fused_attn as fa
 
     rng = np.random.default_rng(1)
@@ -424,8 +448,10 @@ def main_path_step_timing(card: str, prompt_len, gen_len: int,
                   li=0, f8=f8)
     a_lens = (list(prompt_len) if isinstance(prompt_len, (list, tuple))
               else [prompt_len] * b)
+    b_lens = (list(gen_len) if isinstance(gen_len, (list, tuple))
+              else [gen_len] * b)
     self_args = attention_case(
-        rng, device=dev, a_lens=a_lens, b_lens=[gen_len] * b,
+        rng, device=dev, a_lens=a_lens, b_lens=b_lens,
         pp_a=prompt_pages, pp_b=gen_slab // PAGE, include_current=True,
         **common)
     cross_args = attention_case(
@@ -467,7 +493,7 @@ def main_path_step_timing(card: str, prompt_len, gen_len: int,
     splits = {"self": attention_plan(self_args),
               "cross": attention_plan(cross_args)}
     print(f"[kernel] main-path step (B={b}, prompt {a_lens}, gen "
-          f"{gen_len}, enc {list(enc_lens)}, {'e4m3' if f8 else 'bf16'} "
+          f"{b_lens}, enc {list(enc_lens)}, {'e4m3' if f8 else 'bf16'} "
           f"pages; mean of {n} launches): "
           f"kernel_ms={k_ms:.4f} (graph; eager {eager_ms:.4f}) plain_ms="
           f"{p_ms:.4f} bound_ms={b_ms:.5f} ({by}) max_abs_err={worst:.3e}; "
@@ -941,12 +967,14 @@ def product_timing(calls, card: str, label: str, iters: int) -> dict:
 
 def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
                       iters: int, prompts=1, prompt_slab: int = PAGE,
-                      parts: bool = True) -> dict:
+                      parts: bool = True, gen_lens=None) -> dict:
     """One decode step's quantized work at the main path's cache shapes, on
     the main path's own weights: the decode_stack call (26 layers, int8
     pages; ``prompts`` one prompt length, BOS included, or one a row, in a
-    ``prompt_slab``-token slab; with ``parts`` its device time by part)
-    and the step's two head products, each against its plain version. Int8
+    ``prompt_slab``-token slab; every row at ``steps // 2`` generated
+    tokens, or at its own ``gen_lens``; with ``parts`` its device time by
+    part) and the step's two head products, each against its plain
+    version. Int8
     weights: the two W8A8 head products as one mean; int4 weights: the
     head's w1 (W8A8) and w2 (W4A8) each on its own."""
     from t5gemma_tts_tpu_torch.ops import megakernel as mk
@@ -958,8 +986,9 @@ def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
     int4 = isinstance(layers["mlp"]["down"], quant.Int4Weight)
     weights = "int4" if int4 else "int8"
     b = len(enc_lens)
+    gen_lens = list(gen_lens) if gen_lens is not None else [steps // 2] * b
     args = decode_layer_inputs(dims, b, True, prompt=prompts,
-                               gen_lens=[steps // 2] * b, enc_lens=enc_lens,
+                               gen_lens=gen_lens, enc_lens=enc_lens,
                                gen_slab=gen_slab, device=dev, seed=6,
                                prompt_slab=prompt_slab)
     got = mk.decode_stack(layers, dims, **args)
@@ -985,7 +1014,7 @@ def quant_step_timing(pipe, card: str, steps: int, enc_lens, gen_slab: int,
     stack["splits"] = layer_plans(dims, args)
     print(f"[kernel] decode_stack {weights} main-path step (B={b}, prompt "
           f"{prompts}, "
-          f"gen {steps // 2}, enc {list(enc_lens)}, int8 pages, 26 layers): "
+          f"gen {gen_lens}, enc {list(enc_lens)}, int8 pages, 26 layers): "
           f"relative error h/k/v {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} "
           f"(tol {REL_FRO_TOL_STACK:g}), max_abs_err="
           f"{stack['max_abs_err']:.3e}, "
@@ -2777,6 +2806,393 @@ def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4i: serving (streaming, continuous batching, the servers, warm-up)
+# ---------------------------------------------------------------------------
+
+SERVE_TEXTS = ("Good morning.",
+               "The weather is fine today, isn't it?",
+               "One more request joins the batch.",
+               "Continuous batching keeps the slots full.",
+               "Short.",
+               "Streaming speech arrives while it is made.",
+               "A request that arrives late does not wait.",
+               "Every slot draws from its own seed.")
+SERVE_DURATIONS = (1.0, 0.6, 1.4, 0.8, 1.2, 0.5, 1.5, 0.9)
+SERVE_SLOTS = 4
+# the continuous path's ragged per-row lengths for the kernels' check:
+# generated tokens (slot 1 just admitted or idle) and encoder lengths
+CONTINUOUS_GEN = (50, 0, 343, 350)
+CONTINUOUS_ENC = (48, 52, 37, 42)
+SERVE_BUCKETS = (64, 64, 512)         # text, prompt, frames of the state
+SERVE_SEGMENT = 50                    # frames a segment
+ARRIVAL_S = 0.1                       # between two requests' arrivals
+NEAR_TIE_REL = 0.1                    # logits before a cross-batch parting
+BF16_STEP = 0.03125                   # the top two logits at a parting
+
+
+def serve_requests():
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request
+
+    return [Request(target_text=t, target_duration=d, lang="en")
+            for t, d in zip(SERVE_TEXTS, SERVE_DURATIONS)]
+
+
+def slot_inputs(pipe, req) -> tuple:
+    """(x, x_len, prompt, prompt_len, target) of a request at the resident
+    state's text and prompt buckets."""
+    planned = pipe.plan_request(req)
+    tx, pm, _ = SERVE_BUCKETS
+    x = np.zeros((tx,), np.int32)
+    x[:len(planned.text)] = planned.text
+    p = np.full((pm,), pipe.cfg.special.pad, np.int32)
+    p[:len(planned.prompt)] = planned.prompt
+    return x, len(planned.text), p, len(planned.prompt), planned.target
+
+
+def synced(fn):
+    """(fn(), seconds) with the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def submit_spaced(server, reqs) -> tuple:
+    """Submit ``reqs`` ARRIVAL_S apart; (results, wall s from the first
+    arrival to the last result)."""
+    t0 = time.perf_counter()
+    futs = []
+    for i, r in enumerate(reqs):
+        if i:
+            time.sleep(ARRIVAL_S)
+        futs.append(server.submit(r))
+    results = [f.result(timeout=600) for f in futs]
+    return results, time.perf_counter() - t0
+
+
+def stripped(pipe, tokens):
+    strip = [pipe.cfg.special.y_sep, pipe.cfg.eog_inference]
+    tokens = np.asarray(tokens)
+    return tokens[~np.isin(tokens, strip)]
+
+
+def run_alone(pipe, fns, state, inputs, seed) -> tuple:
+    """One request alone in slot 0 of a resident state, segment by segment
+    until it is harvested: (raw tokens, bodies, segment seconds, admission
+    seconds), each timed with the card synchronized."""
+    from t5gemma_tts_tpu_torch.decode import continuous
+
+    _, admit_s = synced(lambda: fns.admit(pipe.params, state, 0, *inputs,
+                                          seed))
+    bodies, seg_s = 0, 0.0
+    for _ in range(SERVE_BUCKETS[2] // SERVE_SEGMENT + 2):
+        _, s = synced(lambda: fns.segment(pipe.params, state, SERVE_SEGMENT))
+        bodies, seg_s = bodies + SERVE_SEGMENT, seg_s + s
+        outs = continuous.harvest(state)[1]
+        if outs:
+            return outs[0][1], bodies, seg_s, admit_s
+    raise AssertionError("a request alone did not finish")
+
+
+def cross_batch_parting(pipe, dcfg, inputs, slot, cont, alone) -> str:
+    """Where a greedy continuous stream (``cont``, raw tokens from ``slot``)
+    parts from the same request at batch 1 (``alone``), held to the stream
+    contract's cross-batch rule: greedy, the logits of the two (teacher
+    forced: the streams are equal before the parting) within NEAR_TIE_REL
+    relative before it, and the batch-1 top two logits within one bf16 step
+    (BF16_STEP) at it. Both logit streams come from eager runs (the batch-1
+    loop, and the request alone in an eager resident state, whose tokens
+    must be the graphed stream's)."""
+    from t5gemma_tts_tpu_torch.decode import continuous, engine
+
+    n = min(len(cont), len(alone))
+    differ = np.nonzero(cont[:n] != alone[:n])[0]
+    t = int(differ[0]) if len(differ) else n
+    cfg, dev = pipe.cfg, pipe.device
+    x, xl, p, pl, tgt = inputs
+    one = [torch.tensor(v, dtype=torch.int32, device=dev)
+           for v in (x[None], [xl], p[None], [pl], [tgt])]
+    b1 = {}
+
+    def run_b1():
+        st = engine.prefill(pipe.params, cfg, dcfg, *one)
+        body = engine._make_body(pipe.params, cfg, dcfg, engine.step_inputs(
+            cfg, one[1], one[3], one[4], 0))
+        for _ in range(t + 1):
+            st = body(st)
+
+    with torch.inference_mode():
+        _recorded(run_b1, b1)
+    rows = engine.sample_step_token_rows
+    cont_logits = {}
+
+    def recording(cfg_, dcfg_, logits, steps, *a, **k):
+        cont_logits[int(steps[slot])] = logits[slot].float().clone()
+        return rows(cfg_, dcfg_, logits, steps, *a, **k)
+
+    engine.sample_step_token_rows = recording
+    try:
+        fns = continuous.make_fns(cfg, dcfg, graphed=False)
+        state = continuous.init_slots(cfg, dcfg, SERVE_SLOTS,
+                                      *SERVE_BUCKETS[:2], dev)
+        fns.admit(pipe.params, state, slot, *inputs, 0)
+        fns.segment(pipe.params, state, t + 1)
+    finally:
+        engine.sample_step_token_rows = rows
+    eager = state.tokens[slot, :t + 1].cpu().numpy()
+    if not np.array_equal(eager, cont[:t + 1]):
+        raise AssertionError(f"slot {slot}: the eager resident state's "
+                             f"tokens {eager} are not the graphed stream's "
+                             f"{cont[:t + 1]}")
+
+    def rel(s):
+        a, c = b1[s][0], cont_logits[s]
+        return float((c - a).norm() / a.norm())
+
+    before = max((rel(s) for s in range(t)), default=0.0)
+    top2 = torch.topk(b1[t][0], 2).values
+    gap = float(top2[0] - top2[1])
+    if before > NEAR_TIE_REL or gap > BF16_STEP:
+        raise AssertionError(f"slot {slot}: greedy stream parts from batch "
+                             f"1 at step {t}: logits {before:.2e} apart "
+                             f"before it (tol {NEAR_TIE_REL}), batch-1 top "
+                             f"two {gap:.3e} apart (tol {BF16_STEP})")
+    return (f"parts at step {t}: logits apart by at most {before:.2e} "
+            f"(relative) before it; there the batch-1 top two logits lie "
+            f"{gap:.3e} apart")
+
+
+def phase_serve_stream(card: str, pipe, seed: int) -> dict:
+    """Streaming synthesis, bf16 at batch 1: the 4.0 s request (about 450
+    frames), one-shot (``synthesize``, after one run that captures the
+    bucket), then streamed alone and with a one-shot request of the same
+    bucket between its first two pieces: tokens equal the one-shot
+    decode's, the waveform within its max abs error; time to first audio
+    and stream wall against the one-shot wall."""
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request
+
+    req = Request(target_text=TEXTS[-1], target_duration=DURATIONS[-1],
+                  lang="en")
+    other = Request(target_text=TEXTS[0], target_duration=DURATIONS[-1],
+                    lang="en")
+    dcfg = DecodeConfig(kv_cache="paged", seed=seed)
+    pipe.synthesize(req, dcfg, seed=seed, quiet=True)
+    one, one_s = synced(lambda: pipe.synthesize(req, dcfg, seed=seed,
+                                                quiet=True))
+    out = {"frames": len(one.gen_frames), "one_shot_wall_s": one_s}
+    for tag, interleave in (("", False), ("interleaved_", True)):
+        fed, pieces = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ttfa = None
+        for piece in pipe.synthesize_streaming(
+                req, dcfg, seed=seed, segment_frames=SERVE_SEGMENT,
+                vocode_chunk=SERVE_SEGMENT, on_tokens=fed.append):
+            if ttfa is None:
+                ttfa = time.perf_counter() - t0
+                if interleave:
+                    pipe.synthesize(other, dcfg, seed=seed + 1, quiet=True)
+            pieces.append(piece)
+        wall = time.perf_counter() - t0
+        toks = np.concatenate(fed)
+        if not np.array_equal(toks, one.gen_frames):
+            raise AssertionError(f"stream{' (interleaved)' * interleave}: "
+                                 f"tokens differ from the one-shot decode "
+                                 f"at {np.nonzero(toks != one.gen_frames)}")
+        wav = np.concatenate(pieces)
+        if wav.shape != one.wav.shape or not np.isfinite(wav).all():
+            raise AssertionError(f"streamed wav {wav.shape} against "
+                                 f"{one.wav.shape}")
+        out.update({f"{tag}ttfa_s": ttfa, f"{tag}stream_wall_s": wall,
+                    f"{tag}pieces": len(pieces),
+                    f"{tag}wav_max_abs_err": float(
+                        np.abs(wav - one.wav).max())})
+    print(f"[serve/stream] bf16 B=1, {out['frames']} frames: first audio "
+          f"after {out['ttfa_s']:.3f}s against a one-shot wall of "
+          f"{one_s:.3f}s (stream wall {out['stream_wall_s']:.3f}s, "
+          f"{out['pieces']} pieces); tokens equal the one-shot decode's, "
+          f"alone and with a one-shot request between two segments (first "
+          f"audio {out['interleaved_ttfa_s']:.3f}s, wall "
+          f"{out['interleaved_stream_wall_s']:.3f}s); waveform max abs err "
+          f"{out['wav_max_abs_err']:.2e} [{card}]")
+    return out
+
+
+def phase_serve_continuous(card: str, pipe, weights: str, seed: int,
+                           sync_step_ms: float) -> dict:
+    """Continuous batching at 2b-2b, SERVE_SLOTS slots, the eight
+    SERVE_TEXTS requests ARRIVAL_S apart (ragged text lengths):
+
+    - sampled (the default DecodeConfig) through ContinuousServer: the
+      launch counts of the run (0 just before the first arrival, read
+      after the last result), aggregate RTF; then each request alone in
+      slot 0 of the same resident state at the seed the server gave it:
+      its tokens must equal the server's (exact), which also times the
+      continuous step (segments synchronized) and the admission;
+    - the same requests through BatchingServer (max batch SERVE_SLOTS);
+    - greedy in a resident state of its own (admitted as slots free up),
+      each stream against the request at batch 1 (engine.graphed_decoder
+      at the state's buckets): equal, or parting only under the stream
+      contract's cross-batch rule (:func:`cross_batch_parting`)."""
+    import dataclasses
+
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+    from t5gemma_tts_tpu_torch.decode import continuous, engine
+    from t5gemma_tts_tpu_torch.inference.server import (BatchingServer,
+                                                        ContinuousServer)
+
+    cfg = pipe.cfg
+    layers = cfg.backbone.decoder.num_layers
+    kv = "paged" if weights == "bf16" else "paged_i8"
+    tx, pm, frames = SERVE_BUCKETS
+    dcfg = DecodeConfig(kv_cache=kv, seed=seed, max_frames=frames)
+    reqs = serve_requests()
+    inputs = [slot_inputs(pipe, r) for r in reqs]
+
+    srv = ContinuousServer(pipe, dcfg, slots=SERVE_SLOTS, text_bucket=tx,
+                           prompt_bucket=pm, segment_frames=SERVE_SEGMENT)
+    if srv.capture_ms is None:
+        raise AssertionError("the continuous server did not capture its "
+                             "segment before serving")
+    rec = continuous.stats(srv.state)
+    bodies0, segments0 = rec.bodies, rec.segments
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    try:
+        results, wall = submit_spaced(srv, reqs)
+    finally:
+        srv.close()
+    launches = {k: c.launches for k, c in counters.items()}
+    bodies, segments = rec.bodies - bodies0, rec.segments - segments0
+    n = launches
+    if weights == "bf16":
+        ok = (n["batch_paged_attention"] == 2 * layers * bodies
+              and n["decode_stack"] == n["w8a8_matmul"] == 0)
+    else:
+        ok = (n["decode_stack"] == bodies and n["batch_paged_attention"] == 0
+              and n["w8a8_matmul"] >= 2 * bodies)
+    if not ok or bodies == 0:
+        raise AssertionError(f"continuous {weights}: launches {launches} "
+                             f"over {bodies} step bodies")
+    hop = pipe.audio_tokenizer.cfg.hop_length
+    for r in results:
+        if (r.wav is None or len(r.wav) != len(r.gen_frames) * hop
+                or not np.isfinite(r.wav).all()):
+            raise AssertionError("a continuous result's waveform is missing, "
+                                 "cut or not finite")
+    frames_out = sum(len(r.gen_frames) for r in results)
+    rtf = frames_out / cfg.encodec_sr / wall
+
+    fns = continuous.make_fns(cfg, dcfg)
+    step_s = admit_s = 0.0
+    n_bodies = 0
+    for req_inputs, res in zip(inputs, results):
+        toks, b, s, a = run_alone(pipe, fns, srv.state, req_inputs, res.seed)
+        if not np.array_equal(stripped(pipe, toks), res.gen_frames):
+            raise AssertionError(f"continuous {weights} sampled: the "
+                                 f"request with seed {res.seed} alone in "
+                                 f"the same resident state gives other "
+                                 f"tokens than in the batch")
+        n_bodies, step_s, admit_s = n_bodies + b, step_s + s, admit_s + a
+    step_ms = 1e3 * step_s / n_bodies
+    admit_ms = 1e3 * admit_s / len(reqs)
+
+    bsrv = BatchingServer(pipe, dcfg, max_batch=SERVE_SLOTS)
+    try:
+        bresults, bwall = submit_spaced(bsrv, reqs)
+    finally:
+        bsrv.close()
+    brtf = sum(len(r.gen_frames) for r in bresults) / cfg.encodec_sr / bwall
+
+    gcfg = dataclasses.replace(dcfg, top_k=1)
+    gfns = continuous.make_fns(cfg, gcfg)
+    gstate = continuous.init_slots(cfg, gcfg, SERVE_SLOTS, tx, pm,
+                                   pipe.device)
+    queue, held, got = list(range(len(reqs))), {}, {}
+    while len(got) < len(reqs):
+        for slot in range(SERVE_SLOTS):
+            if slot not in held and queue:
+                held[slot] = queue.pop(0)
+                gfns.admit(pipe.params, gstate, slot, *inputs[held[slot]], 0)
+        gfns.segment(pipe.params, gstate, SERVE_SEGMENT)
+        for slot, toks in continuous.harvest(gstate)[1]:
+            got[held.pop(slot)] = (slot, toks)
+    decode1 = engine.graphed_decoder(cfg, gcfg)
+    equal, partings = 0, []
+    for i, (slot, toks) in sorted(got.items()):
+        one = [torch.tensor(v, dtype=torch.int32, device=pipe.device)
+               for v in (inputs[i][0][None], [inputs[i][1]],
+                         inputs[i][2][None], [inputs[i][3]],
+                         [inputs[i][4]])]
+        out = decode1(pipe.params, *one, 0)
+        alone = out.tokens[0, :int(out.gen_lens[0])].cpu().numpy()
+        if np.array_equal(toks, alone):
+            equal += 1
+        else:
+            partings.append(f"request {i} (slot {slot}) " + (
+                cross_batch_parting(pipe, gcfg, inputs[i], slot, toks,
+                                    alone)))
+    for p in partings:
+        print(f"[serve/{weights}] greedy against batch 1: {p}")
+    res = {"requests": len(reqs), "frames": frames_out, "bodies": bodies,
+           "segments": segments, "capture_ms": srv.capture_ms,
+           "launches": launches, "wall_s": wall, "rtf": rtf,
+           "admit_ms": admit_ms,
+           "admit_host_ms_mean": float(np.mean(srv.stats.admit_ms)),
+           "step_ms": step_ms, "sync_graphed_step_ms": sync_step_ms,
+           "state_bytes": continuous.state_bytes(srv.state),
+           "batching_wall_s": bwall, "batching_rtf": brtf,
+           "batching_batches": bsrv.stats.batch_sizes,
+           "sampled_equal_alone": len(reqs), "greedy_equal_batch1": equal,
+           "greedy_near_tie_partings": len(partings)}
+    print(f"[serve/{weights}] continuous, {SERVE_SLOTS} slots ({kv} pages, "
+          f"buckets {SERVE_BUCKETS}), {len(reqs)} requests {ARRIVAL_S}s "
+          f"apart: {frames_out} frames in {wall:.3f}s, aggregate RTF "
+          f"{rtf:.3f}x (batching server, max batch {SERVE_SLOTS}: "
+          f"{brtf:.3f}x in {bwall:.3f}s, batches "
+          f"{bsrv.stats.batch_sizes}); admission {admit_ms:.1f} ms "
+          f"(synchronized; host {res['admit_host_ms_mean']:.1f} ms in the "
+          f"server); continuous step {step_ms:.3f} ms against the "
+          f"synchronized graphed step's {sync_step_ms:.3f} ms ({bodies} "
+          f"bodies in {segments} segments, capture "
+          f"{srv.capture_ms:.1f} ms, state {res['state_bytes'] / 1e9:.3f} "
+          f"GB); every sampled request token-equal to itself alone in the "
+          f"same resident state; greedy: {equal} of {len(reqs)} equal to "
+          f"batch 1, {len(partings)} parted under the near-tie rule; "
+          f"launches {launches} [{card}]")
+    return res
+
+
+def phase_serve_warmup(card: str, pipe, seed: int) -> dict:
+    """TTSPipeline.warmup as a server starts: every graph session dropped
+    first, then the kernels' builds, one captured session for batch 1 and
+    SERVE_SLOTS at the serving buckets, and the vocoder's length buckets,
+    each with its time."""
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+    from t5gemma_tts_tpu_torch.decode import engine
+
+    engine.release_sessions()
+    torch.cuda.empty_cache()
+    tx, pm, frames = SERVE_BUCKETS
+    report, wall = synced(lambda: pipe.warmup(
+        batch_sizes=(1, SERVE_SLOTS), text_buckets=(tx,),
+        prompt_buckets=(pm,), frame_buckets=(frames,),
+        dcfg=DecodeConfig(kv_cache="paged_i8", seed=seed), vocoder=True))
+    sessions = [r for r in report if r["kind"] == "session"]
+    if (len(sessions) != 2 or any(r["capture_ms"] is None for r in sessions)
+            or not any(r["kind"] == "vocoder" for r in report)):
+        raise AssertionError(f"warm-up report {report}")
+    print(f"[serve/warmup] int8: {len(sessions)} sessions (B = 1 and "
+          f"{SERVE_SLOTS}) and "
+          f"{sum(r['kind'] == 'vocoder' for r in report)} vocoder buckets "
+          f"in {wall:.3f}s: {json.dumps(report)} [{card}]")
+    return {"wall_s": wall, "report": report}
+
+
 def n_params(tree) -> int:
     """Weights in a parameter tree, quantized ones counted by their
     levels."""
@@ -2921,6 +3337,31 @@ def run_all(args, refdir: str) -> int:
     clone8.pop("pipe")
 
     stamp("4b (int8)")
+    # 4i: serving -- warm-up, streaming (bf16), continuous batching and the
+    # two servers (bf16 and int8), and kernels 1, 2 and 3 at the continuous
+    # path's ragged per-row lengths (an idle slot at generation length 0)
+    serve = {"warmup": phase_serve_warmup(card, main8["pipe"], args.seed),
+             "stream": phase_serve_stream(card, pipe16, args.seed)}
+    serve["bf16"] = phase_serve_continuous(
+        card, pipe16, "bf16", args.seed, main["ab"]["graphed_step_ms"])
+    serve["int8"] = phase_serve_continuous(
+        card, main8["pipe"], "int8", args.seed,
+        main8["ab"]["graphed_step_ms"])
+    ragged = dict(prompt_len=1, gen_len=list(CONTINUOUS_GEN),
+                  enc_lens=list(CONTINUOUS_ENC), gen_slab=SERVE_BUCKETS[2],
+                  iters=step_iters)
+    serve_timing = main_path_step_timing(card, **ragged)
+    serve_timing8 = quant_step_timing(
+        main8["pipe"], card, 0, ragged["enc_lens"], ragged["gen_slab"],
+        step_iters, gen_lens=ragged["gen_len"], parts=False)
+    worst8s, prod8s = phase_products(card, {
+        "pipe": main8["pipe"], "tag": "int8 continuous",
+        "batch": SERVE_SLOTS, "prefill_rows": SERVE_BUCKETS[1] + 1,
+        "cross_rows": SERVE_BUCKETS[0]}, args.iters)
+    print(f"[serve] {json.dumps(serve)}")
+    engine.release_sessions()
+    torch.cuda.empty_cache()
+    stamp("4i (serving)")
     # 4c: int4 at batch 1, against int8 at batch 1 on the same request, in
     # turns (int8, int4, int4, int8)
     pipe8 = main8.pop("pipe")
@@ -3031,7 +3472,8 @@ def run_all(args, refdir: str) -> int:
              launches=main["launches"]["batch_paged_attention"],
              max_abs_err=max(*worst_attn.values(), timing["max_abs_err"],
                              timing_f8["max_abs_err"],
-                             clone_timing["max_abs_err"]),
+                             clone_timing["max_abs_err"],
+                             serve_timing["max_abs_err"]),
              ms=timing["ms"], plain_ms=timing["plain_ms"],
              bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
              library_ms=None, eager_ms=timing["eager_ms"],
@@ -3044,7 +3486,12 @@ def run_all(args, refdir: str) -> int:
              clone=dict(launches=clone["launches"]["batch_paged_attention"],
                         max_abs_err=clone_timing["max_abs_err"],
                         splits=clone_timing["splits"],
-                        **{k: clone_timing[k] for k in keys[:4]})),
+                        **{k: clone_timing[k] for k in keys[:4]}),
+             continuous=dict(
+                 launches=serve["bf16"]["launches"]["batch_paged_attention"],
+                 max_abs_err=serve_timing["max_abs_err"],
+                 splits=serve_timing["splits"],
+                 **{k: serve_timing[k] for k in keys[:4]})),
         dict(name="w8a8_matmul", route="cuda",
              source=src + "w8a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:140",
@@ -3052,19 +3499,24 @@ def run_all(args, refdir: str) -> int:
              max_abs_err=max(worst8["w8a8"], worst4["w8a8"],
                              worst_spec4["w8a8"], worst_edges["w8a8"],
                              worst8c["w8a8"], worst4c["w8a8"],
-                             timing8["w8a8"]["max_abs_err"]),
+                             worst8s["w8a8"], timing8["w8a8"]["max_abs_err"],
+                             serve_timing8["w8a8"]["max_abs_err"]),
              **{k: timing8["w8a8"][k] for k in keys},
+             continuous=dict(
+                 launches=serve["int8"]["launches"]["w8a8_matmul"],
+                 **{k: serve_timing8["w8a8"][k] for k in keys}),
              products=[dict(p, run=f"{ph} {p['run']}")
                        for ph, r in (("4b", prod8), ("4c", prod4),
                                      ("4d", prod_spec4), ("4h", prod8c),
-                                     ("4h", prod4c))
+                                     ("4h", prod4c), ("4i", prod8s))
                        for p in r.get("w8a8", [])]),
         dict(name="decode_stack", route="cuda",
              source=src + "decode_layer.cu",
              replaces="t5gemma_tts_tpu/ops/megakernel.py:115",
              launches=main8["launches"]["decode_stack"],
              max_abs_err=max(worst_layer,
-                             timing8["decode_stack"]["max_abs_err"]),
+                             timing8["decode_stack"]["max_abs_err"],
+                             serve_timing8["decode_stack"]["max_abs_err"]),
              **{k: timing8["decode_stack"][k] for k in keys},
              splits=timing8["decode_stack"]["splits"],
              parts=timing8["decode_stack"]["parts"],
@@ -3072,7 +3524,12 @@ def run_all(args, refdir: str) -> int:
                         max_abs_err=timing8c["decode_stack"]["max_abs_err"],
                         splits=timing8c["decode_stack"]["splits"],
                         **{k: timing8c["decode_stack"][k]
-                           for k in keys[:4]})),
+                           for k in keys[:4]}),
+             continuous=dict(
+                 launches=serve["int8"]["launches"]["decode_stack"],
+                 max_abs_err=serve_timing8["decode_stack"]["max_abs_err"],
+                 splits=serve_timing8["decode_stack"]["splits"],
+                 **{k: serve_timing8["decode_stack"][k] for k in keys[:4]})),
         dict(name="w4a8_matmul", route="cuda",
              source=src + "w4a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:656",

@@ -63,8 +63,12 @@ from ..ops import sampling
 PyTree = Any
 INT32_MAX = 2 ** 31 - 1
 # Graph sessions kept, least recently used first out (the JAX engine keeps
-# 32 compiled programs; a session also holds its bucket's KV cache).
+# 32 compiled programs; a session also holds its bucket's KV cache), bounded
+# both by count and by the bytes of their buffers, which grow with the
+# batch (a bf16 2b-2b session at B = 4 and 512 frames holds 0.33 GB): the
+# newest session is kept whatever its size.
 MAX_SESSIONS = 8
+MAX_SESSION_BYTES = 16 << 30
 # Replays that the host keeps in flight past the newest all-done flag it
 # has read: the most no-op replays a finished decode can launch.
 LOOKAHEAD = 2
@@ -310,15 +314,19 @@ def _candidate_sample(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
                       prev_token, consec_silence, seed, silence):
     """Top-(k+2) candidate path: every adjustment lowers at most two tokens
     (EOG + the repeated silence token), so the adjusted top-k lies inside
-    the raw top-(k+2) candidates."""
+    the raw top-(k+2) candidates. ``step`` and ``seed`` are 0-dim (one
+    clock, row r drawing row r of ``step_uniform``) or [B] (per-row clocks
+    and seeds, row r drawing ``row_uniform``'s row r)."""
     eog = cfg.eog_inference
     kk = min(dcfg.top_k + 2, cfg.audio_embedding_vocab)
     vals, idx = torch.topk(logits, kk, dim=-1)
     vals = vals.float()
     is_eog = idx == eog
-    vals = torch.where(is_eog & (step <= int(cfg.encodec_sr) // 5),
-                       -10000.0, vals)
-    vals = torch.where(is_eog & (step == 0), -1e9, vals)
+    early, first = step <= int(cfg.encodec_sr) // 5, step == 0
+    if step.ndim:
+        early, first = early[:, None], first[:, None]
+    vals = torch.where(is_eog & early, -10000.0, vals)
+    vals = torch.where(is_eog & first, -1e9, vals)
     if dcfg.stop_repetition > 0 and silence is not None:
         prev_is_sil = (prev_token[:, None] == silence[None, :]).any(dim=1)
         active = prev_is_sil & (consec_silence > dcfg.stop_repetition)
@@ -328,7 +336,11 @@ def _candidate_sample(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
                           vals / factor.clamp_min(1.0)[:, None])
         vals = torch.where(at_prev & active[:, None], pen, vals)
     argmax_tok = torch.gather(idx, 1, vals.argmax(dim=-1, keepdim=True))[:, 0]
-    uniforms = sampling.step_uniform(seed, step, *vals.shape, logits.device)
+    if step.ndim:
+        uniforms = sampling.row_uniform(seed, step, kk)
+    else:
+        uniforms = sampling.step_uniform(seed, step, *vals.shape,
+                                         logits.device)
     token = sampling.sample_from_candidates(
         uniforms, vals, idx, top_k=dcfg.top_k, top_p=dcfg.top_p,
         temperature=dcfg.temperature)
@@ -354,6 +366,29 @@ def sample_step_token(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
                             top_p=dcfg.top_p, min_p=dcfg.min_p,
                             temperature=dcfg.temperature)
     return token, sampling.greedy(adjusted)
+
+
+def sample_step_token_rows(cfg: VoiceConfig, dcfg: DecodeConfig, logits,
+                           steps, prev_token, consec_silence, seeds,
+                           silence: Optional[torch.Tensor] = None):
+    """Per-row-clock guarded sampling (continuous batching; JAX
+    ``engine.py::sample_step_token_rows``): ``steps`` and ``seeds`` are [B]
+    tensors, and row r's (token, argmax_tok) are bit for bit those of a
+    batch-1 :func:`sample_step_token` call with seed ``seeds[r]`` at step
+    ``steps[r]``. The candidate path runs batched (its filtering is
+    row-independent; the EOG floors broadcast per row, the draws come from
+    ``sampling.row_uniform``); the full-vocabulary path (``top_k`` 0 or
+    ``min_p`` set, whose min-p rule looks at the whole batch) runs row by
+    row, as JAX's ``vmap`` does."""
+    steps = steps.to(torch.int64)
+    if dcfg.top_k and dcfg.top_k > 0 and not (0.0 < dcfg.min_p < 1.0):
+        return _candidate_sample(cfg, dcfg, logits, steps, prev_token,
+                                 consec_silence, seeds, silence)
+    rows = [sample_step_token(cfg, dcfg, logits[r:r + 1], steps[r],
+                              prev_token[r:r + 1], consec_silence[r:r + 1],
+                              seeds[r], silence)
+            for r in range(logits.shape[0])]
+    return (torch.cat([t for t, _ in rows]), torch.cat([a for _, a in rows]))
 
 
 def _make_body(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig,
@@ -564,6 +599,61 @@ class _Stream:
     ended: bool = False
 
 
+class CapturedStep(NamedTuple):
+    graph: Any                   # torch.cuda.CUDAGraph
+    launch_delta: tuple          # (wrapper, launches a replay adds)
+    capture_ms: float
+    pool_bytes: int              # the graph's private memory pool
+
+
+def capture_step(step, error_mode: str = "thread_local") -> CapturedStep:
+    """Capture ``step()`` (a function of no arguments that works in place on
+    static buffers) as a CUDA graph: one eager warm-up call (the kernels'
+    first-call work: builds, attributes, workspaces), then the capture,
+    both on a stream of their own, so that a capture that fails leaves no
+    other stream in capture mode. The capture's error mode is
+    ``thread_local`` by default, so that another thread's work on the card
+    (a server's vocoder) does not invalidate it. The capture launches
+    nothing: the wrappers' counts move by what it recorded only when a
+    replay launches it (:func:`replay`)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step()
+    wrappers = _counted_wrappers()
+    before = [w.launches for w in wrappers]
+    stream.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode=error_mode)
+            try:
+                step()
+            finally:
+                graph.capture_end()
+    finally:
+        delta = [w.launches - n for w, n in zip(wrappers, before)]
+        for w, n in zip(wrappers, before):
+            w.launches = n
+    torch.cuda.current_stream().wait_stream(stream)
+    stream.synchronize()
+    return CapturedStep(
+        graph=graph,
+        launch_delta=tuple((w, d) for w, d in zip(wrappers, delta) if d),
+        capture_ms=1e3 * (time.perf_counter() - t0),
+        pool_bytes=torch.cuda.memory_reserved() - reserved)
+
+
+def replay(cap: CapturedStep) -> None:
+    """Launch a captured step once, adding its recorded launches to the
+    wrappers' counts."""
+    cap.graph.replay()
+    for wrapper, n in cap.launch_delta:
+        wrapper.launches += n
+
+
 class _Session:
     """One shape bucket's graphed decode loop: static state and input
     buffers (the KV cache, the LoopState, the request's StepInputs), the
@@ -583,15 +673,20 @@ class _Session:
         self.flags = torch.zeros((LOOKAHEAD + 1,), dtype=torch.bool,
                                  pin_memory=True)
         self.events = [torch.cuda.Event() for _ in range(LOOKAHEAD + 1)]
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.launch_delta = ()
-        self.capture_ms = 0.0
-        self.pool_bytes = 0
+        self.captured: Optional[CapturedStep] = None
         self.issued = 0          # replays since the request's prefill
         self.launched = 0        # step bodies launched for this request
         self.ended = False       # the host has read the all-done flag
         self.holder: Optional[LoopState] = None   # the stream held
         self.body = None
+
+    @property
+    def capture_ms(self) -> float:
+        return self.captured.capture_ms
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.captured.pool_bytes
 
     @property
     def state_bytes(self) -> int:
@@ -610,40 +705,10 @@ class _Session:
                             | st.done.all())
 
     def capture(self) -> None:
-        """One eager warm-up step (the kernels' first-call work: builds,
-        attributes, workspaces), then the capture, both on a stream of the
-        session's own, so that a capture that fails leaves no other stream
-        in capture mode. The capture launches nothing: the wrappers' counts
-        move by what it recorded only when a replay launches it."""
+        """The step captured by :func:`capture_step` (its eager warm-up step
+        runs this session's request one step)."""
         self.body = _make_body(self.params, self.cfg, self.dcfg, self.inp)
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            self._step()
-        wrappers = _counted_wrappers()
-        before = [w.launches for w in wrappers]
-        torch.cuda.synchronize()
-        reserved = torch.cuda.memory_reserved()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.stream(stream):
-                graph.capture_begin()
-                try:
-                    self._step()
-                finally:
-                    graph.capture_end()
-        finally:
-            delta = [w.launches - n for w, n in zip(wrappers, before)]
-            for w, n in zip(wrappers, before):
-                w.launches = n
-        torch.cuda.current_stream().wait_stream(stream)
-        torch.cuda.synchronize()
-        self.capture_ms = 1e3 * (time.perf_counter() - t0)
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.launch_delta = tuple((w, d) for w, d in zip(wrappers, delta)
-                                  if d)
-        self.graph = graph
+        self.captured = capture_step(self._step)
 
     def load(self, state: LoopState, inp: StepInputs,
              holder: Optional[LoopState] = None) -> None:
@@ -693,11 +758,9 @@ class _Session:
         in_flight = collections.deque()
         slot = 0
         while not self.ended and self.issued < end:
-            self.graph.replay()
+            replay(self.captured)
             self.issued += 1
             self.launched += 1
-            for wrapper, n in self.launch_delta:
-                wrapper.launches += n
             self.flags[slot].copy_(self.finished, non_blocking=True)
             self.events[slot].record()
             in_flight.append(slot)
@@ -746,7 +809,8 @@ def _bucket_session(key: tuple, params, cfg: VoiceConfig, dcfg: DecodeConfig,
                     state: LoopState, inp: StepInputs):
     """(the bucket's session, whether it is new): made and captured over a
     copy of ``state`` and ``inp`` on first use; the least recently used
-    sessions past MAX_SESSIONS are released and dropped."""
+    sessions past MAX_SESSIONS, or past MAX_SESSION_BYTES of buffers, are
+    released and dropped."""
     session = _SESSIONS.get(key)
     if session is not None:
         _SESSIONS.move_to_end(key)
@@ -754,7 +818,10 @@ def _bucket_session(key: tuple, params, cfg: VoiceConfig, dcfg: DecodeConfig,
     session = _Session(params, cfg, dcfg, state, inp)
     session.capture()
     _SESSIONS[key] = session
-    while len(_SESSIONS) > MAX_SESSIONS:
+    while len(_SESSIONS) > 1 and (
+            len(_SESSIONS) > MAX_SESSIONS
+            or sum(s.state_bytes for s in _SESSIONS.values())
+            > MAX_SESSION_BYTES):
         _SESSIONS.popitem(last=False)[1].release()
     return session, True
 

@@ -527,6 +527,32 @@ def _flush_block(buf, pending, scale_buf, start):
         hkv, lb, s_len, hd).to(buf.dtype), start)
 
 
+def _write_row_slots(buf, block, positions):
+    """``buf[:, l * B + r, positions[r]] = block[:, l * B + r]`` for every
+    layer l and row r: one ``index_copy_`` over the slab's (row, slot) axis
+    at device indices, so the host reads nothing (a CUDA graph captures
+    it). ``buf`` [Hkv, L*B, T, ...], ``block`` [Hkv, L*B, ...], ``positions``
+    [B]."""
+    hkv, lb, t = buf.shape[:3]
+    rows = torch.arange(lb, device=buf.device)
+    idx = rows * t + positions.long().repeat(lb // positions.shape[0])
+    flat = _bits(buf).view(hkv, lb * t, *buf.shape[3:])
+    flat.index_copy_(1, idx, _bits(block))
+
+
+def _flush_rows(buf, pending, scale_buf, positions):
+    """Write a pending [L, B, Hkv, hd] bf16 block into each row's own gen
+    slot ``positions[r]`` (int8 pages: quantized per token, with its
+    scale-plane entry)."""
+    hkv, lb, _, hd = buf.shape
+    if scale_buf is not None:
+        pending, sc = fused_attn.quantize_kv(pending)
+        _write_row_slots(scale_buf, sc.permute(2, 0, 1).reshape(hkv, lb),
+                         positions)
+    _write_row_slots(buf, pending.permute(2, 0, 1, 3).reshape(
+        hkv, lb, hd).to(buf.dtype), positions)
+
+
 def _fused_attn_mode(cache: PagedDecoderCache) -> int:
     """The paged decode step's attention kernels, by ``T5G_FUSED_ATTN`` (the
     JAX package's selector, with its meanings):
@@ -557,7 +583,7 @@ def _fused_attn_mode(cache: PagedDecoderCache) -> int:
 def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
                       position_ids, pm_decoder_positions,
                       cache: PagedDecoderCache, step, prompt_lengths,
-                      enc_lengths):
+                      enc_lengths, gen_lengths=None, flush_positions=None):
     """One decode step over the paged cache.
 
     ``step`` is an int or a 0-dim int32 device tensor (the engine's step
@@ -577,19 +603,35 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     layers and the pages (bf16 or int8; float8 pages take the loop), one
     ``decode_stack`` call replaces the layer loop: the hidden state enters
     it in f32 and stays f32 across the layers, and its unrounded k/v come
-    back as the new pending block."""
+    back as the new pending block.
+
+    Per-row clocks (continuous batching, JAX ``gen_lengths`` /
+    ``flush_positions``): with ``flush_positions`` [B] each row flushes its
+    pending K/V (and, on int8 pages, its scale) at its own slot, by one
+    device-side scatter per slab, and with ``gen_lengths`` [B] each row
+    attends over its own generated count; ``step`` is then not read."""
     b = inputs_embeds.shape[0]
     h = _embed_scale(inputs_embeds, dims)
     cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
                                           dims)
-    if not isinstance(step, torch.Tensor):
+    if (flush_positions is None or gen_lengths is None) and not isinstance(
+            step, torch.Tensor):
         step = torch.full((), step, dtype=torch.int32, device=h.device)
-    slot = (step - 1).clamp_min(0)
-    _flush_block(cache.gen_k, cache.pending_k[:, :, None], cache.gen_k_scale,
-                 slot)
-    _flush_block(cache.gen_v, cache.pending_v[:, :, None], cache.gen_v_scale,
-                 slot)
-    gen_lengths = step.to(torch.int32).reshape(1).expand(b).contiguous()
+    if flush_positions is not None:
+        _flush_rows(cache.gen_k, cache.pending_k, cache.gen_k_scale,
+                    flush_positions)
+        _flush_rows(cache.gen_v, cache.pending_v, cache.gen_v_scale,
+                    flush_positions)
+    else:
+        slot = (step - 1).clamp_min(0)
+        _flush_block(cache.gen_k, cache.pending_k[:, :, None],
+                     cache.gen_k_scale, slot)
+        _flush_block(cache.gen_v, cache.pending_v[:, :, None],
+                     cache.gen_v_scale, slot)
+    if gen_lengths is None:
+        gen_lengths = step.to(torch.int32).reshape(1).expand(b).contiguous()
+    else:
+        gen_lengths = gen_lengths.to(torch.int32)
     mode = _fused_attn_mode(cache)
     if mode == 3:
         if megakernel.supports(params["layers"], dims, cache):

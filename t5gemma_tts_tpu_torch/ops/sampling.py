@@ -72,6 +72,33 @@ def step_uniform(seed: IntLike, step: IntLike, rows: int, cols: int,
     return ((x >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
 
 
+def row_uniform(seeds: torch.Tensor, steps: torch.Tensor,
+                cols: int) -> torch.Tensor:
+    """Per-request draws (continuous batching): uniforms [B, cols] whose row
+    r is bit for bit row 0 of ``step_uniform(seeds[r], steps[r], 1,
+    cols)``, so a request draws the same numbers in any slot as it would
+    alone at batch 1. ``seeds`` and ``steps`` are [B] integer tensors."""
+    seeds = seeds.to(torch.int64)
+    h = _absorb(_fmix32(seeds & _M32), (seeds >> 32) & _M32)
+    h = _absorb(h, steps.to(torch.int64) & _M32)
+    r = _absorb(h, torch.zeros_like(h))
+    c = _fmix32(torch.arange(cols, dtype=torch.int64, device=seeds.device)
+                + 0x632BE5AB)
+    x = _fmix32(r[:, None] ^ c[None, :])
+    return ((x >> 9) * 2 + 1).to(torch.float32) * 2.0 ** -24
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A 64-bit seed derived from ``seed`` and the count ``data`` by the
+    same hash as the draws (the counterpart of JAX's ``fold_in(key,
+    data)``), as a signed 64-bit int."""
+    t = torch.tensor([as_int64(seed, "cpu").item(), data], dtype=torch.int64)
+    h = _absorb(_fmix32(t[:1] & _M32), (t[:1] >> 32) & _M32)
+    lo = _absorb(h, t[1:] & _M32)
+    hi = _absorb(lo, torch.ones_like(lo))
+    return as_int64(int(hi[0]) << 32 | int(lo[0]), "cpu").item()
+
+
 def _desc_order(x: torch.Tensor) -> torch.Tensor:
     """Descending order with ties in JAX's order (reversed stable argsort)."""
     return torch.argsort(x, dim=-1, stable=True).flip(-1)

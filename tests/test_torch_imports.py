@@ -1,9 +1,9 @@
 """Import hygiene of the port: in a fresh interpreter, importing every module
-of ``t5gemma_tts_tpu_torch`` (``decode/speculative.py`` and the one-segment
-paged attention of ``ops/paged_attn.py`` among them) and ``chip_smoke.py``
-(as a module, without running it) loads neither ``jax`` nor anything of
-``t5gemma_tts_tpu``. The
-entry points run on ``cuda`` by default and raise, rather than run on the
+of ``t5gemma_tts_tpu_torch`` (``decode/speculative.py``,
+``decode/continuous.py``, ``codec/streaming.py``, ``inference/server.py``
+and the one-segment paged attention of ``ops/paged_attn.py`` among them)
+and ``chip_smoke.py`` (as a module, without running it) loads neither
+``jax`` nor anything of ``t5gemma_tts_tpu``. The entry points run on ``cuda`` by default and raise, rather than run on the
 CPU, when there is no card."""
 
 import os
@@ -26,7 +26,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "t5gemma_tts_tpu"))
 assert not bad, bad
 assert len(names) >= 20, names
-assert "t5gemma_tts_tpu_torch.decode.speculative" in names, names
+for mod in ("decode.speculative", "decode.continuous", "codec.streaming",
+            "inference.server"):
+    assert "t5gemma_tts_tpu_torch." + mod in names, (mod, names)
 from t5gemma_tts_tpu_torch.ops import paged_attn
 for fn in ("paged_attention_reference", "paged_flash_parts",
            "paged_flash_parts_plain", "merge_attention_parts",
