@@ -164,6 +164,23 @@ Phases, in order; any failure exits non-zero before the result line:
    prefill at M = 65, cross K/V at M = 64), each against its plain
    version; a ``[serve]`` JSON line.
 
+4j. front end and ASR, on 4i's pipelines: the HTTP server on 127.0.0.1:0
+   in front of the int8 ContinuousServer (4 slots): eight concurrent POSTs
+   /synthesize, each response's PCM against the same request alone in the
+   same resident state at the seed the server gave it (``X-Seed``), the
+   HTTP wall against the backend's; in front of a bf16 BatchingServer:
+   /synthesize_streaming of the 4.0 s request, alone and with a one-shot
+   request of the same bucket on the server's thread (the stream's tokens
+   equal its one-shot decode, the one-shot's its own alone: the engine's
+   session lock), time to the first audio byte; ``--fast_start``: seconds
+   from construction to the first answered request with ``TieredBackend``
+   and with the int8 server built and warmed first, and to the tier swap
+   (kernels already built); Whisper at the large-v3-turbo widths (seeded
+   random f32 weights): log_mel, encode and decoder-step ms, the
+   transcriber's wall over its six rungs, the greedy ids against the card's
+   own teacher-forced argmax, a 2-layer truncation of the encoder on the
+   card against the CPU; a ``[front]`` JSON line.
+
 Every main path (4, 4b, 4c's int4 run, 4f, 4g) runs its decode graphed and
 eager and is profiled both ways; a ``[graph]`` line sums them up as JSON.
 
@@ -175,11 +192,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3193,6 +3212,431 @@ def phase_serve_warmup(card: str, pipe, seed: int) -> dict:
     return {"wall_s": wall, "report": report}
 
 
+# ---------------------------------------------------------------------------
+# phase 4j: the HTTP front end, the tiered start and Whisper
+# ---------------------------------------------------------------------------
+
+HTTP_WAIT = 600.0                     # seconds: every HTTP wait's bound
+PCM_TOL = 1                           # int16 steps: the same waveform
+WHISPER_TOL = 1e-4                    # f32 encoder states, card vs CPU
+WHISPER_NEAR_TIE = 1e-4               # greedy vs teacher-forced argmax
+WHISPER_SECONDS = 3.0
+
+
+def http_request(port, method, path, body=None, headers=None):
+    """(status, headers, body) of one request to 127.0.0.1:``port``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_WAIT)
+    try:
+        conn.request(method, path, body=None if body is None
+                     else json.dumps(body), headers=headers or {})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def http_stream(port, body, on_first_audio=None) -> tuple:
+    """POST /synthesize_streaming on a raw socket: (seconds to the first
+    audio chunk, [chunk payloads, the RIFF header first], terminated),
+    ``on_first_audio()`` called as the first audio chunk arrives."""
+    import socket
+
+    data = json.dumps(body).encode()
+    req = (f"POST /synthesize_streaming HTTP/1.1\r\nHost: x\r\n"
+           f"Connection: close\r\nContent-Length: {len(data)}\r\n\r\n"
+           ).encode()
+    t0 = time.perf_counter()
+    ttfa, buf, chunks, terminated = None, b"", [], False
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=HTTP_WAIT) as s:
+        s.sendall(req + data)
+        head = None
+        while True:
+            got = s.recv(1 << 16)
+            if not got:
+                break
+            buf += got
+            if head is None:
+                if b"\r\n\r\n" not in buf:
+                    continue
+                head, buf = buf.split(b"\r\n\r\n", 1)
+                if not head.startswith(b"HTTP/1.1 200"):
+                    raise AssertionError(f"stream refused: {head[:200]}")
+            while b"\r\n" in buf:
+                size, rest = buf.split(b"\r\n", 1)
+                n = int(size, 16)
+                if n == 0:
+                    terminated = rest.startswith(b"\r\n")
+                    buf = b""
+                    break
+                if len(rest) < n + 2:
+                    break
+                chunks.append(rest[:n])
+                buf = rest[n + 2:]
+                if len(chunks) == 2 and ttfa is None:
+                    ttfa = time.perf_counter() - t0
+                    if on_first_audio is not None:
+                        on_first_audio()
+    return ttfa, chunks, terminated
+
+
+def wav_pcm(body: bytes) -> np.ndarray:
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(body)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def phase_http_continuous(card: str, pipe, seed: int) -> dict:
+    """The HTTP server on 127.0.0.1:0 in front of the int8
+    ContinuousServer (4 slots, 4i's buckets): the eight SERVE_TEXTS
+    requests sent to the backend directly, all at once, then as eight
+    concurrent POSTs /synthesize; each response's PCM against the same
+    request alone in the same resident state at the seed the server gave
+    it (``X-Seed``), vocoded (within PCM_TOL int16 steps); the HTTP wall
+    against the backend's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+    from t5gemma_tts_tpu_torch.decode import continuous
+    from t5gemma_tts_tpu_torch.inference import http_server as hs
+    from t5gemma_tts_tpu_torch.inference.server import ContinuousServer
+
+    tx, pm, frames = SERVE_BUCKETS
+    dcfg = DecodeConfig(kv_cache="paged_i8", seed=seed, max_frames=frames)
+    reqs = serve_requests()
+    srv = ContinuousServer(pipe, dcfg, slots=SERVE_SLOTS, text_bucket=tx,
+                           prompt_bucket=pm, segment_frames=SERVE_SEGMENT)
+    sr = pipe.audio_tokenizer.sample_rate
+    httpd = hs.serve(srv, "127.0.0.1", 0, sample_rate=sr, block=False)
+    port = httpd.server_address[1]
+    counters = _counters()
+    try:
+        t0 = time.perf_counter()
+        direct = [f.result(HTTP_WAIT) for f in [srv.submit(r) for r in reqs]]
+        backend_s = time.perf_counter() - t0
+        bodies = [{"target_text": r.target_text,
+                   "target_duration": r.target_duration, "lang": r.lang}
+                  for r in reqs]
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            answers = list(pool.map(
+                lambda b: http_request(port, "POST", "/synthesize", b,
+                                       {"Content-Type": "application/json"}),
+                bodies))
+        http_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    if any(status != 200 for status, _, _ in answers):
+        raise AssertionError(f"HTTP statuses {[a[0] for a in answers]}")
+    if launches["decode_stack"] == 0:
+        raise AssertionError(f"HTTP int8: no decode_stack launch {launches}")
+    fns = continuous.make_fns(pipe.cfg, dcfg)
+    worst, exact = 0, 0
+    for req, (_, headers, body) in zip(reqs, answers):
+        seed_r = int(headers["X-Seed"])
+        toks = run_alone(pipe, fns, srv.state, slot_inputs(pipe, req),
+                         seed_r)[0]
+        gen = stripped(pipe, toks)
+        want = np.frombuffer(hs.pcm16(pipe.audio_tokenizer.decode(
+            gen[None, None, :])[0, 0]), "<i2")
+        got = wav_pcm(body)
+        if got.shape != want.shape:
+            raise AssertionError(f"HTTP int8, seed {seed_r}: {got.shape} "
+                                 f"samples against {want.shape} alone")
+        diff = int(np.abs(got.astype(np.int32) - want).max())
+        worst, exact = max(worst, diff), exact + (diff == 0)
+    if worst > PCM_TOL:
+        raise AssertionError(f"HTTP int8: PCM {worst} steps from the "
+                             f"requests alone (tol {PCM_TOL})")
+    audio_s = sum(len(r.gen_frames) for r in direct) / pipe.cfg.encodec_sr
+    res = {"requests": len(reqs), "http_wall_s": http_s,
+           "backend_wall_s": backend_s, "audio_s": audio_s,
+           "pcm_max_steps": worst, "pcm_exact": exact, "launches": launches}
+    print(f"[serve/http int8] HTTP in front of ContinuousServer "
+          f"({SERVE_SLOTS} slots, paged_i8): {len(reqs)} concurrent POSTs "
+          f"in {http_s:.3f}s against {backend_s:.3f}s submitted to the "
+          f"backend directly; every response's PCM within {worst} int16 "
+          f"steps of its request alone at its X-Seed ({exact} of "
+          f"{len(reqs)} exact); launches {launches} [{card}]")
+    return res
+
+
+def phase_http_stream(card: str, pipe, seed: int) -> dict:
+    """The HTTP server in front of a bf16 BatchingServer (paged, tokens as
+    JSON): /synthesize_streaming of the 4.0 s request while a one-shot
+    request of the same bucket runs on the server's thread (sent as the
+    stream's first audio arrives): the stream's tokens equal its one-shot
+    decode, the one-shot's tokens equal those it gets alone (the session
+    lock); time to the first audio byte, alone and shared."""
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+    from t5gemma_tts_tpu_torch.inference import http_server as hs
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request
+    from t5gemma_tts_tpu_torch.inference.server import BatchingServer
+
+    dcfg = DecodeConfig(kv_cache="paged", seed=seed)
+    req = Request(target_text=TEXTS[-1], target_duration=DURATIONS[-1],
+                  lang="en")
+    other = {"target_text": TEXTS[0], "target_duration": DURATIONS[-1],
+             "lang": "en"}
+    body = {"target_text": req.target_text,
+            "target_duration": req.target_duration, "lang": "en"}
+    want = pipe.synthesize(req, dcfg, seed=seed, quiet=True,
+                           decode_audio=False).gen_frames
+    srv = BatchingServer(pipe, dcfg, max_batch=SERVE_SLOTS,
+                         decode_audio=False)
+    httpd = hs.serve(srv, "127.0.0.1", 0,
+                     sample_rate=pipe.audio_tokenizer.sample_rate,
+                     block=False)
+    port = httpd.server_address[1]
+    fed: list = []
+    original = pipe.synthesize_streaming
+
+    def recorded(r, d=None, **kw):          # the stream's final tokens
+        return original(r, d, on_tokens=fed.append, **kw)
+
+    pipe.synthesize_streaming = recorded
+    out = {}
+    try:
+        def one_shot():
+            status, _, raw = http_request(
+                port, "POST", "/synthesize", other,
+                {"Content-Type": "application/json"})
+            if status != 200:
+                raise AssertionError(f"one-shot status {status}")
+            return np.asarray(json.loads(raw)["frames"])
+
+        alone = one_shot()
+        for tag in ("alone", "shared"):
+            fed.clear()
+            shot: dict = {}
+
+            def start_one_shot():
+                t = threading.Thread(target=lambda: shot.update(
+                    frames=one_shot()))
+                t.start()
+                shot["thread"] = t
+
+            ttfa, chunks, terminated = http_stream(
+                port, body, start_one_shot if tag == "shared" else None)
+            if tag == "shared":
+                shot["thread"].join(HTTP_WAIT)
+                if not np.array_equal(shot.get("frames"), alone):
+                    raise AssertionError("the one-shot request beside the "
+                                         "stream got other tokens than "
+                                         "alone")
+            toks = np.concatenate(fed)
+            if not terminated or not np.array_equal(toks, want):
+                raise AssertionError(f"HTTP stream ({tag}): terminated "
+                                     f"{terminated}, tokens equal "
+                                     f"{np.array_equal(toks, want)}")
+            pcm = sum(len(c) for c in chunks[1:]) // 2
+            out[tag] = {"ttfa_s": ttfa, "chunks": len(chunks) - 1,
+                        "samples": pcm}
+    finally:
+        pipe.synthesize_streaming = original
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    out["frames"] = len(want)
+    print(f"[serve/http stream] bf16 BatchingServer, the 4.0 s request "
+          f"({len(want)} frames) over /synthesize_streaming: first audio "
+          f"byte after {out['alone']['ttfa_s']:.3f}s alone, "
+          f"{out['shared']['ttfa_s']:.3f}s with a one-shot request of the "
+          f"same bucket on the server's thread; the stream's tokens equal "
+          f"its one-shot decode and the one-shot's equal its own alone, "
+          f"both times [{card}]")
+    return out
+
+
+def phase_fast_start(card: str, pipe, seed: int) -> dict:
+    """``--fast_start`` against a plain start, the kernels already built
+    and every graph session dropped first: seconds from construction to
+    the first answered request with the int8 full tier built and warmed
+    up front (``make_backend(quantized_pipeline(...))``), and with
+    ``tiered_backend`` (the bf16 fast tier answers; kernel 1 must run),
+    then to its swap to the full tier (decode_stack must run there)."""
+    from t5gemma_tts_tpu_torch.config import DecodeConfig
+    from t5gemma_tts_tpu_torch.decode import engine
+    from t5gemma_tts_tpu_torch.inference import http_server as hs
+
+    dcfg = DecodeConfig(kv_cache="paged_i8", seed=seed)
+    req = serve_requests()[0]
+    counters = _counters()
+    out = {}
+
+    def cold():
+        engine.release_sessions()
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.launches = 0
+
+    cold()
+    t0 = time.perf_counter()
+    backend = hs.make_backend(hs.quantized_pipeline(pipe, "int8"), dcfg,
+                              max_batch=SERVE_SLOTS)
+    built = time.perf_counter() - t0
+    try:
+        backend.synthesize(req, HTTP_WAIT)
+        out["plain_first_s"] = time.perf_counter() - t0
+        out["plain_build_s"] = built
+    finally:
+        backend.close()
+    del backend
+    cold()
+    t0 = time.perf_counter()
+    backend = hs.tiered_backend(pipe, dcfg, "int8", max_batch=SERVE_SLOTS,
+                                drain_sec=1.0, build_delay_sec=HTTP_WAIT)
+    try:
+        backend.synthesize(req, HTTP_WAIT)
+        out["tiered_first_s"] = time.perf_counter() - t0
+        fast_launches = {k: c.launches for k, c in counters.items()}
+        while backend.tier != "full":
+            if time.perf_counter() - t0 > HTTP_WAIT:
+                raise AssertionError("the full tier did not swap in")
+            time.sleep(0.01)
+        out["tiered_swap_s"] = time.perf_counter() - t0
+        out["tiered_build_s"] = backend.build_s
+        for c in counters.values():
+            c.launches = 0
+        backend.synthesize(req, HTTP_WAIT)
+        full_launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        backend.close()
+    if (fast_launches["batch_paged_attention"] == 0
+            or full_launches["decode_stack"] == 0):
+        raise AssertionError(f"fast tier launches {fast_launches}, full "
+                             f"tier {full_launches}")
+    engine.release_sessions()
+    torch.cuda.empty_cache()
+    print(f"[serve/fast_start] kernels already built, sessions dropped: "
+          f"first answered request {out['tiered_first_s']:.3f}s after "
+          f"construction with TieredBackend (bf16 fast tier, kernel 1 "
+          f"{fast_launches['batch_paged_attention']} launches) against "
+          f"{out['plain_first_s']:.3f}s for the int8 server built and "
+          f"warmed first ({out['plain_build_s']:.3f}s of it the build); "
+          f"the int8 tier swapped in at {out['tiered_swap_s']:.3f}s "
+          f"(build {out['tiered_build_s']:.3f}s; decode_stack "
+          f"{full_launches['decode_stack']} launches on its first "
+          f"request) [{card}]")
+    return out
+
+
+class WhisperStubTokenizer:
+    """The special-token ids of the large-v3 vocabulary; ``decode`` spells
+    the ids (no tokenizer files on the card's machine)."""
+
+    IDS = {"<|en|>": 50259, "<|ja|>": 50266, "<|transcribe|>": 50360,
+           "<|notimestamps|>": 50364, "<|nospeech|>": 50363}
+    unk_token_id = None
+
+    def convert_tokens_to_ids(self, t):
+        return self.IDS.get(t)
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(int(i)) for i in ids if int(i) < 50257)
+
+
+def phase_whisper(card: str, seed: int) -> dict:
+    """Whisper at the large-v3-turbo widths, seeded random f32 weights, on
+    the card: log_mel, encode and a decoder step (ms, synchronized), the
+    transcriber's wall over every rung of its ladder (random weights never
+    emit eos: 440 tokens a rung), the greedy rung's ids against the argmax
+    of the card's own teacher-forced ``decoder_logits`` over them (equal,
+    or at a near tie: the teacher-forced top two within
+    WHISPER_NEAR_TIE), and a 2-layer truncation of the full-width encoder
+    on the card against the CPU (WHISPER_TOL)."""
+    from t5gemma_tts_tpu_torch.asr import mel as asr_mel
+    from t5gemma_tts_tpu_torch.asr import model as asr_model
+    from t5gemma_tts_tpu_torch.device import tree_to
+    from t5gemma_tts_tpu_torch.inference import audio_io, transcribe
+
+    cfg = asr_model.WhisperConfig()
+    params = asr_model.init_params(seed, cfg, device="cuda")
+    rng = np.random.default_rng(seed)
+    n = np.arange(int(WHISPER_SECONDS * 16000))
+    wav = (0.3 * np.sin(2 * np.pi * 220 * n / 16000)
+           + 0.05 * rng.normal(size=n.size)).astype(np.float32)
+    wav_dev = torch.from_numpy(wav).cuda()
+    out = {"params": n_params(params)}
+    with torch.inference_mode():
+        mel = asr_mel.log_mel(wav_dev, cfg.num_mel_bins)
+        out["log_mel_ms"] = 1e3 * synced(
+            lambda: asr_mel.log_mel(wav_dev, cfg.num_mel_bins))[1]
+        asr_model.encode(params, cfg, mel)
+        enc, s = synced(lambda: asr_model.encode(params, cfg, mel))
+        out["encode_ms"] = 1e3 * s
+        forced = [cfg.decoder_start_token_id, 50259, 50360, 50364]
+        (ids, n_ids), s = synced(lambda: asr_model.greedy_decode(
+            params, cfg, enc, forced, 440))
+        out["greedy_tokens"] = n_ids - len(forced)
+        out["decode_step_ms"] = 1e3 * s / (n_ids - 1)
+        lf = asr_model.decoder_logits(params, cfg, ids[:n_ids], enc)
+        pred = lf.argmax(-1)[len(forced) - 1:n_ids - 1]
+        chosen = ids[len(forced):n_ids]
+        part = torch.nonzero(pred != chosen).flatten().tolist()
+        gaps = [float(lf[len(forced) - 1 + i].max()
+                      - lf[len(forced) - 1 + i, chosen[i]]) for i in part]
+        if any(g > WHISPER_NEAR_TIE for g in gaps):
+            raise AssertionError(f"whisper greedy ids part from the "
+                                 f"teacher-forced argmax at {part}, top "
+                                 f"gaps {gaps} (tol {WHISPER_NEAR_TIE})")
+        out["greedy_vs_teacher_forced_near_ties"] = len(part)
+    rungs = []
+    decode = asr_model.decode_with_stats
+
+    def counted(*a, **k):
+        res = decode(*a, **k)
+        rungs.append(res[1] - len(forced))
+        return res
+
+    path = os.path.join(tempfile.mkdtemp(prefix="whisper_"), "ref.wav")
+    audio_io.write_wav(path, wav, 16000)
+    fn = transcribe.transcriber(params, cfg, WhisperStubTokenizer())
+    asr_model.decode_with_stats = counted
+    try:
+        text, s = synced(lambda: fn(path))
+    finally:
+        asr_model.decode_with_stats = decode
+        os.remove(path)
+        os.rmdir(os.path.dirname(path))
+    out.update(transcriber_wall_s=s, rung_tokens=rungs,
+               transcript_words=len(text.split()))
+    cfg2 = dataclasses.replace(cfg, encoder_layers=2)
+    two = {"encoder": dict(params["encoder"], layers={
+        k: {kk: vv[:2] for kk, vv in v.items()}
+        for k, v in params["encoder"]["layers"].items()}),
+           "decoder": params["decoder"]}
+    with torch.inference_mode():
+        card_enc = asr_model.encode(two, cfg2, mel).cpu()
+        cpu_enc = asr_model.encode(tree_to(two, torch.device("cpu")),
+                                   cfg2, mel.cpu())
+    err = float((card_enc - cpu_enc).abs().max())
+    if err > WHISPER_TOL or not torch.isfinite(card_enc).all():
+        raise AssertionError(f"whisper 2-layer encoder: card vs CPU "
+                             f"{err:.2e} (tol {WHISPER_TOL})")
+    out["encoder_2layer_max_abs_err"] = err
+    del params, two, enc
+    torch.cuda.empty_cache()
+    print(f"[asr] whisper large-v3-turbo widths ({out['params']} f32 "
+          f"parameters, seeded random): log_mel {out['log_mel_ms']:.2f} ms, "
+          f"encode {out['encode_ms']:.1f} ms, decoder step "
+          f"{out['decode_step_ms']:.3f} ms ({out['greedy_tokens']} greedy "
+          f"tokens; {out['greedy_vs_teacher_forced_near_ties']} near-tie "
+          f"partings from the teacher-forced argmax); transcriber "
+          f"{s:.3f}s over {len(rungs)} rungs of {rungs} tokens; 2-layer "
+          f"encoder card vs CPU {err:.2e} (tol {WHISPER_TOL}) [{card}]")
+    return out
+
+
 def n_params(tree) -> int:
     """Weights in a parameter tree, quantized ones counted by their
     levels."""
@@ -3362,6 +3806,18 @@ def run_all(args, refdir: str) -> int:
     engine.release_sessions()
     torch.cuda.empty_cache()
     stamp("4i (serving)")
+    # 4j: the HTTP front end over 4i's pipelines (int8 continuous, a bf16
+    # stream beside a one-shot request of its bucket), the tiered start,
+    # and Whisper at the large-v3-turbo widths
+    front = {"http_int8": phase_http_continuous(card, main8["pipe"],
+                                                args.seed),
+             "http_stream": phase_http_stream(card, pipe16, args.seed),
+             "fast_start": phase_fast_start(card, pipe16, args.seed),
+             "whisper": phase_whisper(card, args.seed)}
+    print(f"[front] {json.dumps(front)}")
+    engine.release_sessions()
+    torch.cuda.empty_cache()
+    stamp("4j (front end, ASR)")
     # 4c: int4 at batch 1, against int8 at batch 1 on the same request, in
     # turns (int8, int4, int4, int8)
     pipe8 = main8.pop("pipe")

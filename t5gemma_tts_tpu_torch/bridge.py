@@ -5,7 +5,8 @@ axis (``voice.init_params``, ``codec.model.init_decoder_params``), so the
 bridge renames nothing: it maps every numpy leaf to a tensor, byte for byte
 (bfloat16 and float8 e4m3 leaves, which numpy holds as ``ml_dtypes`` types,
 travel as their bit patterns). Lists (the speculative draft heads are a
-list of dicts) map element by element.
+list of dicts) map element by element. The Whisper tree (``asr/model.py``)
+keeps the JAX tree's keys and layer axis too, so it crosses unchanged.
 
 Int8 leaves. A JAX ``QuantWeight`` (a NamedTuple ``values, scale, n,
 act_bits, layout``, as ``jax.tree_util.tree_map(np.asarray, tree)`` leaves

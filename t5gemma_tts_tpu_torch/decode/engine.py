@@ -40,6 +40,19 @@ counterpart of the JAX engine's ``fold_in(rng, step)``), so any pass that
 samples step s -- the eager loop, a graph replay or a speculative verify
 pass (decode/speculative.py) -- draws the same numbers, on the CPU and on
 the card. Greedy decoding (``top_k=1``) is token-equal to the JAX engine.
+
+The card's graph sessions are shared by every thread of the process (a
+server's decode thread, HTTP handlers that stream): one re-entrant lock,
+``SESSION_LOCK``, guards the session cache and the stream records, each
+capture and LRU eviction, and a request's use of a session. A one-shot
+:func:`graphed_decoder` call holds it from its prefill through its
+outputs; a segment stream holds it for one :func:`run_segment` and lets
+it go between segments, so streams and one-shot requests interleave. Two
+callers' graphed decodes are thus serialized, not slowed: the card runs
+one decode's replays at a time either way, and no request loads its
+inputs into a session that another caller is replaying. The CPU path
+(:func:`decode_tokens`, and :func:`run_segment` on CPU tensors) takes no
+lock.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import threading
 import time
 import weakref
 from typing import Any, NamedTuple, Optional, Union
@@ -511,21 +525,23 @@ def run_segment(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig,
     back when the session lets the stream go."""
     until = int(until)
     if state.tokens.device.type == "cuda":
-        stream = _STREAMS.get(state)
-        if stream is None or stream.params is not params:
-            raise ValueError(
-                "on the card run_segment advances a state that the prefill "
-                "of graphed_segment_fns returned, with the same params")
         inp = step_inputs(cfg, x_lens, prompt_lens, target_totals, seed)
-        session, new = _bucket_session(stream.key, params, cfg, dcfg, state,
-                                       inp)
-        if session.holder is state:
-            session.set_inputs(inp)
-        else:
-            session.load(state, inp, holder=state)
-            session.launched += new      # the capture's warm-up step
-        session.advance(until)
-        session.write_back(cache=False)
+        with SESSION_LOCK:
+            stream = _STREAMS.get(state)
+            if stream is None or stream.params is not params:
+                raise ValueError(
+                    "on the card run_segment advances a state that the "
+                    "prefill of graphed_segment_fns returned, with the same "
+                    "params")
+            session, new = _bucket_session(stream.key, params, cfg, dcfg,
+                                           state, inp)
+            if session.holder is state:
+                session.set_inputs(inp)
+            else:
+                session.load(state, inp, holder=state)
+                session.launched += new      # the capture's warm-up step
+            session.advance(until)
+            session.write_back(cache=False)
         return state
     body = _make_body(params, cfg, dcfg, step_inputs(
         cfg, x_lens, prompt_lens, target_totals, seed))
@@ -780,20 +796,24 @@ _SESSIONS: "collections.OrderedDict[tuple, _Session]" = (
 # the segment streams alive, by their LoopState
 _STREAMS: "weakref.WeakKeyDictionary[LoopState, _Stream]" = (
     weakref.WeakKeyDictionary())
+# guards _SESSIONS, _STREAMS and every use of a session (module docstring)
+SESSION_LOCK = threading.RLock()
 
 
 def release_sessions() -> None:
     """Drop every graph session (their graphs, caches and the references
     to their params), each held stream written back first."""
-    for session in _SESSIONS.values():
-        session.release()
-    _SESSIONS.clear()
+    with SESSION_LOCK:
+        for session in _SESSIONS.values():
+            session.release()
+        _SESSIONS.clear()
 
 
 def sessions() -> list:
     """The live graph sessions, least recently used first (for reports:
     ``capture_ms``, ``state_bytes``, ``pool_bytes``, ``launched``)."""
-    return list(_SESSIONS.values())
+    with SESSION_LOCK:
+        return list(_SESSIONS.values())
 
 
 def _session_key(params, cfg: VoiceConfig, dcfg: DecodeConfig, x,
@@ -810,7 +830,7 @@ def _bucket_session(key: tuple, params, cfg: VoiceConfig, dcfg: DecodeConfig,
     """(the bucket's session, whether it is new): made and captured over a
     copy of ``state`` and ``inp`` on first use; the least recently used
     sessions past MAX_SESSIONS, or past MAX_SESSION_BYTES of buffers, are
-    released and dropped."""
+    released and dropped. The caller holds SESSION_LOCK."""
     session = _SESSIONS.get(key)
     if session is not None:
         _SESSIONS.move_to_end(key)
@@ -831,7 +851,8 @@ def _prefilled_session(params, cfg: VoiceConfig, dcfg: DecodeConfig, x,
                        stream: bool) -> tuple:
     """Prefill eagerly, then load the result into the bucket's session;
     with ``stream`` the prefilled state is a segment stream's, registered
-    and returned to the caller as its own. Returns (session, state)."""
+    and returned to the caller as its own. Returns (session, state). The
+    caller holds SESSION_LOCK."""
     state = prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
                     target_totals)
     inp = step_inputs(cfg, x_lens, prompt_lens, target_totals, seed)
@@ -848,19 +869,20 @@ def graphed_decoder(cfg: VoiceConfig, dcfg: DecodeConfig):
     """The served entry point (JAX ``engine.py::jitted_decoder``):
     ``run(params, x, x_lens, prompt, prompt_lens, target_totals, seed) ->
     DecodeOutputs``. On the card: an eager prefill into the bucket's
-    session, then replays of its captured step; on the CPU:
-    :func:`decode_tokens`."""
+    session, then replays of its captured step, SESSION_LOCK held from the
+    prefill through the outputs; on the CPU: :func:`decode_tokens`."""
 
     @torch.inference_mode()
     def run(params, x, x_lens, prompt, prompt_lens, target_totals, seed):
         if x.device.type != "cuda":
             return decode_tokens(params, cfg, dcfg, x, x_lens, prompt,
                                  prompt_lens, target_totals, seed)
-        session, _ = _prefilled_session(params, cfg, dcfg, x, x_lens, prompt,
-                                        prompt_lens, target_totals, seed,
-                                        stream=False)
-        session.advance(dcfg.max_frames)
-        return session.outputs()
+        with SESSION_LOCK:
+            session, _ = _prefilled_session(
+                params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
+                target_totals, seed, stream=False)
+            session.advance(dcfg.max_frames)
+            return session.outputs()
 
     return run
 
@@ -881,9 +903,10 @@ def graphed_segment_fns(cfg: VoiceConfig, dcfg: DecodeConfig):
         if x.device.type != "cuda":
             return prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
                            target_totals)
-        return _prefilled_session(params, cfg, dcfg, x, x_lens, prompt,
-                                  prompt_lens, target_totals, 0,
-                                  stream=True)[1]
+        with SESSION_LOCK:
+            return _prefilled_session(params, cfg, dcfg, x, x_lens, prompt,
+                                      prompt_lens, target_totals, 0,
+                                      stream=True)[1]
 
     def segment_fn(params, state, x_lens, prompt_lens, target_totals, seed,
                    until):

@@ -14,8 +14,11 @@ kernel's e4m3 variant). The XCodec2 weights come from ``--codec_dir``
 flag the Hugging Face hub is asked for it), or are random with
 ``--random_codec`` (decoder only). ``--reference_speech`` with
 ``--reference_text`` clones the reference's voice (the codec encoder);
-a reference without its transcript needs Whisper, which is not ported yet
-(ROADMAP Queue 1 item 13), and is refused.
+a reference without its transcript is transcribed first by the port's
+Whisper (``inference/transcribe.py::load_transcriber``), which loads only
+from a local directory (the Hugging Face cache's snapshot of
+openai/whisper-large-v3-turbo) and otherwise raises, naming
+``--reference_text``.
 """
 
 from __future__ import annotations
@@ -149,11 +152,12 @@ def run_inference(args: argparse.Namespace) -> str:
     has_ref_text = _given(args.reference_text)
     if reference is None and has_ref_text:
         raise ValueError("reference_text provided without reference_speech")
+    ref_text = args.reference_text
     if reference is not None and not has_ref_text:
-        raise NotImplementedError(
-            "--reference_speech without --reference_text needs Whisper "
-            "auto-transcription, which is not ported yet (ROADMAP Queue 1 "
-            "item 13); pass --reference_text")
+        from .transcribe import load_transcriber
+
+        ref_text = load_transcriber(device=device)(reference)
+        print(f"[Info] Whisper transcribed text: {ref_text}")
     if reference is not None and args.random_codec:
         raise ValueError(
             "--random_codec gives random codec decoder weights and no "
@@ -185,7 +189,7 @@ def run_inference(args: argparse.Namespace) -> str:
     res = pipe.synthesize(
         Request(target_text=target_text, lang=lang_code,
                 audio_path=reference,
-                prompt_transcript=args.reference_text if reference else None,
+                prompt_transcript=(ref_text or None) if reference else None,
                 target_duration=args.target_duration, repeat_prompt=repeat,
                 prompt_end_frame=prompt_end_frame),
         dcfg, seed=args.seed)

@@ -21,6 +21,9 @@ asyncio):
   not on the scheduler thread. The segment is captured before the
   scheduler starts, so no capture runs while the finisher threads use the
   card.
+- :class:`TieredBackend`: serves from a fast tier while the full serving
+  tier builds on a thread of its own, then swaps to it and drains the fast
+  tier.
 """
 
 from __future__ import annotations
@@ -332,3 +335,109 @@ class BatchingServer:
                         if not fut.done():
                             fut.set_exception(exc)
 
+
+class TieredBackend:
+    """Serve from a fast tier while the full serving tier builds.
+
+    Counterpart of the JAX package's ``TieredBackend``, derived again for
+    the card. There a cold start costs compile time; here it costs the
+    first-use kernel builds, the quantization of the weights and the
+    captures of the warm-up. The fast tier (``fast``, typically a
+    bf16 ``BatchingServer`` without warm-up) answers at once; once it has
+    answered a request, or after ``build_delay_sec`` with no traffic,
+    ``full_factory()`` builds the full tier on the build thread (its
+    warm-up included), requests route to it from then on (``tier`` turns
+    "full"), and the fast tier is closed ``drain_sec`` later.
+
+    Unlike the JAX class, a ``submit`` whose future completes marks the fast
+    tier as served (not only ``synthesize``), ``close()`` before the build
+    means no full tier is ever built, and a full tier that finishes
+    building after ``close()`` is closed at once."""
+
+    def __init__(self, fast, full_factory, drain_sec: float = 60.0,
+                 build_delay_sec: float = 120.0):
+        self._cur = fast
+        self._old = None               # the fast tier while it drains
+        self.tier = "fast"
+        self.build_s: Optional[float] = None   # the full tier's build
+        self._drain_sec = drain_sec
+        self._build_delay = build_delay_sec
+        self._lock = threading.Lock()
+        self._closed = False
+        self._wake = threading.Event()       # served, or closing
+        self._closing = threading.Event()
+        self._drainer: Optional[threading.Thread] = None
+        self._build_thread = threading.Thread(
+            target=self._build, args=(full_factory,), daemon=True,
+            name="TieredBackend-build")
+        self._build_thread.start()
+
+    def _build(self, factory) -> None:
+        # the fast tier answers first: the full tier's build (kernel builds,
+        # quantization, captures) would otherwise queue ahead of it on the
+        # card
+        self._wake.wait(self._build_delay)
+        if self._closed:
+            return
+        t0 = time.perf_counter()
+        try:
+            full = factory()
+        except Exception:
+            log.exception("full-tier build failed; staying on the fast tier")
+            return
+        with self._lock:
+            late = self._closed
+            if not late:
+                self._old, self._cur = self._cur, full
+                self.tier = "full"
+                self.build_s = time.perf_counter() - t0
+        if late:
+            full.close()
+            return
+        log.info("switched to the full serving tier")
+        self._drainer = threading.Thread(target=self._drain, daemon=True,
+                                         name="TieredBackend-drain")
+        self._drainer.start()
+
+    def _drain(self) -> None:
+        self._closing.wait(self._drain_sec)
+        old, self._old = self._old, None
+        if old is not None:
+            old.close()
+
+    def _served(self, fut: Future) -> None:
+        if not fut.cancelled() and fut.exception() is None:
+            self._wake.set()
+
+    @property
+    def stats(self):
+        return self._cur.stats
+
+    @property
+    def pipeline(self):
+        return self._cur.pipeline
+
+    @property
+    def dcfg(self):
+        return self._cur.dcfg
+
+    def submit(self, request: Request) -> "Future[SynthesisResult]":
+        fut = self._cur.submit(request)
+        fut.add_done_callback(self._served)
+        return fut
+
+    def synthesize(self, request: Request,
+                   timeout: Optional[float] = None) -> SynthesisResult:
+        return self.submit(request).result(timeout)
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Close the current tier and the draining one; a build under way
+        closes its tier when it ends."""
+        with self._lock:
+            self._closed = True
+            cur = self._cur
+        self._wake.set()
+        self._closing.set()
+        cur.close()
+        if self._drainer is not None:
+            self._drainer.join(timeout)

@@ -1,9 +1,12 @@
 """Import hygiene of the port: in a fresh interpreter, importing every module
 of ``t5gemma_tts_tpu_torch`` (``decode/speculative.py``,
-``decode/continuous.py``, ``codec/streaming.py``, ``inference/server.py``
-and the one-segment paged attention of ``ops/paged_attn.py`` among them)
-and ``chip_smoke.py`` (as a module, without running it) loads neither
-``jax`` nor anything of ``t5gemma_tts_tpu``. The entry points run on ``cuda`` by default and raise, rather than run on the
+``decode/continuous.py``, ``codec/streaming.py``, ``inference/server.py``,
+``asr/``, ``inference/http_server.py``, ``inference/gradio_app.py``,
+``inference/transcribe.py`` and the one-segment paged attention of
+``ops/paged_attn.py`` among them) and ``chip_smoke.py`` (as a module,
+without running it) loads neither ``jax`` nor anything of
+``t5gemma_tts_tpu``, nor ``gradio`` or ``transformers``, which only the
+functions that need them import. The entry points run on ``cuda`` by default and raise, rather than run on the
 CPU, when there is no card."""
 
 import os
@@ -23,11 +26,14 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "t5gemma_tts_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "t5gemma_tts_tpu",
+                                    "gradio", "transformers"))
 assert not bad, bad
 assert len(names) >= 20, names
 for mod in ("decode.speculative", "decode.continuous", "codec.streaming",
-            "inference.server"):
+            "inference.server", "asr.mel", "asr.model", "asr.convert",
+            "inference.http_server", "inference.gradio_app",
+            "inference.transcribe"):
     assert "t5gemma_tts_tpu_torch." + mod in names, (mod, names)
 from t5gemma_tts_tpu_torch.ops import paged_attn
 for fn in ("paged_attention_reference", "paged_flash_parts",

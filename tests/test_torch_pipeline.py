@@ -7,7 +7,8 @@ recording (voice cloning: the codec encoder, ``repeat_prompt`` 0, 2 and
 concat frames; the port's CLI runs on a directory that the JAX package's
 ``export_hf`` wrote, with an offline tokenizer and random codec weights, as
 tests/test_cli_e2e.py runs the JAX CLI, and clones a voice with codec
-weights converted from a fabricated ``model.safetensors``."""
+weights converted from a fabricated ``model.safetensors``, and, without
+``--reference_text``, with the transcript of a tiny local Whisper."""
 
 import dataclasses
 import json
@@ -222,18 +223,21 @@ def exported_model(tmp_path_factory):
 
 @pytest.mark.parametrize("flags,refusal", [
     (["--reference_speech", "REF"],
-     (NotImplementedError, "Queue 1 item 13")),
+     (RuntimeError, "--reference_text")),
     (["--reference_speech", "REF", "--reference_text", "hello"],
      (ValueError, "--random_codec gives random codec decoder weights")),
     (["--quantize", "int4"], None),
     (["--kv_cache", "paged_f8"], None)])
-def test_cli_refuses_unported_modes(exported_model, tmp_path, flags, refusal):
-    """Each case runs on a loadable model: an unported mode fails on its own
-    refusal (a reference without its transcript needs Whisper; random codec
-    weights have no encoder), and the ported ones (int4 weights, float8
-    pages) are served."""
+def test_cli_refuses_unported_modes(exported_model, tmp_path, monkeypatch,
+                                    flags, refusal):
+    """Each case runs on a loadable model: a mode that cannot run fails on
+    its own refusal (a reference without its transcript needs a local
+    Whisper, and the Hugging Face cache here is empty; random codec weights
+    have no encoder), and the ported ones (int4 weights, float8 pages) are
+    served."""
     from t5gemma_tts_tpu_torch.inference import cli
 
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "empty_hub"))
     ref = _reference_wav(str(tmp_path / "ref.wav"))
     argv = ["--model_dir", exported_model, "--target_text", "hello world",
             "--target_duration", "0.4", "--output_dir", str(tmp_path),
@@ -283,3 +287,36 @@ def test_cli_clones_a_voice_from_codec_dir(exported_model, tmp_path,
     assert sr == ccfg.sample_rate and np.isfinite(wav).all()
     assert len(base) > 0 and len(gen) > 0
     np.testing.assert_array_equal(concat, np.concatenate([base, base, gen]))
+
+
+def test_cli_transcribes_a_reference_without_its_transcript(
+        exported_model, tmp_path, monkeypatch, capsys):
+    """No --reference_text: the CLI transcribes the reference with the
+    Whisper of the default model's Hugging Face cache snapshot (a tiny
+    local directory) and clones with that transcript."""
+    from safetensors.numpy import save_file
+    from test_torch_asr import whisper_dir
+    from test_torch_codec_convert import full_checkpoint
+
+    from t5gemma_tts_tpu_torch.inference import cli, transcribe
+
+    sd, _, ccfg = full_checkpoint()
+    codec_dir = tmp_path / "codec"
+    codec_dir.mkdir()
+    save_file(sd, str(codec_dir / "model.safetensors"))
+    monkeypatch.setattr(tcodec, "XCodec2Config", lambda: ccfg)
+    repo = tmp_path / "hub" / "models--openai--whisper-large-v3-turbo"
+    whisper_dir(repo / "snapshots" / "rev")
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
+    ref = _reference_wav(str(tmp_path / "ref.wav"))
+    out_dir = str(tmp_path / "out")
+    cli.main(["--model_dir", exported_model, "--target_text", "hello world",
+              "--target_duration", "0.4", "--output_dir", out_dir,
+              "--codec_dir", str(codec_dir), "--reference_speech", ref,
+              "--cut_off_sec", "20", "--top_k", "4", "--lang", "en",
+              "--device", "cpu"])
+    said = capsys.readouterr().out
+    text = transcribe.load_transcriber(device="cpu")(ref)
+    assert f"[Info] Whisper transcribed text: {text}\n" in said
+    wav, sr = audio_io.read_wav(os.path.join(out_dir, "generated.wav"))
+    assert sr == ccfg.sample_rate and len(wav) > 0 and np.isfinite(wav).all()
