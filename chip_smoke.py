@@ -98,11 +98,12 @@ Phases, in order; any failure exits non-zero before the result line:
    attention kernel never, W4A8 at least once per pass; then every
    quantized product of the run (the head now also at M = k + 1) and one
    verify pass's decode_stack at its shapes against their plain versions;
-4e. bf16 weights over e4m3 pages, the same request: the sequential decode
-   (the two-segment kernel, e4m3: 2 x 26 launches per step), then the
-   speculative decode drafted as in 4d (the one-segment kernel: 3 x 26
-   launches per pass), with 4d's numbers, and both kernels at the run's
-   shapes against their plain versions;
+4e. bf16 weights over e4m3 pages, the same request, on a 13 + 13 layer
+   pipeline of its own (full width; its depth cut for the run's time): the sequential decode (the two-segment kernel, e4m3: 2 x
+   13 launches per step), then the speculative decode drafted as in 4d
+   (the one-segment kernel: 3 x 13 launches per pass), with 4d's numbers,
+   and both kernels at the full model's step shapes against their plain
+   versions;
 4g. the bf16 batch of phase 4 with T5G_FUSED_ATTN=1: the v1 kernel runs
    self-attention (26 launches a step) and the one-segment kernel cross
    attention (26 a step), the two-segment kernel never; RTF, tokens/s and
@@ -181,6 +182,29 @@ Phases, in order; any failure exits non-zero before the result line:
    own teacher-forced argmax, a 2-layer truncation of the encoder on the
    card against the CPU; a ``[front]`` JSON line.
 
+4k. training (after 4f, on a card the earlier phases have released):
+   (a) LoRA at 2b-2b full width and depth (seeded random bf16 base, r 16,
+   alpha 32, rematerialized layers, chunked CE at 8192 columns, ScaledAdam
+   on the adapters, two micro-batches of four utterances a step) through
+   ``Trainer`` over a seeded synthetic dataset of 16 utterances of 2-6 s
+   written to a temporary directory (byte-level text tokens): four steps
+   (synchronized ms a step, counted training tokens/s, peak memory); every
+   loss finite and no step skipped, the base bit-unchanged, every adapter
+   ``b`` moved from zero; a run saved at step 2 and resumed in a fresh
+   ``Trainer`` against the uninterrupted one; then ``lora.merge`` into the
+   bf16 ``TTSPipeline`` (``fuse_for_decode``): one 1.0 s request graphed
+   (kernel 1 2 x 26 launches a step body), tokens equal to the eager
+   decode's. (b) A full-model ScaledAdam step at 2b-2b width and 1 + 1
+   layers (2 + 2 took 45 s on the CPU side) in f32 (TF32 off), two
+   micro-batches of one row, on the card and on the CPU from the same
+   state: loss, every gradient leaf, every updated leaf (beyond what the
+   gradients' differences carry through the update's normalization).
+   (c) ``ops/chunked_ce.head_nll_top10`` at the 2b-2b head and the full
+   audio vocab (65541), bf16, 4 x 301 positions, forward and backward
+   against the dense head + ``token_loss`` under autograd, each timed with
+   its peak memory. A ``[train]`` JSON line. No kernel of ours is on the
+   training path; the merged model's serve runs kernel 1.
+
 Every main path (4, 4b, 4c's int4 run, 4f, 4g) runs its decode graphed and
 eager and is profiled both ways; a ``[graph]`` line sums them up as JSON.
 
@@ -221,6 +245,9 @@ REL_FRO_TOL_STACK = 1e-1
 TOL_ABS = 1e-4                 # f32 outputs from the same bf16/int8 pages:
 TOL_REL = 1e-4                 # only the order of summation differs
 MODEL_LAYERS = 26              # 2b-2b decoder depth
+# 4e's depth: at 26 + 26 layers its eager batch-1 decodes (sequential and
+# speculative) took 176.6 s of a 1187.6 s run on one H100 machine
+E4M3_LAYERS = 13
 PAGE = 128
 
 
@@ -1840,6 +1867,16 @@ def fused_step_timing(card: str, prompt_len: int, gen_len: int, batch: int,
 # ---------------------------------------------------------------------------
 
 
+def depth_cut(cfg, layers: int):
+    """``cfg`` with ``layers`` encoder and decoder layers (widths kept)."""
+    bb = cfg.backbone
+    return dataclasses.replace(cfg, backbone=dataclasses.replace(
+        bb, encoder=dataclasses.replace(bb.encoder, num_layers=layers,
+                                        layer_types=()),
+        decoder=dataclasses.replace(bb.decoder, num_layers=layers,
+                                    layer_types=())))
+
+
 def char_tokenizer(vocab: int):
     def encode(text):
         return [3 + (ord(c) % (vocab - 10)) for c in text]
@@ -2723,6 +2760,34 @@ def graphed_vs_eager(pipe, reqs, dcfg, seed: int, tag: str,
     return res
 
 
+def kernel_rows(prof) -> tuple:
+    """A CUDA-only profile's (rows of (device ms, count, kernel name) by
+    time, their sum in ms, the union of the kernels' intervals in us, the
+    kernel events). The union, not the sum, is the device's busy time: a
+    kernel launched as a programmatic dependent starts before its primary
+    ends, and the sum counts that overlap twice."""
+    rows = []
+    for e in prof.key_averages():
+        # kernels only: a CPU op's row repeats the time of its kernels
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    union_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in kernels):
+        if hi > end:
+            union_us += hi - max(lo, end)
+            end = hi
+    return rows, sum(r[0] for r in rows), union_us, kernels
+
+
 def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
                   kv_cache: str = "paged", weights: str = "bf16") -> dict:
     """Device time by kernel over a prefill and ``steps`` decode steps of
@@ -2769,29 +2834,7 @@ def phase_profile(pipe, card: str, enc_lens, steps: int = 32,
         # every host op of a layer loop would add tens of seconds to the run
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, _, launches = _counted(run)
-        rows = []
-        for e in prof.key_averages():
-            # kernels only: a CPU op's row repeats the time of its kernels
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = e.self_cuda_time_total
-            if dev_us > 0:
-                rows.append((dev_us / 1e3, e.count, e.key))
-        rows.sort(reverse=True)
-        busy_ms = sum(r[0] for r in rows)
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        # the union of the kernels' intervals: a kernel launched as a
-        # programmatic dependent starts before its primary ends, and the
-        # sum counts that overlap twice
-        union_us, end = 0.0, float("-inf")
-        for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                             for e in kernels):
-            if hi > end:
-                union_us += hi - max(lo, end)
-                end = hi
+        rows, busy_ms, union_us, kernels = kernel_rows(prof)
         merges = sum("t5g_split" in e.name and "merge_kernel" in e.name
                      for e in kernels)
         counted = (launches["batch_paged_attention"]
@@ -3637,6 +3680,461 @@ def phase_whisper(card: str, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4k: training
+# ---------------------------------------------------------------------------
+
+TRAIN_UTTS = 16                 # utterances of the synthetic dataset
+TRAIN_WORDS = ("the", "voice", "of", "a", "port", "speaks", "softly", "and",
+               "clearly", "today", "morning", "river", "light", "station",
+               "garden", "slowly")
+TRAIN_TEXT_LEN = 128            # text positions a row (byte tokens)
+TRAIN_MICRO_TOKENS = 1280       # four utterances of <= 300 codes (pad 320)
+TRAIN_STEPS = 4
+TRAIN_RESUME_SPLIT = 2          # the split run saves here and resumes
+# a resumed step against the uninterrupted one on the same card: the same
+# kernels on the same inputs, so equal unless a kernel's reduction order
+# depends on the run; allowed: a bf16 rounding's worth of the loss
+TRAIN_RESUME_RTOL = 1e-3
+FULL_LAYERS = 1                 # (b): encoder and decoder depth (2 + 2
+                                # took 45 s on the CPU side)
+FULL_LOSS_RTOL = 1e-4           # (b): f32, TF32 off, card against the CPU
+FULL_GRAD_TOL = 1e-3            # of each leaf's largest CPU gradient
+FULL_PARAM_TOL = 1e-5           # of each updated leaf's largest, beyond
+                                # what the gradients' differences explain
+CE_ROWS, CE_POSITIONS = 4, 301  # (c): bf16, the 2b-2b head, 65541 columns
+CE_LOSS_RTOL = 1e-3
+CE_NLL_ATOL = 2e-2              # a few bf16 ulps of a logit near 1
+CE_GRAD_TOL = 2e-2              # nine bf16-rounded block partials summed
+
+
+def byte_tokenizer(text: str) -> list:
+    """A byte-level stand-in for the T5Gemma tokenizer (the card's machine
+    has no ``transformers``): ids 3-258."""
+    return [3 + b for b in text.encode("utf-8")]
+
+
+def write_train_dataset(root: str, seed: int, n: int = TRAIN_UTTS,
+                        vocab: int = 65536, codes=(100, 300)) -> str:
+    """A seeded dataset in the training layout: ``text/<utt>.txt``,
+    ``xcodec2_1cb/<utt>.txt`` (one line of codes) and
+    ``manifest_final/train.txt``; utterances of 2-6 s at 50 codes a
+    second."""
+    rng = np.random.default_rng(seed)
+    for sub in ("text", "xcodec2_1cb", "manifest_final"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    rows = []
+    for i in range(n):
+        utt = f"utt{i:03d}"
+        length = int(rng.integers(codes[0], codes[1] + 1))
+        words = rng.choice(TRAIN_WORDS, size=int(rng.integers(6, 16)))
+        with open(os.path.join(root, "text", utt + ".txt"), "w") as f:
+            f.write(" ".join(words).capitalize() + ".")
+        with open(os.path.join(root, "xcodec2_1cb", utt + ".txt"), "w") as f:
+            f.write(" ".join(map(str, rng.integers(0, vocab, length))))
+        rows.append(f"{utt}\t{length}")
+    with open(os.path.join(root, "manifest_final", "train.txt"), "w") as f:
+        f.write("\n".join(rows))
+    return root
+
+
+def train_step_profile(trainer, card: str) -> dict:
+    """One step of ``trainer`` (its own step function on its state, the
+    result dropped; the trainer has run) on the first accumulation group of
+    epoch 0: the wall unprofiled, then a CUDA-only profile: device busy (the union of the
+    kernels' intervals), the idle share of the wall, the kernels launched
+    and the largest by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.sampler.set_epoch(0)
+    groups: dict = {}
+    for bucket, rows in trainer.sampler:
+        group = groups.setdefault(bucket, [])
+        group.append(trainer._to_batch(
+            [trainer.train_ds[i] if i >= 0 else None for i in rows], bucket,
+            trainer.plan))
+        if len(group) == trainer.tcfg.gradient_accumulation_steps:
+            batch = trainer._device_batch(group)
+            break
+    lr = trainer._lr(trainer.progress["step"])
+
+    def run():
+        float(trainer._step_fn(trainer.state, batch, lr)[1].loss)
+
+    t0 = time.perf_counter()            # the trainer's steps warmed it
+    run()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    rows, sum_ms, union_us, kernels = kernel_rows(prof)
+    busy_ms = union_us / 1e3
+    res = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
+               kernels=len(kernels),
+               top=[dict(ms=ms, count=c, name=k[:80]) for ms, c, k in rows[:6]])
+    print(f"[train/profile] one LoRA step: wall {wall_ms:.1f} ms "
+          f"(unprofiled), device busy {busy_ms:.1f} ms (the union of the "
+          f"kernels' intervals; their sum {sum_ms:.1f} ms), idle share "
+          f"{res['idle']:.3f}, {len(kernels)} kernels "
+          f"({1e3 * wall_ms / max(len(kernels), 1):.1f} us of wall each) "
+          f"[{card}]")
+    for ms, count, key in rows[:6]:
+        print(f"[train/profile] {ms:9.3f} ms {100 * ms / sum_ms:5.1f}% "
+              f"x{count:<6d} {key[:90]}")
+    return res
+
+
+def phase_train_lora(card: str, seed: int, directory: str) -> dict:
+    """(a) LoRA at 2b-2b, full width and depth (seeded random bf16 base,
+    r 16, alpha 32, layers rematerialized, chunked CE at 8192 columns,
+    ScaledAdam on the adapters, two micro-batches a step) through
+    ``Trainer`` over a seeded synthetic dataset: TRAIN_STEPS steps timed
+    (synchronized), peak memory; every loss finite and no step skipped, the
+    base bit-unchanged, every adapter ``b`` moved from zero; a run saved at
+    TRAIN_RESUME_SPLIT and resumed in a fresh ``Trainer`` against the
+    uninterrupted run; then ``lora.merge`` into the bf16 ``TTSPipeline``
+    (``fuse_for_decode``), one 1.0 s request graphed, kernel 1 launched
+    2 x 26 a step body, tokens equal to the eager decode's."""
+    from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
+    from t5gemma_tts_tpu_torch.data.dataset import VoiceDataset
+    from t5gemma_tts_tpu_torch.data.manifest import DataConfig
+    from t5gemma_tts_tpu_torch.decode import engine
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request, TTSPipeline
+    from t5gemma_tts_tpu_torch.models import voice
+    from t5gemma_tts_tpu_torch.train import lora
+    from t5gemma_tts_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from t5gemma_tts_tpu_torch.utils.tree import leaves_with_path
+
+    cfg = VoiceConfig(gradient_checkpointing=True, ce_vocab_chunk=8192)
+    root = write_train_dataset(os.path.join(directory, "ds"), seed,
+                               vocab=cfg.audio_vocab_size)
+    dcfg = DataConfig(dataset_dir=root, audio_min_length=2.0,
+                      audio_max_length=6.0, encodec_sr=50.0)
+    t0 = time.time()
+    base = voice.init_params(seed, cfg, "cuda")
+    frozen = [t.clone() for _, t in leaves_with_path(base)]
+    torch.cuda.synchronize()
+    print(f"[train/lora] 2b-2b base built in {time.time() - t0:.1f}s "
+          f"({n_params(base) / 1e9:.2f} B bf16 parameters)")
+
+    def trainer(exp: str, steps: int) -> Trainer:
+        tcfg = TrainerConfig(
+            exp_dir=os.path.join(directory, exp), optimizer_name="ScaledAdam",
+            num_steps=steps, gradient_accumulation_steps=2,
+            max_num_tokens=TRAIN_MICRO_TOKENS, num_buckets=1,
+            text_max_length=TRAIN_TEXT_LEN, print_every_n_steps=10 ** 6,
+            val_every_n_steps=10 ** 6, early_stop_step=0, num_epochs=100,
+            seed=seed, use_lora=True, lora_r=16, lora_alpha=32)
+        ds = VoiceDataset(dcfg, "train", byte_tokenizer, cfg.x_sep_token,
+                          cfg.special.y_sep, seed=seed)
+        return Trainer(cfg, tcfg, ds, params=base, device="cuda")
+
+    base_bytes = sum(t.numel() * t.element_size()
+                     for _, t in leaves_with_path(base))
+    before = torch.cuda.memory_allocated()     # the base and its copy
+    torch.cuda.reset_peak_memory_stats()
+    whole = trainer("whole", TRAIN_STEPS)
+    rows = whole.plan.batch_sizes[0]
+    whole.train()
+    # the training run's peak: the base, and what training added above
+    # everything allocated before it (the check's copy not counted)
+    train_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    peak_gb = base_bytes / 1e9 + train_gb
+    hist = whole.history
+    losses = [h["loss"] for h in hist]
+    if not (len(hist) == TRAIN_STEPS and np.isfinite(losses).all()
+            and int(whole.state.nan_skips) == 0):
+        raise AssertionError(f"LoRA steps {hist}, nan_skips "
+                             f"{int(whole.state.nan_skips)}")
+    for before, (path, after) in zip(frozen, leaves_with_path(base)):
+        if not torch.equal(before, after):
+            raise AssertionError(f"the frozen base moved at {path}")
+    del frozen
+    b_leaves = [(p, t) for p, t in leaves_with_path(whole.state.params)
+                if p[-1] == "b"]
+    still = [p for p, t in b_leaves if not bool(t.abs().max() > 0)]
+    if len(b_leaves) != 18 or still:
+        raise AssertionError(f"{len(b_leaves)} adapters, still zero: {still}")
+    adapter_params = sum(t.numel() for _, t in
+                         leaves_with_path(whole.state.params))
+    profiled = train_step_profile(whole, card)
+
+    first = trainer("split", TRAIN_RESUME_SPLIT)
+    first.train()
+    resumed = trainer("split", TRAIN_STEPS)
+    if resumed.progress["step"] != TRAIN_RESUME_SPLIT:
+        raise AssertionError(f"resumed at {resumed.progress}")
+    resumed.train()
+    split = [h["loss"] for h in first.history + resumed.history]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(split, losses))
+    ad_err = max(float((a.float() - b.float()).abs().max())
+                 for (_, a), (_, b) in zip(
+                     leaves_with_path(resumed.state.params),
+                     leaves_with_path(whole.state.params)))
+    if len(split) != TRAIN_STEPS or loss_rel > TRAIN_RESUME_RTOL:
+        raise AssertionError(f"resumed losses {split} against {losses}")
+    seconds = [h["seconds"] for h in hist]
+    ntok = sum(h["ntokens"] for h in hist)
+    res = dict(steps=TRAIN_STEPS, micro_rows=rows, losses=losses,
+               step_ms=[1e3 * s for s in seconds],
+               mean_step_ms=1e3 * float(np.mean(seconds[1:])),
+               tokens_per_s=ntok / sum(seconds),
+               steady_tokens_per_s=sum(h["ntokens"] for h in hist[1:])
+               / sum(seconds[1:]),
+               peak_gb=peak_gb, above_base_gb=train_gb,
+               adapter_params=adapter_params,
+               resume_loss_rel=loss_rel, resume_adapter_max_abs=ad_err,
+               profile=profiled)
+    print(f"[train/lora] {TRAIN_STEPS} steps of 2 x {rows} utterances: "
+          f"losses {['%.4f' % x for x in losses]}, ms a step "
+          f"{['%.1f' % x for x in res['step_ms']]} (mean after the first "
+          f"{res['mean_step_ms']:.1f}), {res['tokens_per_s']:.1f} training "
+          f"tokens/s ({res['steady_tokens_per_s']:.1f} after the first), "
+          f"peak {peak_gb:.2f} GB allocated ({train_gb:.2f} GB above the "
+          f"base), {adapter_params / 1e6:.1f} M "
+          f"adapter parameters; resumed at step {TRAIN_RESUME_SPLIT}: "
+          f"losses within {loss_rel:.2e} relative, adapters within "
+          f"{ad_err:.2e} [{card}]")
+    adapters = whole.state.params
+    del whole, first, resumed
+
+    merged = lora.merge(base, adapters, lora.LoraConfig(r=16, alpha=32))
+    del base
+    pipe = TTSPipeline(merged, cfg, byte_tokenizer, None, device="cuda")
+    del merged
+    req = Request(target_text="The voice of the port speaks clearly.",
+                  target_duration=1.0, lang="en")
+    dcfg_dec = DecodeConfig(kv_cache="paged", seed=seed)
+    results, wall, launches = _counted(lambda: pipe.synthesize_batch(
+        [req], dcfg_dec, seed=seed, decode_audio=False))
+    launched = results[0].launched_steps
+    layers = cfg.backbone.decoder.num_layers
+    if launches["batch_paged_attention"] != 2 * layers * launched:
+        raise AssertionError(f"merged LoRA serve: {launched} bodies, "
+                             f"launches {launches}")
+    res["serve"] = graphed_vs_eager(pipe, [req], dcfg_dec, seed,
+                                    "lora merged b1", card)
+    res["serve"]["kernel1_launches"] = launches["batch_paged_attention"]
+    del pipe
+    engine.release_sessions()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_full(card: str, seed: int) -> dict:
+    """(b) Full-model ScaledAdam at 2b-2b width, FULL_LAYERS + FULL_LAYERS
+    layers, f32 (TF32 off): one step of two micro-batches through the
+    port's step (``accumulate_grads`` then ``apply_grads``) on the card and
+    on the CPU from the same state; loss, every gradient leaf and every
+    updated leaf compared."""
+    from t5gemma_tts_tpu_torch.config import VoiceConfig
+    from t5gemma_tts_tpu_torch.device import tree_to
+    from t5gemma_tts_tpu_torch.models import voice
+    from t5gemma_tts_tpu_torch.train import optim, train_step
+    from t5gemma_tts_tpu_torch.utils.tree import keystr, leaves_with_path
+
+    cfg = depth_cut(VoiceConfig(dtype="float32", ce_vocab_chunk=8192),
+                    FULL_LAYERS)
+    rng = np.random.default_rng(seed)
+    n_micro, rows, tx, ty = 2, 1, 32, 160     # the CPU side bounds it
+    batch = dict(
+        x=rng.integers(3, 259, (n_micro, rows, tx)).astype(np.int32),
+        x_lens=rng.integers(tx // 2, tx + 1, (n_micro, rows)).astype(np.int32),
+        y=rng.integers(0, cfg.audio_vocab_size,
+                       (n_micro, rows, ty)).astype(np.int32),
+        y_lens=rng.integers(ty // 2, ty + 1, (n_micro, rows)).astype(np.int32),
+        y_sep_position=np.zeros((n_micro, rows), np.int32))
+    ocfg = optim.ScaledAdamConfig()
+    lr = 0.035
+
+    def forward(p, mb):
+        return voice.forward(p, cfg, mb)
+
+    def step(params, device):
+        dev = torch.device(device)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        opt = optim.init(params, ocfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, sums = train_step.accumulate_grads(params, b, forward)
+        float(sums["loss"])
+        t1 = time.perf_counter()
+        new, _, metrics = train_step.apply_grads(
+            params, opt, grads, sums, torch.tensor(lr, device=dev), ocfg)
+        float(metrics.loss)
+        return grads, new, metrics, (t1 - t0, time.perf_counter() - t1)
+
+    params = voice.init_params(seed, cfg, "cuda")
+    cpu_params = tree_to(params, torch.device("cpu"))
+    n = n_params(params)
+    g_card, p_card, m_card, card_s = step(params, "cuda")
+    del params
+    g_cpu, p_cpu, m_cpu, cpu_s = step(cpu_params, "cpu")
+    loss_rel = abs(float(m_card.loss) - float(m_cpu.loss)) / abs(
+        float(m_cpu.loss))
+    grad_worst = param_worst = fro_worst = 0.0
+    worst_leaf = ""
+    beta1 = ocfg.betas[0]
+    for (path, gc), (_, gx), (_, pc), (_, px), (_, p0) in zip(
+            *(leaves_with_path(t) for t in (g_card, g_cpu, p_card, p_cpu,
+                                            cpu_params))):
+        gc, pc = gc.cpu(), pc.cpu()
+        err = float((gc - gx).abs().max()) / max(float(gx.abs().max()), 1e-30)
+        if err > grad_worst:
+            grad_worst, worst_leaf = err, keystr(path)
+        # ScaledAdam's first step moves each element by lr (1 - beta1)
+        # max(rms, min_rms) g / (|g| + eps): an element's update differs
+        # between the devices as far as its gradients' difference carries
+        # through that normalization (far, where |g| is near f32 noise)
+        rms = optim._rms(p0, optim._is_stacked(path)).clamp(
+            min=ocfg.param_min_rms)
+
+        def unit(g):
+            return g / (g.abs() + ocfg.eps)
+
+        carried = lr * (1 - beta1) * rms * (unit(gc) - unit(gx)).abs()
+        excess = ((pc - px).abs() - carried).clamp(min=0)
+        param_worst = max(param_worst, float(excess.max()) / max(
+            float(px.abs().max()), 1e-30))
+        fro_worst = max(fro_worst, float(
+            torch.linalg.vector_norm((pc - px).double())
+            / max(float(torch.linalg.vector_norm(px.double())), 1e-30)))
+    res = dict(layers=FULL_LAYERS, params=n, loss=float(m_cpu.loss),
+               loss_rel=loss_rel, grad_worst=grad_worst,
+               grad_worst_leaf=worst_leaf, param_excess_worst=param_worst,
+               param_fro_worst=fro_worst, card_grads_s=card_s[0],
+               card_update_s=card_s[1], cpu_grads_s=cpu_s[0],
+               cpu_update_s=cpu_s[1], ntokens=float(m_cpu.ntokens))
+    print(f"[train/full] 2b-2b width, {FULL_LAYERS} + {FULL_LAYERS} layers "
+          f"({n / 1e9:.2f} B f32 parameters), one ScaledAdam step of "
+          f"{n_micro} x {rows} rows ({float(m_cpu.ntokens):.0f} tokens): "
+          f"loss {float(m_card.loss):.6f} card vs {float(m_cpu.loss):.6f} "
+          f"CPU ({loss_rel:.2e} relative, tol {FULL_LOSS_RTOL}); worst "
+          f"gradient leaf {worst_leaf} {grad_worst:.2e} of its largest "
+          f"(tol {FULL_GRAD_TOL}); updated leaves within {param_worst:.2e} "
+          f"of their largest beyond what the gradients' differences carry "
+          f"through the update (tol {FULL_PARAM_TOL}; {fro_worst:.2e} "
+          f"relative Frobenius); gradients + update {card_s[0]:.2f} + "
+          f"{card_s[1]:.2f} s on the card, {cpu_s[0]:.2f} + {cpu_s[1]:.2f} s "
+          f"on the CPU [{card}]")
+    if (loss_rel > FULL_LOSS_RTOL or grad_worst > FULL_GRAD_TOL
+            or param_worst > FULL_PARAM_TOL):
+        raise AssertionError(f"full-model step, card against CPU: {res}")
+    return res
+
+
+def phase_chunked_ce(card: str, seed: int, iters: int = 5) -> dict:
+    """(c) ``head_nll_top10`` at 2b-2b width and the full audio vocab,
+    bf16, CE_ROWS x CE_POSITIONS positions on the card: forward and
+    backward against the dense head + ``token_loss`` under autograd (nll,
+    hits but at a near tie, the loss and the gradients of w1 / b1 / w2 /
+    b2 / hidden), each path's time and peak memory."""
+    from t5gemma_tts_tpu_torch.config import VoiceConfig
+    from t5gemma_tts_tpu_torch.models import voice
+    from t5gemma_tts_tpu_torch.ops import chunked_ce
+
+    cfg = VoiceConfig()
+    d, va = cfg.backbone.hidden_size, cfg.audio_embedding_vocab
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(
+            torch.bfloat16)
+
+    head = {"w1": randn(d, d, std=0.02), "b1": randn(d, std=0.02),
+            "w2": randn(d, va, std=0.02), "b2": randn(va, std=0.02)}
+    hidden = randn(CE_ROWS, CE_POSITIONS, d)
+    targets = torch.randint(0, va, (CE_ROWS, CE_POSITIONS), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    lens = torch.tensor([CE_POSITIONS, 280, 250, 200][:CE_ROWS],
+                        dtype=torch.int32, device="cuda")
+
+    def run(chunked):
+        h = {k: v.detach().requires_grad_(True) for k, v in head.items()}
+        x = hidden.detach().requires_grad_(True)
+        if chunked:
+            nll, hit = chunked_ce.head_nll_top10(cfg.ce_vocab_chunk, h, x,
+                                                 targets)
+            out = voice.loss_from_nll(cfg, nll, hit, targets, lens, None)
+        else:
+            logits = voice.predict_head(h, x)
+            lf = logits.float()
+            nll = -torch.gather(torch.log_softmax(lf, -1), -1,
+                                targets.long()[..., None])[..., 0]
+            hit = None
+            out = voice.token_loss(cfg, logits, targets, lens, None)
+        grads = torch.autograd.grad(out.loss, [h[k] for k in sorted(h)] + [x])
+        return out, nll.detach(), hit, dict(zip(sorted(h) + ["hidden"],
+                                                grads))
+
+    stats = {}
+    for name, chunked in (("chunked", True), ("dense", False)):
+        run(chunked)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: run(chunked), iters)
+        stats[name] = dict(ms=ms, peak_gb=(torch.cuda.max_memory_allocated()
+                                           - base_mem) / 1e9)
+    out_c, nll_c, hit_c, g_c = run(True)
+    out_d, nll_d, _, g_d = run(False)
+    # the dense top-10 by value, and which targets sit at its 10th value
+    with torch.no_grad():
+        lf = voice.predict_head(head, hidden).float()
+        kth = torch.topk(lf, 10, dim=-1).values[..., 9]
+        tgt = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+        hit_d = tgt >= kth
+        ulp = torch.finfo(torch.bfloat16).eps * kth.abs().clamp(min=1e-3)
+        near = (tgt - kth).abs() <= 2 * ulp
+    parted = hit_c != hit_d
+    loss_c, loss_d = float(out_c.loss.detach()), float(out_d.loss.detach())
+    loss_rel = abs(loss_c - loss_d) / abs(loss_d)
+    nll_err = float((nll_c - nll_d).abs().max())
+    grad_err = {k: float((g_c[k].float() - g_d[k].float()).abs().max())
+                / max(float(g_d[k].float().abs().max()), 1e-30) for k in g_c}
+    res = dict(rows=CE_ROWS, positions=CE_POSITIONS, vocab=va,
+               chunk=cfg.ce_vocab_chunk, loss_rel=loss_rel,
+               nll_max_abs=nll_err, hits=int(hit_d.sum()),
+               hits_parted=int(parted.sum()),
+               hits_parted_at_near_tie=int((parted & near).sum()),
+               grad_rel=grad_err, **{f"{k}_ms": v["ms"]
+                                     for k, v in stats.items()},
+               **{f"{k}_peak_gb": v["peak_gb"] for k, v in stats.items()})
+    print(f"[train/chunked_ce] {CE_ROWS} x {CE_POSITIONS} positions, vocab "
+          f"{va}, chunk {cfg.ce_vocab_chunk}, bf16: loss {loss_rel:.2e} "
+          f"relative of the dense head's (tol {CE_LOSS_RTOL}), nll within "
+          f"{nll_err:.2e} (tol {CE_NLL_ATOL}), hits {int(hit_d.sum())}, "
+          f"{int(parted.sum())} parted ({int((parted & near).sum())} at a "
+          f"near tie), gradients within "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in grad_err.items())} of "
+          f"their largest (tol {CE_GRAD_TOL}); forward + backward "
+          f"{stats['chunked']['ms']:.2f} ms chunked vs "
+          f"{stats['dense']['ms']:.2f} ms dense, peak "
+          f"{stats['chunked']['peak_gb']:.2f} vs "
+          f"{stats['dense']['peak_gb']:.2f} GB above the inputs [{card}]")
+    if (loss_rel > CE_LOSS_RTOL or nll_err > CE_NLL_ATOL
+            or bool((parted & ~near).any())
+            or max(grad_err.values()) > CE_GRAD_TOL):
+        raise AssertionError(f"chunked CE against the dense head: {res}")
+    return res
+
+
+def phase_train(card: str, seed: int) -> dict:
+    """Phase 4k: (a) LoRA at full width and depth through ``Trainer`` and
+    the merged model served, (b) the full-model step card against CPU, (c)
+    chunked CE against the dense head at the full vocab."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        res = {"lora": phase_train_lora(card, seed, d)}
+    torch.cuda.empty_cache()
+    res["full"] = phase_train_full(card, seed)
+    torch.cuda.empty_cache()
+    res["chunked_ce"] = phase_chunked_ce(card, seed)
+    res["seconds"] = time.time() - t0
+    return res
+
+
 def n_params(tree) -> int:
     """Weights in a parameter tree, quantized ones counted by their
     levels."""
@@ -3671,6 +4169,7 @@ def run_all(args, refdir: str) -> int:
     recordings); raises on the first failure."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from t5gemma_tts_tpu_torch.codec.model import XCodec2Config
     from t5gemma_tts_tpu_torch.config import VoiceConfig
     from t5gemma_tts_tpu_torch.decode import engine
     from t5gemma_tts_tpu_torch.ops import cuda_build
@@ -3877,8 +4376,15 @@ def run_all(args, refdir: str) -> int:
 
     stamp("4d (speculative int4)")
     # 4e: bf16 weights over float8 pages at batch 1: sequential (kernel 1,
-    # e4m3) and speculative (the one-segment kernel)
-    spec8 = phase_speculative(card, pipe16, "bf16 b1", "paged_f8", args.seed)
+    # e4m3) and speculative (the one-segment kernel), on a pipeline of its
+    # own at half depth (E4M3_LAYERS)
+    del pipe16
+    engine.release_sessions()
+    torch.cuda.empty_cache()
+    pipe_e = build_pipeline(depth_cut(cfg, E4M3_LAYERS),
+                            XCodec2Config(), "cuda", args.seed)
+    spec8 = phase_speculative(card, pipe_e, f"bf16 b1 {E4M3_LAYERS} layers",
+                              "paged_f8", args.seed)
     spec8.pop("pipe")
     timing_f8 = main_path_step_timing(
         card, prompt_len=1, gen_len=spec8["seq_steps"] // 2,
@@ -3888,7 +4394,7 @@ def run_all(args, refdir: str) -> int:
         card, prompt_len=1, gen_len=spec8["steps"] // 2,
         enc_len=spec8["enc_lens"][0], gen_slab=spec8["gen_slab"],
         iters=step_iters)
-    del pipe16
+    del pipe_e
     engine.release_sessions()
     torch.cuda.empty_cache()
 
@@ -3905,6 +4411,11 @@ def run_all(args, refdir: str) -> int:
     torch.cuda.empty_cache()
 
     stamp("4f (w8a16)")
+    # 4k: training -- LoRA at full width and depth through Trainer, the
+    # merged model served; the full-model step card against CPU; chunked CE
+    train = phase_train(card, args.seed)
+    print(f"[train] {json.dumps(train)}")
+    stamp("4k (training)")
     # the graphed loop against the eager one, path by path
     graph = {run["tag"]: dict(run["ab"], **{
                  f"profile_{form}_{k}": v

@@ -1,5 +1,9 @@
 """Weight bridge: parameter trees of the JAX package (as numpy) <-> the port.
 
+Training state crosses too: a LoRA adapter tree (``None`` at the frozen
+leaves) through :func:`params_from_jax`, an optimizer state through
+:func:`opt_state_from_jax`.
+
 The port keeps the JAX tree's key names and its stacked ``[L, ...]`` layer
 axis (``voice.init_params``, ``codec.model.init_decoder_params``), so the
 bridge renames nothing: it maps every numpy leaf to a tensor, byte for byte
@@ -65,7 +69,8 @@ class NumpyLanes4Weight(NamedTuple):
 
 
 def _to_tensor(arr: np.ndarray, device, dtype) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray makes a 0-dim array 1-dim: keep the shape
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     elif arr.dtype.name == "float8_e4m3fn":
@@ -131,8 +136,11 @@ def params_from_jax(tree: Any, device: DeviceLike = "cuda",
     """Nested dict of numpy arrays (and JAX ``QuantWeight`` /
     ``Lanes4Weight`` leaves) -> the same dict of tensors (and port
     ``QuantWeight`` / ``Int4Weight`` leaves) on ``device``. With ``dtype``
-    floating leaves are cast; without it they keep theirs."""
+    floating leaves are cast; without it they keep theirs. ``None`` stays
+    ``None`` (a LoRA adapter tree's frozen leaves)."""
     dev = resolve_device(device)
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -142,6 +150,17 @@ def params_from_jax(tree: Any, device: DeviceLike = "cuda",
     if _is_jax_lanes4(tree):
         return _int4_from_jax(tree, dev)
     return _to_tensor(np.asarray(tree), dev, dtype)
+
+
+def opt_state_from_jax(state: Any, device: DeviceLike = "cuda") -> Any:
+    """A JAX optimizer state as numpy (``ScaledAdamState`` or
+    ``AdamWState``, e.g. ``jax.tree_util.tree_map(np.asarray, state)``) ->
+    the port's state of the same name, leaf for leaf."""
+    from .train import optim
+
+    cls = {"ScaledAdamState": optim.ScaledAdamState,
+           "AdamWState": optim.AdamWState}[type(state).__name__]
+    return cls(*(params_from_jax(v, device) for v in state))
 
 
 def _tiling(path, k: int, ndim: int) -> str:

@@ -166,6 +166,8 @@ def layer_params(tree: PyTree, li: int) -> PyTree:
         return {k: layer_params(v, li) for k, v in tree.items()}
     if isinstance(tree, (QuantWeight, Int4Weight)):
         return map_weight(tree, lambda t: t[li])
+    if hasattr(tree, "layer"):          # train/lora.py's LoraWeight
+        return tree.layer(li)
     return tree[li]
 
 
@@ -220,26 +222,44 @@ def init_stack(gen: torch.Generator, dims: ModuleDims, *, is_decoder: bool,
 # ---------------------------------------------------------------------------
 
 
+def _layer_runner(remat: bool):
+    """Calls a layer function as it is, or, with ``remat`` while autograd
+    records, through ``torch.utils.checkpoint`` (non-reentrant): the
+    layer's activations are recomputed in the backward instead of kept."""
+    if not (remat and torch.is_grad_enabled()):
+        return lambda fn, *args: fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _encoder_layer(h, lp, bias, cos, sin, dims: ModuleDims):
+    eps = dims.rms_norm_eps
+    a = self_attention(lp["self_attn"],
+                       rms_norm(h, lp["pre_self_attn_norm"], eps),
+                       cos, sin, bias, dims)
+    h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
+    m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
+    return h + rms_norm(m, lp["post_ff_norm"], eps)
+
+
 def encoder_forward(params: PyTree, dims: ModuleDims, *, input_ids=None,
                     inputs_embeds=None, full_bias, sliding_bias,
-                    position_ids) -> torch.Tensor:
-    """Bidirectional encoder; returns the last hidden state [B, T, D]."""
+                    position_ids, remat: bool = False) -> torch.Tensor:
+    """Bidirectional encoder; returns the last hidden state [B, T, D].
+    ``remat`` rematerializes each layer in the backward."""
     if inputs_embeds is None:
         inputs_embeds = F.embedding(input_ids.long(), params["embed"])
     h = _embed_scale(inputs_embeds, dims)
     cos, sin = rope_ops.rope_cos_sin(position_ids, dims.head_dim,
                                      dims.rope_theta)
-    eps = dims.rms_norm_eps
+    run = _layer_runner(remat)
     for li, sliding in enumerate(dims.sliding_flags):
         lp = layer_params(params["layers"], li)
         bias = sliding_bias if sliding else full_bias
-        a = self_attention(lp["self_attn"],
-                           rms_norm(h, lp["pre_self_attn_norm"], eps),
-                           cos, sin, bias, dims)
-        h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
-        m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
-        h = h + rms_norm(m, lp["post_ff_norm"], eps)
-    return rms_norm(h, params["final_norm"], eps)
+        h = run(lambda h_, lp=lp, bias=bias: _encoder_layer(
+            h_, lp, bias, cos, sin, dims), h)
+    return rms_norm(h, params["final_norm"], dims.rms_norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -308,16 +328,34 @@ def decoder_forward(params: PyTree, dims: ModuleDims, *, inputs_embeds,
                     self_full_bias, self_sliding_bias, cross_bias,
                     position_ids, pm_decoder_positions, cross_k, cross_v,
                     cache: Optional[DecoderCache] = None,
-                    cache_pos: Optional[torch.Tensor] = None):
-    """Decoder stack. Without ``cache``: full-sequence forward. With
-    ``cache``: prefill (``cache_pos`` None, writes the first T slots) or a
-    step of T tokens (``cache_pos`` [B]: row b writes slots cache_pos[b]
-    .. cache_pos[b] + T - 1), attending over the whole cache; the cache is
-    updated in place and returned."""
+                    cache_pos: Optional[torch.Tensor] = None,
+                    remat: bool = False):
+    """Decoder stack. Without ``cache``: full-sequence forward (the
+    training path, no in-place writes; ``remat`` rematerializes each layer
+    in the backward). With ``cache``: prefill (``cache_pos`` None, writes
+    the first T slots) or a step of T tokens (``cache_pos`` [B]: row b
+    writes slots cache_pos[b] .. cache_pos[b] + T - 1), attending over the
+    whole cache; the cache is updated in place and returned."""
     h = _embed_scale(inputs_embeds, dims)
     cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
                                           dims)
     eps = dims.rms_norm_eps
+    if cache is None:
+        run = _layer_runner(remat)
+        for li, sliding in enumerate(dims.sliding_flags):
+            lp = layer_params(params["layers"], li)
+            bias = self_sliding_bias if sliding else self_full_bias
+
+            def layer(h_, xk, xv, lp=lp, bias=bias):
+                a = self_attention(lp["self_attn"],
+                                   rms_norm(h_, lp["pre_self_attn_norm"], eps),
+                                   cos, sin, bias, dims)
+                h_ = h_ + rms_norm(a, lp["post_self_attn_norm"], eps)
+                return _cross_and_mlp(h_, lp, xk, xv, cross_bias, dims,
+                                      q_cos, q_sin)
+
+            h = run(layer, h, cross_k[li], cross_v[li])
+        return rms_norm(h, params["final_norm"], eps), None
     rows = torch.arange(h.shape[0], device=h.device)[:, None]
     if cache_pos is not None:
         slots = cache_pos[:, None] + torch.arange(h.shape[1], device=h.device)
@@ -328,16 +366,15 @@ def decoder_forward(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         q, k, v = _qkv_proj(lp["self_attn"], hn, dims)
         q = rope_ops.apply_rope(q, cos, sin)
         k = rope_ops.apply_rope(k, cos, sin)
-        if cache is not None:
-            ck, cv = cache.self_k[li], cache.self_v[li]
-            if cache_pos is None:
-                t = k.shape[2]
-                ck[:, :, :t] = k.to(ck.dtype)
-                cv[:, :, :t] = v.to(cv.dtype)
-            else:
-                ck[rows, :, slots] = k.transpose(1, 2).to(ck.dtype)
-                cv[rows, :, slots] = v.transpose(1, 2).to(cv.dtype)
-            k, v = ck.to(h.dtype), cv.to(h.dtype)
+        ck, cv = cache.self_k[li], cache.self_v[li]
+        if cache_pos is None:
+            t = k.shape[2]
+            ck[:, :, :t] = k.to(ck.dtype)
+            cv[:, :, :t] = v.to(cv.dtype)
+        else:
+            ck[rows, :, slots] = k.transpose(1, 2).to(ck.dtype)
+            cv[rows, :, slots] = v.transpose(1, 2).to(cv.dtype)
+        k, v = ck.to(h.dtype), cv.to(h.dtype)
         out = gqa_attention(q, k, v, bias, dims.q_scale,
                             dims.attn_logit_softcap)
         a = _mm(_merge_heads(out), lp["self_attn"]["o"])
@@ -345,8 +382,7 @@ def decoder_forward(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         h = _cross_and_mlp(h, lp, cross_k[li], cross_v[li], cross_bias, dims,
                            q_cos, q_sin)
     h = rms_norm(h, params["final_norm"], eps)
-    if cache is not None:
-        cache.cross_k, cache.cross_v = cross_k, cross_v
+    cache.cross_k, cache.cross_v = cross_k, cross_v
     return h, cache
 
 

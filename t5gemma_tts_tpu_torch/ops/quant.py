@@ -278,7 +278,12 @@ def q_matmul(x: torch.Tensor, w) -> torch.Tensor:
     """Drop-in for ``x @ w`` over [..., K] activations: a plain tensor is
     multiplied as is; a :class:`QuantWeight` takes the W8A8 product
     (``act_bits=8``) or the W8A16 one (``act_bits=16``), and an
-    :class:`Int4Weight` the W4A8 product, all back in ``x.dtype``."""
+    :class:`Int4Weight` the W4A8 product, all back in ``x.dtype``. A
+    factored LoRA leaf (``train/lora.py``'s ``LoraWeight``) computes
+    ``x @ W + ((x @ A) @ B) * scale``, never materializing ``W + A B``."""
+    if hasattr(w, "a") and hasattr(w, "b") and hasattr(w, "w"):
+        upd = (x @ w.a.to(x.dtype)) @ w.b.to(x.dtype)
+        return q_matmul(x, w.w) + upd * w.scale
     if isinstance(w, Int4Weight):
         product = w4a8_matmul
     elif isinstance(w, QuantWeight):

@@ -1,0 +1,112 @@
+"""Checkpoint and resume: the port's bundles, in the JAX trainer's layout.
+
+Counterpart of ``t5gemma_tts_tpu/train/checkpoint.py``: ``<exp_dir>/bundle``
+is saved with the previous one rotated to ``bundle_prev``, ``best_bundle``
+tracks the best validation loss, ``bundle_step{N}`` snapshots on a fixed
+cadence, ``progress.json`` records step / epoch / best score and
+``config.json`` the model configuration. A bundle holds one file,
+``state.pt``: every tensor of the train state under its path
+(``torch.save``; read back with ``weights_only=True``) and the data
+loader's position (``loader``). An orbax bundle written by the JAX trainer
+has no ``state.pt`` and is refused.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import shutil
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..utils.tree import keystr, leaves_with_path, tree_map_with_path
+
+log = logging.getLogger(__name__)
+
+BUNDLE = "bundle"
+BUNDLE_PREV = "bundle_prev"
+BEST_BUNDLE = "best_bundle"
+PROGRESS = "progress.json"
+STATE_FILE = "state.pt"
+
+
+def save_bundle(exp_dir: str, state: Any, progress: Dict[str, Any],
+                name: str = BUNDLE, rotate: bool = True,
+                loader: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``state`` (a tree of tensors) and ``loader`` (tensors,
+    numbers, lists) to ``<exp_dir>/<name>/state.pt`` and ``progress`` to
+    ``progress.json``."""
+    os.makedirs(exp_dir, exist_ok=True)
+    path = os.path.join(exp_dir, name)
+    if rotate and os.path.exists(path):
+        prev = os.path.join(exp_dir, BUNDLE_PREV)
+        if os.path.exists(prev):
+            shutil.rmtree(prev)
+        os.replace(path, prev)
+    elif os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    leaves = {keystr(p): t.detach().cpu() for p, t in leaves_with_path(state)}
+    torch.save({"state": leaves, "loader": loader},
+               os.path.join(path, STATE_FILE))
+    with open(os.path.join(exp_dir, PROGRESS), "w") as f:
+        json.dump(progress, f, indent=2)
+    return path
+
+
+def _read_bundle(path: str) -> Dict[str, Any]:
+    """The contents of one bundle directory (``state`` and ``loader``)."""
+    fn = os.path.join(path, STATE_FILE)
+    if not os.path.isfile(fn):
+        raise NotImplementedError(
+            f"{path} holds no {STATE_FILE}: an orbax bundle of the JAX "
+            "trainer, which the port does not read yet (ROADMAP Queue 1 "
+            "item 15)")
+    return torch.load(fn, map_location="cpu", weights_only=True)
+
+
+def restore_bundle(exp_dir: str, template: Any, name: Optional[str] = None
+                   ) -> Tuple[Any, Dict[str, Any], Optional[Dict[str, Any]]]:
+    """The newest usable bundle (``bundle``, else ``bundle_prev``) laid out
+    as ``template``, each tensor on its template leaf's device -> (state,
+    progress, loader)."""
+    candidates = [name] if name else [BUNDLE, BUNDLE_PREV]
+    for cand in candidates:
+        path = os.path.join(exp_dir, cand)
+        if not os.path.exists(path):
+            continue
+        saved = _read_bundle(path)
+        leaves = saved["state"]
+
+        def take(p, like):
+            t = leaves[keystr(p)]
+            if t.shape != like.shape or t.dtype != like.dtype:
+                raise ValueError(f"{path}: {keystr(p)} is {t.dtype} "
+                                 f"{tuple(t.shape)}, the state wants "
+                                 f"{like.dtype} {tuple(like.shape)}")
+            return t.to(like.device)
+
+        state = tree_map_with_path(take, template)
+        progress: Dict[str, Any] = {}
+        pf = os.path.join(exp_dir, PROGRESS)
+        if os.path.isfile(pf):
+            with open(pf) as f:
+                progress = json.load(f)
+        log.info("restored checkpoint from %s (step %s)", path,
+                 progress.get("step"))
+        return state, progress, saved.get("loader")
+    raise FileNotFoundError(f"no checkpoint found under {exp_dir}")
+
+
+def has_bundle(exp_dir: str) -> bool:
+    return any(os.path.exists(os.path.join(exp_dir, n))
+               for n in (BUNDLE, BUNDLE_PREV))
+
+
+def save_config(exp_dir: str, cfg: Any, fname: str = "config.json") -> None:
+    os.makedirs(exp_dir, exist_ok=True)
+    with open(os.path.join(exp_dir, fname), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)

@@ -2,12 +2,14 @@
 of ``t5gemma_tts_tpu_torch`` (``decode/speculative.py``,
 ``decode/continuous.py``, ``codec/streaming.py``, ``inference/server.py``,
 ``asr/``, ``inference/http_server.py``, ``inference/gradio_app.py``,
-``inference/transcribe.py`` and the one-segment paged attention of
-``ops/paged_attn.py`` among them) and ``chip_smoke.py`` (as a module,
+``inference/transcribe.py``, the training modules under ``train/``,
+``data/`` and ``utils/``, ``ops/chunked_ce.py`` and the one-segment paged
+attention of ``ops/paged_attn.py`` among them) and ``chip_smoke.py`` (as a module,
 without running it) loads neither ``jax`` nor anything of
 ``t5gemma_tts_tpu``, nor ``gradio`` or ``transformers``, which only the
-functions that need them import. The entry points run on ``cuda`` by default and raise, rather than run on the
-CPU, when there is no card."""
+functions that need them import. The entry points (the pipeline, the synthesis and train CLIs, ``Trainer``)
+run on ``cuda`` by default and raise, rather than run on the CPU, when
+there is no card; the train CLI does so before it imports a tokenizer."""
 
 import os
 import subprocess
@@ -33,7 +35,11 @@ assert len(names) >= 20, names
 for mod in ("decode.speculative", "decode.continuous", "codec.streaming",
             "inference.server", "asr.mel", "asr.model", "asr.convert",
             "inference.http_server", "inference.gradio_app",
-            "inference.transcribe"):
+            "inference.transcribe", "ops.chunked_ce", "train.optim",
+            "train.lora", "train.train_step", "train.checkpoint",
+            "train.logging_utils", "train.diagnostics", "train.trainer",
+            "train.cli", "data.manifest", "data.batching", "data.stretch",
+            "data.dataset", "utils.profiling", "utils.tree"):
     assert "t5gemma_tts_tpu_torch." + mod in names, (mod, names)
 from t5gemma_tts_tpu_torch.ops import paged_attn
 for fn in ("paged_attention_reference", "paged_flash_parts",
@@ -45,16 +51,24 @@ from t5gemma_tts_tpu_torch.config import tiny_voice_config
 from t5gemma_tts_tpu_torch.inference import cli
 from t5gemma_tts_tpu_torch.inference.pipeline import TTSPipeline
 from t5gemma_tts_tpu_torch.models import voice
+from t5gemma_tts_tpu_torch.train import cli as train_cli
+from t5gemma_tts_tpu_torch.train.trainer import Trainer, TrainerConfig
 refused = 0
 for call in (lambda: TTSPipeline({}, tiny_voice_config(), list),
              lambda: voice.init_params(0, tiny_voice_config()),
-             lambda: cli.main(["--random_codec"])):
+             lambda: cli.main(["--random_codec"]),
+             lambda: Trainer(tiny_voice_config(), TrainerConfig(), None),
+             lambda: train_cli.main(["--dataset_dir", "none"])):
     try:
         call()
     except RuntimeError as e:
         assert "no CUDA device" in str(e), e
         refused += 1
-assert refused == 3
+assert refused == 5
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "t5gemma_tts_tpu",
+                                    "transformers"))
+assert not bad, bad
 print("CLEAN", len(names))
 """
 
