@@ -112,15 +112,17 @@ Phases, in order; any failure exits non-zero before the result line:
    plan, which must fill a wave) and its 26 one-segment cross-attention
    launches, each against the plain version;
 4f. W8A16 serving: the route quantize_params_for_decode(fuse_for_decode(
-   params), act_bits=16) + TTSPipeline(fuse_matmuls=False), the same four
-   requests over bf16 pages; W8A16 launches must equal the plan's count
-   (w8a16_launches), the two-segment kernel 2 x 26 a step, decode_stack
-   never; then every W8A16 product of the run against its plain version
-   (with its route and plan), its profile, one row per distinct product
-   shape of a step (route, plan, time, bound, bf16 yardstick) and one
-   step's 158 products at the run's
-   shapes, each with the library call torch._weight_int8pack_mm and a
-   bf16 matmul over the weight dequantized beforehand.
+   params), act_bits=16) + TTSPipeline(fuse_matmuls=False), on a pipeline
+   of its own at full width and 13 + 13 layers (W8A16_LAYERS, for the
+   run's time), the same four requests over bf16 pages; W8A16 launches
+   must equal the plan's count (w8a16_launches), the two-segment kernel
+   2 x 13 a step, decode_stack never; then every W8A16 product of the run
+   against its plain version (with its route and plan), its profile, one
+   row per distinct product shape of a step (route, plan, time, bound,
+   bf16 yardstick) and one step's 80 products (6 x 13 layers and the
+   head's two) at the run's shapes, each with the library call
+   torch._weight_int8pack_mm and a bf16 matmul over the weight dequantized
+   beforehand.
 
 4h. voice cloning at full width: seeded encoder weights at the width of
    ``XCodec2Config()`` join phase 4's codec; four reference recordings
@@ -140,7 +142,14 @@ Phases, in order; any failure exits non-zero before the result line:
    on both devices, runs the tiny voice-clone pipeline on both (greedy
    tokens equal), and holds two interleaved segment streams of one bucket,
    with a one-shot request between their segments and, with
-   MAX_SESSIONS = 1, an eviction, each to its one-shot decode.
+   MAX_SESSIONS = 1, an eviction, each to its one-shot decode. Then,
+   on 4h's full-width codec, preprocessing: 16 seeded recordings of 2-6 s
+   at 16 kHz with transcripts, in ``data/preprocess``'s wav-folder layout,
+   through ``preprocess.prepare`` (encode batch 4) into a directory 4k and
+   4l train on; each utterance's codes equal ``AudioTokenizer.encode`` of
+   the same zero-padded batch cut to ``len(wav) // hop``, the manifest,
+   text, code and neighbor files in the layout ``VoiceDataset`` reads;
+   seconds of audio encoded a wall second, first pass and warm.
 
 4i. serving: ``TTSPipeline.warmup`` on the int8 pipeline as a server
    starts (every session dropped first; the kernels' builds, a captured
@@ -183,11 +192,12 @@ Phases, in order; any failure exits non-zero before the result line:
    card against the CPU; a ``[front]`` JSON line.
 
 4k. training (after 4f, on a card the earlier phases have released):
-   (a) LoRA at 2b-2b full width and depth (seeded random bf16 base, r 16,
+   (a) LoRA at 2b-2b full width, 13 + 13 layers (the run's time; seeded
+   random bf16 base, r 16,
    alpha 32, rematerialized layers, chunked CE at 8192 columns, ScaledAdam
    on the adapters, two micro-batches of four utterances a step) through
-   ``Trainer`` over a seeded synthetic dataset of 16 utterances of 2-6 s
-   written to a temporary directory (byte-level text tokens): four steps
+   ``Trainer`` over the 16 utterances of 2-6 s that the preprocessing
+   after 4h encoded (byte-level text tokens): four steps
    (synchronized ms a step, counted training tokens/s, peak memory); every
    loss finite and no step skipped, the base bit-unchanged, every adapter
    ``b`` moved from zero; a run saved at step 2 and resumed in a fresh
@@ -202,8 +212,23 @@ Phases, in order; any failure exits non-zero before the result line:
    (c) ``ops/chunked_ce.head_nll_top10`` at the 2b-2b head and the full
    audio vocab (65541), bf16, 4 x 301 positions, forward and backward
    against the dense head + ``token_loss`` under autograd, each timed with
-   its peak memory. A ``[train]`` JSON line. No kernel of ours is on the
-   training path; the merged model's serve runs kernel 1.
+   its peak memory. (d) ``decode/speculative.mtp_loss`` at 2b-2b width
+   (4 heads, D 2304, V 65541, hidden 2 x 64, f32, TF32 off): value and
+   autograd gradients on the card against the CPU. A ``[train]`` JSON
+   line. No kernel of ours is on the training path; the merged model's
+   serve runs kernel 1.
+
+4l. the fine-tuning lifecycle through files, at 2b-2b width and 1 + 1
+   layers (bf16, seeded): the base written as the trainer writes an
+   experiment directory (``save_bundle`` + ``save_config``) and read back
+   by ``load_voice_model`` bit-equal; a LoRA ``Trainer`` (r 16, alpha 32)
+   for two steps on it over the preprocessed utterances; the export's
+   ``main --bundle --lora_bundle --save_adapter_dir`` (bf16 HF directory
+   and PEFT adapter); ``load_voice_model`` of the export bit-equal to
+   ``lora.merge`` of the base and the adapters; one 1.0 s request served
+   from the loaded model, graphed (kernel 1 2 x 1 x the step bodies), its
+   tokens equal to a pipeline's over the in-memory merge; each write and
+   read in s and GB/s; a ``[lifecycle]`` JSON line.
 
 Every main path (4, 4b, 4c's int4 run, 4f, 4g) runs its decode graphed and
 eager and is profiled both ways; a ``[graph]`` line sums them up as JSON.
@@ -248,6 +273,7 @@ MODEL_LAYERS = 26              # 2b-2b decoder depth
 # 4e's depth: at 26 + 26 layers its eager batch-1 decodes (sequential and
 # speculative) took 176.6 s of a 1187.6 s run on one H100 machine
 E4M3_LAYERS = 13
+W8A16_LAYERS = 13              # 4f's own pipeline (for the run's time)
 PAGE = 128
 
 
@@ -1659,11 +1685,11 @@ def phase_w8a16_products(card: str, run: dict, iters: int) -> tuple:
 
 def w8a16_step_timing(pipe, card: str, batch: int, iters: int) -> dict:
     """One decode step's W8A16 products at the main path's shapes, on its
-    own weights: the six products of each of the 26 layers and the head's
-    w1 and w2, all at M = B, bf16 activations. One row per distinct shape
-    (the six layer products of layer 0, then the head's w1 and w2): its
-    route and plan, ms (graph), bound and bf16 yardstick; then the step's
-    158 products in one graph, mean per launch."""
+    own weights: the six products of each of the pipeline's layers and the
+    head's w1 and w2, all at M = B, bf16 activations. One row per distinct
+    shape (the six layer products of layer 0, then the head's w1 and w2):
+    its route and plan, ms (graph), bound and bf16 yardstick; then the
+    step's products in one graph, mean per launch."""
     from t5gemma_tts_tpu_torch.models.t5gemma import layer_params
     from t5gemma_tts_tpu_torch.ops import quant
 
@@ -1705,9 +1731,10 @@ def w8a16_step_timing(pipe, card: str, batch: int, iters: int) -> dict:
               f"kernel_ms={k_ms:.4f} (graph) "
               f"bound_ms={b_ms:.5f} ({by}) bf16_matmul_ms={bf_ms:.4f} "
               f"({w8a16_plan_note(m, w)}) [{card}]")
-    out = time_w8a16(calls, card, f"main-path step (B={batch}, the 158 "
-                     f"products of one step: 6 x 26 layers + the head's "
-                     f"two; mean per launch)", iters)
+    n_layers = pipe.cfg.backbone.decoder.num_layers
+    out = time_w8a16(calls, card, f"main-path step (B={batch}, the "
+                     f"{len(calls)} products of one step: 6 x {n_layers} "
+                     f"layers + the head's two; mean per launch)", iters)
     out["max_abs_err"] = worst
     out["products"] = products
     return out
@@ -2580,7 +2607,8 @@ def phase_main_path(card: str, seed: int, weights: str = "bf16",
     from t5gemma_tts_tpu_torch.decode import engine
     from t5gemma_tts_tpu_torch.inference.pipeline import Request
 
-    cfg = VoiceConfig()                      # 2b-2b preset, bf16
+    # 2b-2b preset, bf16; a pipeline given keeps its own (its depth)
+    cfg = VoiceConfig() if pipe is None else pipe.cfg
     ccfg = XCodec2Config()                   # full-width decoder
     kv_cache = "paged" if weights in ("bf16", "w8a16") else "paged_i8"
     tag = weights if batch == 4 else f"{weights} b{batch}"
@@ -3696,6 +3724,8 @@ TRAIN_RESUME_SPLIT = 2          # the split run saves here and resumes
 # kernels on the same inputs, so equal unless a kernel's reduction order
 # depends on the run; allowed: a bf16 rounding's worth of the loss
 TRAIN_RESUME_RTOL = 1e-3
+LORA_LAYERS = 13                # (a): encoder and decoder depth (26 + 26
+                                # until the whole run neared its 900 s aim)
 FULL_LAYERS = 1                 # (b): encoder and decoder depth (2 + 2
                                 # took 45 s on the CPU side)
 FULL_LOSS_RTOL = 1e-4           # (b): f32, TF32 off, card against the CPU
@@ -3714,28 +3744,113 @@ def byte_tokenizer(text: str) -> list:
     return [3 + b for b in text.encode("utf-8")]
 
 
-def write_train_dataset(root: str, seed: int, n: int = TRAIN_UTTS,
-                        vocab: int = 65536, codes=(100, 300)) -> str:
-    """A seeded dataset in the training layout: ``text/<utt>.txt``,
-    ``xcodec2_1cb/<utt>.txt`` (one line of codes) and
-    ``manifest_final/train.txt``; utterances of 2-6 s at 50 codes a
-    second."""
+PRE_BATCH = 4                   # encode_batch of the preprocess run
+
+
+def write_wav_folder(folder: str, rate: int, seed: int,
+                     n: int = TRAIN_UTTS) -> None:
+    """``n`` seeded recordings of 2-6 s at ``rate`` (a tone plus noise,
+    16-bit PCM), each with a transcript of TRAIN_WORDS, in
+    ``preprocess.iter_wav_folder``'s layout: ``spk<k>_<i>.wav`` + ``.txt``,
+    four speakers."""
+    from t5gemma_tts_tpu_torch.inference.audio_io import write_wav
+
     rng = np.random.default_rng(seed)
-    for sub in ("text", "xcodec2_1cb", "manifest_final"):
-        os.makedirs(os.path.join(root, sub), exist_ok=True)
-    rows = []
+    os.makedirs(folder, exist_ok=True)
     for i in range(n):
-        utt = f"utt{i:03d}"
-        length = int(rng.integers(codes[0], codes[1] + 1))
+        utt = f"spk{i % 4}_{i:02d}"
+        t = np.arange(int(rate * rng.uniform(2.05, 5.95))) / rate
+        f0 = rng.uniform(0.01, 0.05) * rate
+        wav = (0.3 * np.sin(2 * np.pi * f0 * t)
+               + 0.05 * rng.standard_normal(t.size))
+        write_wav(os.path.join(folder, utt + ".wav"), wav.astype(np.float32),
+                  rate)
         words = rng.choice(TRAIN_WORDS, size=int(rng.integers(6, 16)))
-        with open(os.path.join(root, "text", utt + ".txt"), "w") as f:
+        with open(os.path.join(folder, utt + ".txt"), "w") as f:
             f.write(" ".join(words).capitalize() + ".")
-        with open(os.path.join(root, "xcodec2_1cb", utt + ".txt"), "w") as f:
-            f.write(" ".join(map(str, rng.integers(0, vocab, length))))
-        rows.append(f"{utt}\t{length}")
-    with open(os.path.join(root, "manifest_final", "train.txt"), "w") as f:
-        f.write("\n".join(rows))
-    return root
+
+
+def phase_preprocess(card: str, tok, directory: str, seed: int) -> dict:
+    """After 4h, on 4h's full-width codec (``tok`` holds the encoder
+    weights): TRAIN_UTTS seeded recordings of 2-6 s at 16 kHz through
+    ``data/preprocess.prepare`` (encode batch PRE_BATCH, everything to the
+    train split) into ``<directory>/prepared``, which 4k and 4l train on.
+    Each utterance's codes must equal ``tok.encode`` of the same
+    zero-padded batch cut to ``len(wav) // hop`` (that second pass is
+    timed too, warm); the manifest, text, code and neighbor files must have
+    the layout ``VoiceDataset`` reads, and it must read all of them."""
+    from t5gemma_tts_tpu_torch.data import preprocess
+    from t5gemma_tts_tpu_torch.data.dataset import VoiceDataset
+    from t5gemma_tts_tpu_torch.data.manifest import DataConfig
+
+    sr = tok.encode_sample_rate
+    raw = os.path.join(directory, "raw")
+    out = os.path.join(directory, "prepared")
+    write_wav_folder(raw, sr, seed)
+    samples = list(preprocess.iter_wav_folder(raw, sr))
+    audio_s = sum(len(x.wav) for x in samples) / sr
+    pcfg = preprocess.PreprocessConfig(out_dir=out, valid_fraction=0.0,
+                                       encode_batch=PRE_BATCH, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = preprocess.prepare(iter(samples), tok, pcfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(records) != TRAIN_UTTS:
+        raise AssertionError(f"preprocess kept {len(records)} of "
+                             f"{TRAIN_UTTS}")
+    rel = {r.utt_id.split("/")[1]: r.utt_id for r in records}
+    hop = int(np.prod(tok.cfg.acoustic_cfg.ratios))
+    manifest = {}
+    with open(os.path.join(out, "manifest_final", "train.txt")) as f:
+        for line in f:
+            key, n = line.rstrip("\n").split("\t")
+            manifest[key] = int(n)
+    t0 = time.perf_counter()
+    for i in range(0, len(samples), PRE_BATCH):
+        batch = samples[i:i + PRE_BATCH]
+        wavs = np.zeros((len(batch), max(len(x.wav) for x in batch)),
+                        np.float32)
+        for row, x in enumerate(batch):
+            wavs[row, :len(x.wav)] = x.wav
+        codes = tok.encode(wavs)
+        for row, x in enumerate(batch):
+            key = rel[x.utt_id]
+            with open(os.path.join(out, "xcodec2_1cb", key + ".txt")) as f:
+                got = np.asarray(f.read().split(), np.int64)
+            want = codes[row, :max(len(x.wav) // hop, 1), 0]
+            if not np.array_equal(got, want) or manifest[key] != len(got):
+                raise AssertionError(f"{key}: codes {got[:8]} ({len(got)}, "
+                                     f"manifest {manifest[key]}) against "
+                                     f"{want[:8]} ({len(want)})")
+            with open(os.path.join(out, "text", key + ".txt")) as f:
+                text = f.read().strip()
+            if text != preprocess.normalize_text(x.text):
+                raise AssertionError(f"{key}: text {text!r}")
+            with open(os.path.join(out, "neighbors", key + ".txt")) as f:
+                nbs = [ln.split("\t")[0] for ln in f.read().splitlines()]
+            spk = x.speaker + "_"
+            if len(nbs) != TRAIN_UTTS // 4 - 1 or not all(
+                    n.split("/")[1].startswith(spk) for n in nbs):
+                raise AssertionError(f"{key}: neighbors {nbs}")
+    warm = time.perf_counter() - t0
+    ds = VoiceDataset(DataConfig(dataset_dir=out, audio_min_length=2.0,
+                                 audio_max_length=6.0, encodec_sr=50.0),
+                      "train", byte_tokenizer, None, None, seed=seed)
+    if len(ds) != TRAIN_UTTS or ds[0] is None:
+        raise AssertionError(f"VoiceDataset reads {len(ds)} utterances")
+    res = dict(dir=out, utts=TRAIN_UTTS, audio_s=audio_s, wall_s=wall,
+               audio_s_per_s=audio_s / wall, warm_encode_s=warm,
+               warm_audio_s_per_s=audio_s / warm,
+               codes=int(sum(manifest.values())))
+    print(f"[preprocess] {TRAIN_UTTS} utterances, {audio_s:.2f} s of 16 kHz "
+          f"audio: prepare (encode batch {PRE_BATCH}, files written) "
+          f"{wall:.3f} s, {res['audio_s_per_s']:.1f} s of audio a wall "
+          f"second; the same batches encoded again (warm) in {warm:.3f} s, "
+          f"{res['warm_audio_s_per_s']:.1f} s a second; {res['codes']} codes, "
+          f"equal to AudioTokenizer.encode; layout read by VoiceDataset "
+          f"[{card}]")
+    return res
 
 
 def train_step_profile(trainer, card: str) -> dict:
@@ -3783,17 +3898,20 @@ def train_step_profile(trainer, card: str) -> dict:
     return res
 
 
-def phase_train_lora(card: str, seed: int, directory: str) -> dict:
-    """(a) LoRA at 2b-2b, full width and depth (seeded random bf16 base,
+def phase_train_lora(card: str, seed: int, directory: str,
+                     dataset: str) -> dict:
+    """(a) LoRA at 2b-2b, full width and LORA_LAYERS + LORA_LAYERS layers
+    (a cut of depth for the run's time; seeded random bf16 base,
     r 16, alpha 32, layers rematerialized, chunked CE at 8192 columns,
     ScaledAdam on the adapters, two micro-batches a step) through
-    ``Trainer`` over a seeded synthetic dataset: TRAIN_STEPS steps timed
+    ``Trainer`` over ``dataset``, the utterances the port's preprocessing
+    encoded after 4h: TRAIN_STEPS steps timed
     (synchronized), peak memory; every loss finite and no step skipped, the
     base bit-unchanged, every adapter ``b`` moved from zero; a run saved at
     TRAIN_RESUME_SPLIT and resumed in a fresh ``Trainer`` against the
     uninterrupted run; then ``lora.merge`` into the bf16 ``TTSPipeline``
     (``fuse_for_decode``), one 1.0 s request graphed, kernel 1 launched
-    2 x 26 a step body, tokens equal to the eager decode's."""
+    2 x LORA_LAYERS a step body, tokens equal to the eager decode's."""
     from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
     from t5gemma_tts_tpu_torch.data.dataset import VoiceDataset
     from t5gemma_tts_tpu_torch.data.manifest import DataConfig
@@ -3804,16 +3922,16 @@ def phase_train_lora(card: str, seed: int, directory: str) -> dict:
     from t5gemma_tts_tpu_torch.train.trainer import Trainer, TrainerConfig
     from t5gemma_tts_tpu_torch.utils.tree import leaves_with_path
 
-    cfg = VoiceConfig(gradient_checkpointing=True, ce_vocab_chunk=8192)
-    root = write_train_dataset(os.path.join(directory, "ds"), seed,
-                               vocab=cfg.audio_vocab_size)
-    dcfg = DataConfig(dataset_dir=root, audio_min_length=2.0,
+    cfg = depth_cut(VoiceConfig(gradient_checkpointing=True,
+                                ce_vocab_chunk=8192), LORA_LAYERS)
+    dcfg = DataConfig(dataset_dir=dataset, audio_min_length=2.0,
                       audio_max_length=6.0, encodec_sr=50.0)
     t0 = time.time()
     base = voice.init_params(seed, cfg, "cuda")
     frozen = [t.clone() for _, t in leaves_with_path(base)]
     torch.cuda.synchronize()
-    print(f"[train/lora] 2b-2b base built in {time.time() - t0:.1f}s "
+    print(f"[train/lora] 2b-2b base at {LORA_LAYERS} + {LORA_LAYERS} "
+          f"layers built in {time.time() - t0:.1f}s "
           f"({n_params(base) / 1e9:.2f} B bf16 parameters)")
 
     def trainer(exp: str, steps: int) -> Trainer:
@@ -3874,7 +3992,8 @@ def phase_train_lora(card: str, seed: int, directory: str) -> dict:
         raise AssertionError(f"resumed losses {split} against {losses}")
     seconds = [h["seconds"] for h in hist]
     ntok = sum(h["ntokens"] for h in hist)
-    res = dict(steps=TRAIN_STEPS, micro_rows=rows, losses=losses,
+    res = dict(layers=LORA_LAYERS, steps=TRAIN_STEPS, micro_rows=rows,
+               losses=losses,
                step_ms=[1e3 * s for s in seconds],
                mean_step_ms=1e3 * float(np.mean(seconds[1:])),
                tokens_per_s=ntok / sum(seconds),
@@ -4120,18 +4239,239 @@ def phase_chunked_ce(card: str, seed: int, iters: int = 5) -> dict:
     return res
 
 
-def phase_train(card: str, seed: int) -> dict:
-    """Phase 4k: (a) LoRA at full width and depth through ``Trainer`` and
-    the merged model served, (b) the full-model step card against CPU, (c)
-    chunked CE against the dense head at the full vocab."""
+MTP_K, MTP_ROWS, MTP_T = 4, 2, 64    # (d): 2b-2b width, the full vocab
+MTP_LOSS_RTOL = 1e-5                 # f32, TF32 off, card against the CPU
+MTP_GRAD_TOL = 1e-4                  # of each leaf's largest CPU gradient
+
+
+def phase_mtp_loss(card: str, seed: int) -> dict:
+    """(d) ``decode/speculative.mtp_loss`` at 2b-2b width: MTP_K seeded f32
+    heads (D = 2304, V = 65541), hidden [MTP_ROWS, MTP_T, D] with masked
+    positions, value and gradients (autograd) on the card and on the CPU
+    from the same inputs; the card's forward + backward timed."""
+    from t5gemma_tts_tpu_torch.config import VoiceConfig
+    from t5gemma_tts_tpu_torch.decode import speculative
+
+    cfg = VoiceConfig()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    heads = speculative.init_mtp_heads(gen, cfg, MTP_K, dtype=torch.float32)
+    rng = np.random.default_rng(seed + 11)
+    d = cfg.backbone.decoder.hidden_size
+    hidden = torch.from_numpy(
+        rng.standard_normal((MTP_ROWS, MTP_T, d)).astype(np.float32))
+    targets = torch.from_numpy(
+        rng.integers(0, cfg.audio_embedding_vocab, (MTP_ROWS, MTP_T)))
+    mask = torch.ones((MTP_ROWS, MTP_T), dtype=torch.bool)
+    mask[1, MTP_T - 14:] = False
+
+    def leaves(dev):
+        return [{n: h[n].detach().to(dev).requires_grad_() for n in h}
+                for h in heads]
+
+    def run(hs, dev):
+        for h in hs:
+            for t in h.values():
+                t.grad = None
+        loss = speculative.mtp_loss(hs, hidden.to(dev), targets.to(dev),
+                                    mask.to(dev))
+        loss.backward()
+        return loss.detach()
+
+    t0 = time.time()
+    cpu_heads = leaves("cpu")
+    want = run(cpu_heads, "cpu")
+    cpu_s = time.time() - t0
+    card_heads = leaves("cuda")
+    got = run(card_heads, "cuda")
+    loss_rel = abs(float(got) - float(want)) / abs(float(want))
+    grad_err = max(
+        float((c[n].grad.cpu() - h[n].grad).abs().max()
+              / h[n].grad.abs().max())
+        for c, h in zip(card_heads, cpu_heads) for n in ("w1", "w2"))
+    del cpu_heads
+    ms = cuda_ms(lambda: run(card_heads, "cuda"), 3)
+    del card_heads, heads
+    if not (loss_rel <= MTP_LOSS_RTOL and grad_err <= MTP_GRAD_TOL):
+        raise AssertionError(f"mtp_loss card {float(got)} vs CPU "
+                             f"{float(want)} ({loss_rel:.2e}); gradients "
+                             f"{grad_err:.2e} of each leaf's largest")
+    res = dict(k=MTP_K, loss=float(got), loss_rel=loss_rel,
+               grad_rel_max=grad_err, card_fwd_bwd_ms=ms, cpu_s=cpu_s)
+    print(f"[train/mtp] mtp_loss, {MTP_K} heads at D {d} x V "
+          f"{cfg.audio_embedding_vocab}, hidden {MTP_ROWS} x {MTP_T} (f32): "
+          f"{float(got):.6f}, card vs CPU {loss_rel:.2e} relative, "
+          f"gradients within {grad_err:.2e} of each leaf's largest; forward "
+          f"+ backward {ms:.2f} ms on the card (CPU {cpu_s:.1f} s) [{card}]")
+    return res
+
+
+def phase_train(card: str, seed: int, dataset: str) -> dict:
+    """Phase 4k: (a) LoRA at full width (LORA_LAYERS deep) through
+    ``Trainer`` over
+    the port-encoded ``dataset`` and the merged model served, (b) the
+    full-model step card against CPU, (c) chunked CE against the dense head
+    at the full vocab, (d) ``mtp_loss`` card against CPU."""
     t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
-        res = {"lora": phase_train_lora(card, seed, d)}
+        res = {"lora": phase_train_lora(card, seed, d, dataset)}
     torch.cuda.empty_cache()
     res["full"] = phase_train_full(card, seed)
     torch.cuda.empty_cache()
     res["chunked_ce"] = phase_chunked_ce(card, seed)
+    torch.cuda.empty_cache()
+    res["mtp"] = phase_mtp_loss(card, seed)
+    torch.cuda.empty_cache()
     res["seconds"] = time.time() - t0
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4l: the fine-tuning lifecycle through files
+# ---------------------------------------------------------------------------
+
+LIFE_LAYERS = 1                 # encoder and decoder depth, full width
+LIFE_STEPS = 2
+
+
+def _bit_equal(got, want, what: str) -> None:
+    from t5gemma_tts_tpu_torch.utils.tree import leaves_with_path
+
+    got, want = list(leaves_with_path(got)), list(leaves_with_path(want))
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise AssertionError(f"{what}: the trees differ")
+    for (path, a), (_, b) in zip(got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b.to(a.device)):
+            raise AssertionError(f"{what}: {path} differs")
+
+
+def phase_lifecycle(card: str, seed: int, dataset: str) -> dict:
+    """Phase 4l: a base at 2b-2b width and LIFE_LAYERS + LIFE_LAYERS layers
+    (bf16, seeded) written as the trainer writes an experiment directory
+    (``save_bundle`` of a TrainState whose params are the base, and
+    ``save_config``); ``load_voice_model`` of it bit-equal to the base; a
+    LoRA ``Trainer`` (r 16, alpha 32, ScaledAdam) for LIFE_STEPS steps on
+    that base over ``dataset`` (the port-encoded utterances); the export's
+    ``main --bundle <base> --lora_bundle <lora>/bundle --save_adapter_dir``
+    (bf16); ``load_voice_model`` of the export bit-equal to ``lora.merge``
+    of the base and the trained adapters; one 1.0 s request served from
+    the loaded model through ``TTSPipeline``, graphed (kernel 1 2 x
+    LIFE_LAYERS launches a step body), its tokens equal to those of a
+    pipeline over the in-memory merge. Each write and read timed (s,
+    GB/s; the file cache warm)."""
+    from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
+    from t5gemma_tts_tpu_torch.data.dataset import VoiceDataset
+    from t5gemma_tts_tpu_torch.data.manifest import DataConfig
+    from t5gemma_tts_tpu_torch.decode import engine
+    from t5gemma_tts_tpu_torch.export import hf_export
+    from t5gemma_tts_tpu_torch.inference.loading import load_voice_model
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request, TTSPipeline
+    from t5gemma_tts_tpu_torch.models import voice
+    from t5gemma_tts_tpu_torch.train import checkpoint as ckpt
+    from t5gemma_tts_tpu_torch.train import lora
+    from t5gemma_tts_tpu_torch.train.train_step import TrainState
+    from t5gemma_tts_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from t5gemma_tts_tpu_torch.utils.tree import leaves_with_path
+
+    t_start = time.time()
+    cfg = depth_cut(VoiceConfig(), LIFE_LAYERS)
+    base = voice.init_params(seed + 5, cfg, "cuda")
+    gb = sum(t.numel() * t.element_size()
+             for _, t in leaves_with_path(base)) / 1e9
+    io = {}
+
+    def note(name, secs, nbytes_gb):
+        io[name] = dict(s=secs, gb=nbytes_gb, gb_per_s=nbytes_gb / secs)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_life_") as d:
+        base_exp = os.path.join(d, "base")
+        zero = torch.zeros((), dtype=torch.int32)
+        _, secs = synced(lambda: (
+            ckpt.save_bundle(base_exp, TrainState(base, None, zero, zero),
+                             {"step": 0}),
+            ckpt.save_config(base_exp, cfg)))
+        note("write bundle", secs, os.path.getsize(os.path.join(
+            base_exp, ckpt.BUNDLE, ckpt.STATE_FILE)) / 1e9)
+        (loaded, lcfg, _), secs = synced(
+            lambda: load_voice_model(base_exp, "cuda"))
+        note("read bundle", secs, gb)
+        _bit_equal(loaded, base, "the loaded bundle")
+        if dataclasses.asdict(lcfg) != dataclasses.asdict(cfg):
+            raise AssertionError(f"config.json read back as {lcfg}")
+        del loaded
+
+        tcfg = TrainerConfig(
+            exp_dir=os.path.join(d, "lora"), optimizer_name="ScaledAdam",
+            num_steps=LIFE_STEPS, max_num_tokens=TRAIN_MICRO_TOKENS,
+            num_buckets=1, text_max_length=TRAIN_TEXT_LEN,
+            print_every_n_steps=10 ** 6, val_every_n_steps=10 ** 6,
+            early_stop_step=0, num_epochs=100, seed=seed, use_lora=True,
+            lora_r=16, lora_alpha=32)
+        ds = VoiceDataset(DataConfig(dataset_dir=dataset, audio_min_length=2.0,
+                                     audio_max_length=6.0, encodec_sr=50.0),
+                          "train", byte_tokenizer, cfg.x_sep_token,
+                          cfg.special.y_sep, seed=seed)
+        trainer = Trainer(cfg, tcfg, ds, params=base, device="cuda")
+        _, train_s = synced(trainer.train)
+        losses = [h["loss"] for h in trainer.history]
+        if len(losses) != LIFE_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"LoRA steps {trainer.history}")
+        adapters = trainer.state.params
+        del trainer
+
+        hf = os.path.join(d, "hf")
+        _, secs = synced(lambda: hf_export.main([
+            "--bundle", base_exp, "--lora_bundle",
+            os.path.join(tcfg.exp_dir, ckpt.BUNDLE), "--save_adapter_dir",
+            os.path.join(d, "adapter"), "--out", hf]))
+        note("export (read base, merge, write)", secs, os.path.getsize(
+            os.path.join(hf, "model.safetensors")) / 1e9)
+        (exported, ecfg, _), secs = synced(
+            lambda: load_voice_model(hf, "cuda"))
+        note("read export", secs, gb)
+    merged = lora.merge(base, adapters, lora.LoraConfig(r=16, alpha=32))
+    del base, adapters
+    _bit_equal(exported, merged, "the loaded export")
+
+    req = Request(target_text="The voice of the port speaks clearly.",
+                  target_duration=1.0, lang="en")
+    dcfg = DecodeConfig(kv_cache="paged", seed=seed)
+    pipe = TTSPipeline(exported, ecfg, byte_tokenizer, None, device="cuda")
+    del exported
+    results, wall, launches = _counted(lambda: pipe.synthesize_batch(
+        [req], dcfg, seed=seed, decode_audio=False))
+    launched = results[0].launched_steps
+    if launches["batch_paged_attention"] != 2 * LIFE_LAYERS * launched:
+        raise AssertionError(f"served export: {launched} bodies, launches "
+                             f"{launches}")
+    del pipe
+    engine.release_sessions()
+    mem = TTSPipeline(merged, cfg, byte_tokenizer, None, device="cuda")
+    del merged
+    want = mem.synthesize_batch([req], dcfg, seed=seed, decode_audio=False)
+    del mem
+    engine.release_sessions()
+    torch.cuda.empty_cache()
+    got_frames, want_frames = results[0].gen_frames, want[0].gen_frames
+    if not np.array_equal(got_frames, want_frames):
+        raise AssertionError(f"served export tokens {got_frames[:16]} "
+                             f"against the in-memory merge "
+                             f"{want_frames[:16]}")
+    res = dict(layers=LIFE_LAYERS, gb=gb, io=io, lora_losses=losses,
+               train_s=train_s, steps=results[0].steps,
+               bodies=launched, kernel1_launches=launches[
+                   "batch_paged_attention"], serve_wall_s=wall,
+               frames=int(len(got_frames)), seconds=time.time() - t_start)
+    for name, r in io.items():
+        print(f"[lifecycle] {name}: {r['gb']:.3f} GB in {r['s']:.3f} s, "
+              f"{r['gb_per_s']:.2f} GB/s [{card}]")
+    print(f"[lifecycle] {LIFE_LAYERS} + {LIFE_LAYERS} layers at 2b-2b width "
+          f"({gb:.2f} GB bf16): bundle written and read back bit-equal; "
+          f"LoRA {LIFE_STEPS} steps in {train_s:.2f} s, losses "
+          f"{['%.4f' % x for x in losses]}; export merged and read back "
+          f"bit-equal to lora.merge; served 1.0 s graphed: {launched} step "
+          f"bodies, kernel 1 {res['kernel1_launches']} launches, "
+          f"{len(got_frames)} frames equal to the in-memory merge's; "
+          f"{res['seconds']:.1f} s in all [{card}]")
     return res
 
 
@@ -4259,6 +4599,10 @@ def run_all(args, refdir: str) -> int:
         gen_slab=clone["gen_slab"], iters=step_iters,
         prompt_pages=clone_pages)
     stamp("4h (bf16 clone)")
+    # after 4h: preprocessing on 4h's full-width codec; 4k and 4l train on
+    # what it writes
+    pre = phase_preprocess(card, pipe16.audio_tokenizer, refdir, args.seed)
+    stamp("4h (preprocess)")
     main8 = phase_main_path(card, args.seed, "int8")
     worst8, prod8 = phase_products(card, main8, args.iters)
     prof["int8"] = phase_profile(main8["pipe"], card, main8["enc_lens"],
@@ -4399,9 +4743,13 @@ def run_all(args, refdir: str) -> int:
     torch.cuda.empty_cache()
 
     stamp("4e (bf16 over e4m3)")
-    # 4f: W8A16 serving, the four requests at batch 4 over bf16 pages; then
-    # every W8A16 product of the run and one decode step's products
-    main16 = phase_main_path(card, args.seed, "w8a16")
+    # 4f: W8A16 serving, the four requests at batch 4 over bf16 pages, on a
+    # pipeline of its own at W8A16_LAYERS; then every W8A16 product of the
+    # run and one decode step's products
+    pipe_w = build_pipeline(depth_cut(cfg, W8A16_LAYERS), XCodec2Config(),
+                            "cuda", args.seed, w8a16=True)
+    main16 = phase_main_path(card, args.seed, "w8a16", pipe=pipe_w)
+    del pipe_w
     worst_run16, prod16 = phase_w8a16_products(card, main16, args.iters)
     worst16 = max(worst16, worst_run16)
     prof["w8a16"] = phase_profile(main16["pipe"], card, main16["enc_lens"],
@@ -4411,11 +4759,16 @@ def run_all(args, refdir: str) -> int:
     torch.cuda.empty_cache()
 
     stamp("4f (w8a16)")
-    # 4k: training -- LoRA at full width and depth through Trainer, the
-    # merged model served; the full-model step card against CPU; chunked CE
-    train = phase_train(card, args.seed)
+    # 4k: training -- LoRA at full width (LORA_LAYERS deep) through Trainer,
+    # the merged model served; the full-model step card against CPU; chunked CE
+    train = phase_train(card, args.seed, pre["dir"])
     print(f"[train] {json.dumps(train)}")
     stamp("4k (training)")
+    # 4l: the lifecycle through files: bundle -> load -> LoRA -> export ->
+    # load -> serve
+    life = phase_lifecycle(card, args.seed, pre["dir"])
+    print(f"[lifecycle] {json.dumps(dict(life, preprocess=pre))}")
+    stamp("4l (lifecycle)")
     # the graphed loop against the eager one, path by path
     graph = {run["tag"]: dict(run["ab"], **{
                  f"profile_{form}_{k}": v
@@ -4458,7 +4811,9 @@ def run_all(args, refdir: str) -> int:
                  launches=serve["bf16"]["launches"]["batch_paged_attention"],
                  max_abs_err=serve_timing["max_abs_err"],
                  splits=serve_timing["splits"],
-                 **{k: serve_timing[k] for k in keys[:4]})),
+                 **{k: serve_timing[k] for k in keys[:4]}),
+             lifecycle=dict(launches=life["kernel1_launches"],
+                            bodies=life["bodies"], layers=LIFE_LAYERS)),
         dict(name="w8a8_matmul", route="cuda",
              source=src + "w8a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:140",
@@ -4539,6 +4894,7 @@ def run_all(args, refdir: str) -> int:
              source=src + "w8a16_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:78",
              launches=main16["launches"]["w8a16_matmul"],
+             layers=W8A16_LAYERS,
              max_abs_err=max(worst16, timing16["max_abs_err"]),
              **{k: timing16[k] for k in keys},
              bf16_matmul_ms=timing16["bf16_ms"],

@@ -24,7 +24,8 @@ accepted.
 - Draft sources: :func:`mtp_draft_fn` (multi-token-prediction heads, one
   small MLP per lookahead position, greedy) and :func:`trace_draft_fn`
   (replays a token trace: the oracle for tests and for measuring the
-  speedup at a chosen acceptance rate).
+  speedup at a chosen acceptance rate). :func:`mtp_loss` trains the
+  heads.
 
 Caches: the dense cache (an S-token block per row through
 ``t5gemma.decoder_forward``) and the paged caches through
@@ -83,6 +84,27 @@ def mtp_logits(heads: List[Dict[str, torch.Tensor]],
     outs = [F.gelu(hidden @ h["w1"], approximate="tanh") @ h["w2"]
             for h in heads]
     return torch.stack(outs, dim=1).float()
+
+
+def mtp_loss(heads: List[Dict[str, torch.Tensor]], hidden: torch.Tensor,
+             targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The draft heads' training objective: hidden [B, T, D] (decoder
+    states; detach them to train the heads alone), targets [B, T] next-token
+    labels, mask [B, T] valid positions. Head j predicts the target j + 1
+    further ahead; the mean NLL over the positions valid at both ends, in
+    f32. Autograd gives its gradient."""
+    total = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    for j, head in enumerate(heads):
+        sh = j + 1
+        m = (mask[:, sh:] & mask[:, :-sh]).float()
+        logits = F.gelu(hidden[:, :-sh] @ head["w1"],
+                        approximate="tanh") @ head["w2"]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, targets[:, sh:, None].long())[..., 0]
+        total = total + (nll * m).sum()
+        count = count + m.sum()
+    return total / count.clamp(min=1.0)
 
 
 def mtp_draft_fn(heads: List[Dict[str, torch.Tensor]]) -> DraftFn:

@@ -106,13 +106,10 @@ def _load_codec(args, hf_cfg, device):
                 f"cannot download codec weights for {model_id}: {exc}. "
                 "Pass --codec_dir with a local model.safetensors.") from exc
         codec_dir = os.path.dirname(path)
-    from safetensors import safe_open
-
     from ..codec.convert import xcodec2_state_dict_to_params
+    from ..utils.safetensors_io import load_numpy
 
-    with safe_open(os.path.join(codec_dir, "model.safetensors"),
-                   framework="np") as f:
-        sd = {k: f.get_tensor(k) for k in f.keys()}
+    sd = load_numpy(os.path.join(codec_dir, "model.safetensors"))
     return AudioTokenizer(
         xcodec2_state_dict_to_params(sd, ccfg, device=device), ccfg, device)
 

@@ -235,12 +235,11 @@ def load_transcriber(hf_model_name: str = DEFAULT_MODEL,
         files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
         if not files:
             raise FileNotFoundError(f"no *.safetensors in {path}")
-        from safetensors import safe_open
+        from ..utils.safetensors_io import load_numpy
 
         sd = {}
         for fn in files:
-            with safe_open(fn, framework="np") as f:
-                sd.update({k: f.get_tensor(k) for k in f.keys()})
+            sd.update(load_numpy(fn))
         params = whisper_state_dict_to_params(sd, cfg, device=device)
         from transformers import WhisperTokenizer
 

@@ -7,8 +7,11 @@ cadence, ``progress.json`` records step / epoch / best score and
 ``config.json`` the model configuration. A bundle holds one file,
 ``state.pt``: every tensor of the train state under its path
 (``torch.save``; read back with ``weights_only=True``) and the data
-loader's position (``loader``). An orbax bundle written by the JAX trainer
-has no ``state.pt`` and is refused.
+loader's position (``loader``). :func:`read_params` reads only the
+``['params']`` tensors of one, memory-mapped, for the loaders and the
+export. An orbax bundle written by the JAX trainer has no ``state.pt`` and
+is refused: the port never imports ``jax``, and the JAX package's own
+export writes the directory the port loads.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..utils.tree import keystr, leaves_with_path, tree_map_with_path
+from ..utils.tree import (from_paths, keystr, leaves_with_path, parse_keystr,
+                          tree_map_with_path)
 
 log = logging.getLogger(__name__)
 
@@ -31,6 +35,11 @@ BUNDLE_PREV = "bundle_prev"
 BEST_BUNDLE = "best_bundle"
 PROGRESS = "progress.json"
 STATE_FILE = "state.pt"
+ORBAX_REFUSAL = (
+    "holds no {state}: an orbax bundle of the JAX trainer, which the port "
+    "does not read (it never imports jax). Export it with the JAX package, "
+    "`python -m t5gemma_tts_tpu.export.hf_export --bundle <exp_dir> --out "
+    "<dir>`, and load that directory")
 
 
 def save_bundle(exp_dir: str, state: Any, progress: Dict[str, Any],
@@ -59,13 +68,30 @@ def save_bundle(exp_dir: str, state: Any, progress: Dict[str, Any],
 
 def _read_bundle(path: str) -> Dict[str, Any]:
     """The contents of one bundle directory (``state`` and ``loader``)."""
+    return torch.load(_state_file(path), map_location="cpu",
+                      weights_only=True)
+
+
+def _state_file(path: str) -> str:
     fn = os.path.join(path, STATE_FILE)
     if not os.path.isfile(fn):
         raise NotImplementedError(
-            f"{path} holds no {STATE_FILE}: an orbax bundle of the JAX "
-            "trainer, which the port does not read yet (ROADMAP Queue 1 "
-            "item 15)")
-    return torch.load(fn, map_location="cpu", weights_only=True)
+            f"{path} " + ORBAX_REFUSAL.format(state=STATE_FILE))
+    return fn
+
+
+def read_params(path: str) -> Any:
+    """The ``['params']`` subtree of the bundle directory ``path`` as a
+    nested dict of CPU tensors. The file is memory-mapped and nothing
+    else of it (the optimizer state, the loader) is read into memory."""
+    saved = torch.load(_state_file(path), map_location="cpu",
+                       weights_only=True, mmap=True)
+    pairs = [(p[1:], t) for p, t in ((parse_keystr(k), t)
+                                     for k, t in saved["state"].items())
+             if p[0] == "params"]
+    if not pairs:
+        raise ValueError(f"{path}: the bundle holds no ['params']")
+    return from_paths(pairs)
 
 
 def restore_bundle(exp_dir: str, template: Any, name: Optional[str] = None

@@ -53,7 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     # model
     p.add_argument("--backbone_preset", default="2b-2b")
     p.add_argument("--load_model_from", default=None,
-                   help="warm-start from an HF-export dir")
+                   help="warm-start from a checkpoint load_voice_model "
+                        "reads: an HF export directory, a training "
+                        "exp_dir or a reference .pth")
     p.add_argument("--audio_vocab_size", type=int, default=65536)
     p.add_argument("--n_special", type=int, default=5)
     p.add_argument("--use_pm_rope", type=int, default=1)
@@ -276,8 +278,11 @@ def main(argv: Optional[list] = None):
         lora_alpha=args.lora_alpha,
     )
 
+    from ..utils.snapshot import copy_codebase
     from .logging_utils import MultiLogger
 
+    copy_codebase(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                  args.exp_dir)
     tb = MultiLogger(args.exp_dir, use_wandb=bool(os.environ.get("WANDB_MODE")),
                      config=vars(args))
     generation_hook = None

@@ -10,7 +10,9 @@ leaf has leaves only at its adapters.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Tuple
+import ast
+import re
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Tuple
 
 Path = Tuple[Any, ...]
 
@@ -105,3 +107,31 @@ def keystr(path: Path) -> str:
         else:
             out.append(f"[{k!r}]")
     return "".join(out)
+
+
+_KEY = re.compile(r"""\[('(?:[^'\\]|\\.)*'|"(?:[^"\\]|\\.)*"|\d+)\]""")
+
+
+def parse_keystr(text: str) -> Path:
+    """The path that :func:`keystr` wrote as ``text``."""
+    keys = []
+    pos = 0
+    for m in _KEY.finditer(text):
+        if m.start() != pos:
+            break
+        keys.append(ast.literal_eval(m.group(1)))
+        pos = m.end()
+    if pos != len(text) or not keys:
+        raise ValueError(f"not a key path: {text!r}")
+    return tuple(keys)
+
+
+def from_paths(pairs: Iterable[Tuple[Path, Any]]) -> Dict[Any, Any]:
+    """The nested dict whose leaves are ``pairs`` (path, leaf)."""
+    root: Dict[Any, Any] = {}
+    for path, leaf in pairs:
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return root

@@ -3,14 +3,20 @@ of ``t5gemma_tts_tpu_torch`` (``decode/speculative.py``,
 ``decode/continuous.py``, ``codec/streaming.py``, ``inference/server.py``,
 ``asr/``, ``inference/http_server.py``, ``inference/gradio_app.py``,
 ``inference/transcribe.py``, the training modules under ``train/``,
-``data/`` and ``utils/``, ``ops/chunked_ce.py`` and the one-segment paged
+``data/`` (``data/preprocess.py`` too) and ``utils/`` (``safetensors_io``,
+``snapshot``), ``export/``, ``ops/chunked_ce.py`` and the one-segment paged
 attention of ``ops/paged_attn.py`` among them) and ``chip_smoke.py`` (as a module,
 without running it) loads neither ``jax`` nor anything of
-``t5gemma_tts_tpu``, nor ``gradio`` or ``transformers``, which only the
-functions that need them import. The entry points (the pipeline, the synthesis and train CLIs, ``Trainer``)
+``t5gemma_tts_tpu``, nor ``safetensors``, ``orbax``, ``gradio`` or
+``transformers``, which only the functions that need them import. No
+source file of the package (``export/templates/`` aside, which exports
+ship and the package never imports) and not ``chip_smoke.py`` has an
+import of ``jax``, ``orbax``, ``safetensors`` or ``t5gemma_tts_tpu``
+anywhere, inside a function or not. The entry points (the pipeline, the synthesis and train CLIs, ``Trainer``)
 run on ``cuda`` by default and raise, rather than run on the CPU, when
 there is no card; the train CLI does so before it imports a tokenizer."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -29,7 +35,8 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "t5gemma_tts_tpu",
-                                    "gradio", "transformers"))
+                                    "gradio", "transformers", "safetensors",
+                                    "orbax"))
 assert not bad, bad
 assert len(names) >= 20, names
 for mod in ("decode.speculative", "decode.continuous", "codec.streaming",
@@ -39,7 +46,9 @@ for mod in ("decode.speculative", "decode.continuous", "codec.streaming",
             "train.lora", "train.train_step", "train.checkpoint",
             "train.logging_utils", "train.diagnostics", "train.trainer",
             "train.cli", "data.manifest", "data.batching", "data.stretch",
-            "data.dataset", "utils.profiling", "utils.tree"):
+            "data.dataset", "data.preprocess", "utils.profiling",
+            "utils.tree", "utils.safetensors_io", "utils.snapshot",
+            "export.hf_export", "export.convert_reference_bundle"):
     assert "t5gemma_tts_tpu_torch." + mod in names, (mod, names)
 from t5gemma_tts_tpu_torch.ops import paged_attn
 for fn in ("paged_attention_reference", "paged_flash_parts",
@@ -67,10 +76,12 @@ for call in (lambda: TTSPipeline({}, tiny_voice_config(), list),
 assert refused == 5
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "t5gemma_tts_tpu",
-                                    "transformers"))
+                                    "transformers", "safetensors", "orbax"))
 assert not bad, bad
 print("CLEAN", len(names))
 """
+
+BANNED = ("jax", "jaxlib", "orbax", "safetensors", "t5gemma_tts_tpu")
 
 
 def test_port_imports_no_jax_and_defaults_to_cuda():
@@ -80,3 +91,28 @@ def test_port_imports_no_jax_and_defaults_to_cuda():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "CLEAN" in out.stdout
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_imports_jax_orbax_or_safetensors():
+    """Imports inside functions count too: a lazy import of a banned
+    package would still fail on a machine without it."""
+    pkg = os.path.join(ROOT, "t5gemma_tts_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+        if f.endswith(".py") and "templates" not in d.split(os.sep)]
+    assert len(files) > 60
+    found = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        found += [(os.path.relpath(path, ROOT), m) for m in _imported(tree)
+                  if m.split(".")[0] in BANNED]
+    assert not found, found

@@ -3,8 +3,9 @@ and with ScaledAdam against the JAX package's ``Trainer`` on the same
 dataset and weights (losses and the step-3 validation loss to 1e-4
 relative); save, resume and go on equal to an uninterrupted run, exactly
 (full model and LoRA, two micro-batches a step, neighbor prompts); the CLI
-in a subprocess with ``--device cpu`` and ``--resume``; and the refusals
-of a mesh, ``--tp 2`` and ZeRO (ROADMAP Queue 1 item 15)."""
+in a subprocess with ``--device cpu`` and ``--resume``; the refusals
+of a mesh, ``--tp 2`` and ZeRO (ROADMAP Queue 1 item 15); and of an orbax
+bundle, naming the JAX package's export."""
 
 import json
 import os
@@ -222,8 +223,10 @@ def test_train_cli_runs_and_resumes_on_cpu(setup, tmp_path):
     exp = str(tmp_path / "exp")
     argv = _cli_argv(setup["root"], tok_dir, exp)
     _run_cli(argv)
-    for name in ("args.json", "config.json", "bundle", "progress.json"):
+    for name in ("args.json", "config.json", "bundle", "progress.json",
+                 "codebase/train/cli.py"):
         assert os.path.exists(os.path.join(exp, name)), name
+    assert not os.path.exists(os.path.join(exp, "codebase", "_build"))
     with open(os.path.join(exp, "args.json")) as f:
         assert json.load(f)["device"] == "cpu"
     with open(os.path.join(exp, "config.json")) as f:
@@ -253,8 +256,10 @@ def test_parallel_options_raise_naming_item_15(setup, tmp_path):
 
 def test_orbax_bundle_is_refused(setup, tmp_path):
     """A bundle directory without the port's state file (what the JAX
-    trainer's orbax checkpoint leaves) is refused, naming item 15."""
+    trainer's orbax checkpoint leaves) is refused, naming the JAX
+    package's export, which writes what the port loads."""
     os.makedirs(tmp_path / "bundle")
     (tmp_path / "bundle" / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError,
+                       match="python -m t5gemma_tts_tpu.export.hf_export"):
         _port_trainer(setup, tmp_path)
