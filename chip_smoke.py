@@ -104,10 +104,12 @@ Phases, in order; any failure exits non-zero before the result line:
    (the one-segment kernel: 3 x 13 launches per pass), with 4d's numbers,
    and both kernels at the full model's step shapes against their plain
    versions;
-4g. the bf16 batch of phase 4 with T5G_FUSED_ATTN=1: the v1 kernel runs
-   self-attention (26 launches a step) and the one-segment kernel cross
-   attention (26 a step), the two-segment kernel never; RTF, tokens/s and
-   ms per step beside phase 4's; its profile, one step's 26 v1
+4g. the bf16 batch of phase 4 with T5G_FUSED_ATTN=1, on a 13 + 13 layer
+   pipeline of its own (full width; its depth cut for the run's time, PR
+   17): the v1 kernel runs self-attention (13 launches a step) and the
+   one-segment kernel cross attention (13 a step), the two-segment kernel
+   never; RTF, tokens/s and ms per step beside phase 4's (26 + 26
+   layers); its profile, one step's 26 v1
    launches at the run's shapes (bf16 and e4m3 pages, with their split
    plan, which must fill a wave) and its 26 one-segment cross-attention
    launches, each against the plain version;
@@ -214,9 +216,17 @@ Phases, in order; any failure exits non-zero before the result line:
    against the dense head + ``token_loss`` under autograd, each timed with
    its peak memory. (d) ``decode/speculative.mtp_loss`` at 2b-2b width
    (4 heads, D 2304, V 65541, hidden 2 x 64, f32, TF32 off): value and
-   autograd gradients on the card against the CPU. A ``[train]`` JSON
-   line. No kernel of ours is on the training path; the merged model's
-   serve runs kernel 1.
+   autograd gradients on the card against the CPU. (e) ``[parallel]``,
+   after (b): NCCL at world size 1 (127.0.0.1, a free port) and
+   ``parallel.make_mesh(dp=1, tp=1)`` with ZeRO-1 on; (b)'s step through
+   the mesh's step and the plain step in turns, bit-equal (loss, every
+   gradient and updated leaf), ms both ways, the collectives a step and
+   their bytes; both updated models served graphed in bf16 (one 1.0 s
+   greedy request, B = 1; kernel 1 2 x 1 x the step bodies), tokens
+   equal; the per-rank GB of the 2b-2b full fine-tune at (dp, tp) = (1, 1),
+   (2, 1) and (2, 2) with ZeRO-1 and (1, 2), reckoned from ``meta``
+   shapes. A ``[train]`` JSON line. No kernel of ours is on the training
+   path; the merged and the mesh-trained models' serves run kernel 1.
 
 4l. the fine-tuning lifecycle through files, at 2b-2b width and 1 + 1
    layers (bf16, seeded): the base written as the trainer writes an
@@ -274,6 +284,7 @@ MODEL_LAYERS = 26              # 2b-2b decoder depth
 # speculative) took 176.6 s of a 1187.6 s run on one H100 machine
 E4M3_LAYERS = 13
 W8A16_LAYERS = 13              # 4f's own pipeline (for the run's time)
+MODE1_LAYERS = 13              # 4g's own pipeline (for the run's time)
 PAGE = 128
 
 
@@ -4039,17 +4050,12 @@ def phase_train_lora(card: str, seed: int, directory: str,
     return res
 
 
-def phase_train_full(card: str, seed: int) -> dict:
-    """(b) Full-model ScaledAdam at 2b-2b width, FULL_LAYERS + FULL_LAYERS
-    layers, f32 (TF32 off): one step of two micro-batches through the
-    port's step (``accumulate_grads`` then ``apply_grads``) on the card and
-    on the CPU from the same state; loss, every gradient leaf and every
-    updated leaf compared."""
+def full_step_setup(seed: int) -> tuple:
+    """(cfg, numpy batch, ScaledAdam config, lr) of 4k(b)'s full-model
+    step: 2b-2b width, FULL_LAYERS + FULL_LAYERS layers, f32, chunked CE,
+    two micro-batches of one row."""
     from t5gemma_tts_tpu_torch.config import VoiceConfig
-    from t5gemma_tts_tpu_torch.device import tree_to
-    from t5gemma_tts_tpu_torch.models import voice
-    from t5gemma_tts_tpu_torch.train import optim, train_step
-    from t5gemma_tts_tpu_torch.utils.tree import keystr, leaves_with_path
+    from t5gemma_tts_tpu_torch.train import optim
 
     cfg = depth_cut(VoiceConfig(dtype="float32", ce_vocab_chunk=8192),
                     FULL_LAYERS)
@@ -4062,8 +4068,22 @@ def phase_train_full(card: str, seed: int) -> dict:
                        (n_micro, rows, ty)).astype(np.int32),
         y_lens=rng.integers(ty // 2, ty + 1, (n_micro, rows)).astype(np.int32),
         y_sep_position=np.zeros((n_micro, rows), np.int32))
-    ocfg = optim.ScaledAdamConfig()
-    lr = 0.035
+    return cfg, batch, optim.ScaledAdamConfig(), 0.035
+
+
+def phase_train_full(card: str, seed: int) -> dict:
+    """(b) Full-model ScaledAdam at 2b-2b width, FULL_LAYERS + FULL_LAYERS
+    layers, f32 (TF32 off): one step of two micro-batches through the
+    port's step (``accumulate_grads`` then ``apply_grads``) on the card and
+    on the CPU from the same state; loss, every gradient leaf and every
+    updated leaf compared."""
+    from t5gemma_tts_tpu_torch.device import tree_to
+    from t5gemma_tts_tpu_torch.models import voice
+    from t5gemma_tts_tpu_torch.train import optim, train_step
+    from t5gemma_tts_tpu_torch.utils.tree import keystr, leaves_with_path
+
+    cfg, batch, ocfg, lr = full_step_setup(seed)
+    n_micro, rows = batch["x"].shape[:2]
 
     def forward(p, mb):
         return voice.forward(p, cfg, mb)
@@ -4305,6 +4325,172 @@ def phase_mtp_loss(card: str, seed: int) -> dict:
     return res
 
 
+def rank_state_gb(cfg, dp: int, tp: int, zero: bool) -> float:
+    """GB a rank holds of a full fine-tune's state under the port's specs
+    at (dp, tp): bf16 parameters, f32 gradients and two f32 moments
+    (ScaledAdam's delta and exp_avg_sq, AdamW's mu and nu), ZeRO-1 on the
+    moments when ``zero``. Reckoned from ``meta`` shapes; nothing is
+    allocated."""
+    from t5gemma_tts_tpu_torch import parallel
+    from t5gemma_tts_tpu_torch.models import voice
+    from t5gemma_tts_tpu_torch.utils.tree import leaves_with_path
+
+    meta = voice.init_params(0, cfg, "meta")
+    specs = parallel.param_specs(meta, cfg, tp)
+    total = 0
+    for (_, p), (_, spec) in zip(leaves_with_path(meta),
+                                 leaves_with_path(specs)):
+        n = p.numel() // (tp if spec.dim(parallel.MODEL_AXIS) is not None
+                          else 1)
+        moments = parallel.zero_spec(spec, p.shape, dp) if zero else spec
+        m = n // (dp if moments.dim(parallel.DATA_AXIS) is not None else 1)
+        total += 2 * n + 4 * n + 2 * 4 * m
+    return total / 1e9
+
+
+PARALLEL_GRID = ((1, 1, True), (2, 1, True), (1, 2, False), (2, 2, True))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel(card: str, seed: int) -> dict:
+    """4k(e) ``[parallel]``: NCCL at world size 1 (127.0.0.1, a free port),
+    ``make_mesh(dp=1, tp=1)`` with ZeRO-1 on; 4k(b)'s full-model ScaledAdam
+    step (2b-2b width, FULL_LAYERS + FULL_LAYERS layers, f32, TF32 off)
+    through the mesh's step and the plain step from the same state, in
+    turns (plain, mesh, mesh, plain): the loss and metrics, every gradient
+    leaf and every updated leaf bit-equal; the collectives of a mesh step
+    and their bytes; then both updated models served graphed in bf16, one
+    1.0 s greedy request at B = 1 (kernel 1 2 x FULL_LAYERS launches a
+    step body), tokens equal; and the per-rank GB of the 2b-2b full
+    fine-tune state at PARALLEL_GRID, reckoned from shapes."""
+    import torch.distributed as dist
+
+    from t5gemma_tts_tpu_torch import parallel
+    from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
+    from t5gemma_tts_tpu_torch.decode import engine
+    from t5gemma_tts_tpu_torch.inference.pipeline import Request, TTSPipeline
+    from t5gemma_tts_tpu_torch.models import voice
+    from t5gemma_tts_tpu_torch.parallel import mesh as mesh_mod
+    from t5gemma_tts_tpu_torch.train import optim, train_step
+    from t5gemma_tts_tpu_torch.utils.tree import tree_map
+
+    t_start = time.time()
+    cfg, np_batch, ocfg, lr = full_step_setup(seed)
+    parallel.init_distributed(
+        "cuda", init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        world = dist.get_world_size()
+        mesh = parallel.make_mesh(dp=1, tp=1)
+        # the communicator's start, outside the timed steps
+        mesh_mod.all_reduce(torch.ones(1, device="cuda"), mesh.data_group)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in np_batch.items()}
+        lr_t = torch.tensor(lr, device="cuda")
+        params = voice.init_params(seed, cfg, "cuda")
+        specs = parallel.param_specs(params, cfg, mesh.tp)
+        local = parallel.shard_params(params, mesh, specs)
+        layout = parallel.Layout(mesh, specs, local, zero=True)
+
+        def forward(p, mb):
+            return voice.forward(p, cfg, mb)
+
+        def plain():
+            grads, sums = train_step.accumulate_grads(params, batch, forward)
+            new, _, metrics = train_step.apply_grads(
+                params, optim.init(params, ocfg), grads, sums, lr_t, ocfg)
+            return grads, new, metrics
+
+        def meshed():
+            grads, sums = train_step.accumulate_grads(local, batch, forward,
+                                                      mesh)
+            new, _, metrics = train_step.apply_grads(
+                local, optim.init(local, ocfg, layout), grads, sums, lr_t,
+                ocfg, layout)
+            return grads, new, metrics
+
+        want, plain_s = synced(plain)
+        mesh_mod.reset_counts()
+        got, mesh_s = synced(meshed)
+        counts = dict(mesh_mod.COUNTS)
+        _bit_equal(got[0], want[0], "the mesh step's gradients")
+        _bit_equal(got[1], want[1], "the mesh step's updated parameters")
+        for f in want[2]._fields:
+            if not torch.equal(getattr(got[2], f), getattr(want[2], f)):
+                raise AssertionError(f"the mesh step's {f}: "
+                                     f"{getattr(got[2], f)} against "
+                                     f"{getattr(want[2], f)}")
+        new_mesh, new_plain, metrics = got[1], want[1], want[2]
+        del got, want
+        mesh_times = [mesh_s, synced(meshed)[1]]
+        plain_times = [plain_s, synced(plain)[1]]
+        del params, local
+        nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    req = Request(target_text="The voice of the port speaks clearly.",
+                  target_duration=1.0, lang="en")
+    dcfg = DecodeConfig(kv_cache="paged", top_k=1, seed=seed)
+    served = {}
+    for name in ("mesh", "plain"):
+        tree = new_mesh if name == "mesh" else new_plain
+        pipe = TTSPipeline(tree_map(lambda t: t.to(torch.bfloat16), tree),
+                           cfg16, byte_tokenizer, None, device="cuda")
+        results, wall, launches = _counted(lambda: pipe.synthesize_batch(
+            [req], dcfg, seed=seed, decode_audio=False))
+        bodies = results[0].launched_steps
+        if launches["batch_paged_attention"] != 2 * FULL_LAYERS * bodies:
+            raise AssertionError(f"served {name} step: {bodies} bodies, "
+                                 f"launches {launches}")
+        served[name] = dict(frames=results[0].gen_frames, bodies=bodies,
+                            launches=launches["batch_paged_attention"],
+                            wall=wall)
+        del pipe
+        engine.release_sessions()
+    del new_mesh, new_plain
+    torch.cuda.empty_cache()
+    if not np.array_equal(served["mesh"]["frames"],
+                          served["plain"]["frames"]):
+        raise AssertionError(
+            f"served from the mesh's step {served['mesh']['frames'][:16]} "
+            f"against the plain step's {served['plain']['frames'][:16]}")
+    full = VoiceConfig()
+    gb = {f"dp{dp}_tp{tp}{'_zero' if zero else ''}":
+          rank_state_gb(full, dp, tp, zero) for dp, tp, zero in PARALLEL_GRID}
+    res = dict(nccl=nccl, world=world, layers=FULL_LAYERS,
+               loss=float(metrics.loss), mesh_ms=[t * 1e3 for t in mesh_times],
+               plain_ms=[t * 1e3 for t in plain_times],
+               collectives=counts["calls"], collective_bytes=counts["bytes"],
+               serve_bodies=served["mesh"]["bodies"],
+               kernel1_launches=served["mesh"]["launches"],
+               serve_wall_s=served["mesh"]["wall"],
+               frames=int(len(served["mesh"]["frames"])), rank_gb=gb,
+               seconds=time.time() - t_start)
+    print(f"[parallel] NCCL {nccl}, world {world}, mesh dp 1 x tp 1 with "
+          f"ZeRO-1: 4k(b)'s step ({FULL_LAYERS} + {FULL_LAYERS} layers, f32) "
+          f"bit-equal to the plain step (loss {res['loss']:.6f}, every "
+          f"gradient and updated leaf); mesh step "
+          f"{'/'.join('%.1f' % t for t in res['mesh_ms'])} ms against plain "
+          f"{'/'.join('%.1f' % t for t in res['plain_ms'])} ms; "
+          f"{counts['calls']} collectives a step moving "
+          f"{counts['bytes'] / 1e9:.3f} GB; served bf16 graphed: "
+          f"{res['serve_bodies']} step bodies, kernel 1 "
+          f"{res['kernel1_launches']} launches, {res['frames']} frames equal "
+          f"to the plain step's; per-rank GB of the 2b-2b full fine-tune "
+          f"(bf16 params, f32 grads and moments, reckoned) "
+          f"{json.dumps({k: round(v, 2) for k, v in gb.items()})}; "
+          f"{res['seconds']:.1f} s [{card}]")
+    return res
+
+
 def phase_train(card: str, seed: int, dataset: str) -> dict:
     """Phase 4k: (a) LoRA at full width (LORA_LAYERS deep) through
     ``Trainer`` over
@@ -4316,6 +4502,8 @@ def phase_train(card: str, seed: int, dataset: str) -> dict:
         res = {"lora": phase_train_lora(card, seed, d, dataset)}
     torch.cuda.empty_cache()
     res["full"] = phase_train_full(card, seed)
+    torch.cuda.empty_cache()
+    res["parallel"] = phase_parallel(card, seed)
     torch.cuda.empty_cache()
     res["chunked_ce"] = phase_chunked_ce(card, seed)
     torch.cuda.empty_cache()
@@ -4565,18 +4753,24 @@ def run_all(args, refdir: str) -> int:
         card, prompt_len=1, gen_len=main["steps"] // 2,
         enc_lens=main["enc_lens"], gen_slab=main["gen_slab"],
         iters=step_iters)
-    pipe16 = main.pop("pipe")          # phases 4g and 4e run it again
+    pipe16 = main.pop("pipe")          # phases 4h and 4i run it again
 
-    # 4g: the same batch with the v1 self-attention (T5G_FUSED_ATTN=1)
-    main1 = phase_main_path(card, args.seed, pipe=pipe16, mode="1")
+    # 4g: the same batch with the v1 self-attention (T5G_FUSED_ATTN=1), on
+    # a pipeline of its own at MODE1_LAYERS + MODE1_LAYERS layers
+    pipe_g = build_pipeline(depth_cut(cfg, MODE1_LAYERS), XCodec2Config(),
+                            "cuda", args.seed)
+    main1 = phase_main_path(card, args.seed, pipe=pipe_g, mode="1")
     main1.pop("pipe")
-    print(f"[main/bf16 mode 1 vs mode 2] RTF {main1['rtf']:.3f}x vs "
-          f"{main['rtf']:.3f}x; tokens/s {main1['tokens_per_s']:.2f} vs "
-          f"{main['tokens_per_s']:.2f}; ms per step {main1['step_ms']:.2f} "
-          f"vs {main['step_ms']:.2f} [{card}]")
+    # its own depth: not set beside mode 2's figures at MODEL_LAYERS
+    print(f"[main/bf16 mode 1 at {MODE1_LAYERS} + {MODE1_LAYERS} layers] RTF "
+          f"{main1['rtf']:.3f}x; tokens/s {main1['tokens_per_s']:.2f}; ms "
+          f"per step {main1['step_ms']:.2f} [{card}]")
     with attn_mode("1"):
-        prof["bf16 mode 1"] = phase_profile(pipe16, card, main1["enc_lens"],
+        prof["bf16 mode 1"] = phase_profile(pipe_g, card, main1["enc_lens"],
                                             weights="bf16 mode 1")
+    del pipe_g
+    engine.release_sessions()
+    torch.cuda.empty_cache()
     fused_timing = fused_step_timing(
         card, prompt_len=1, gen_len=main1["steps"] // 2, batch=4,
         gen_slab=main1["gen_slab"], iters=step_iters)
@@ -4813,7 +5007,10 @@ def run_all(args, refdir: str) -> int:
                  splits=serve_timing["splits"],
                  **{k: serve_timing[k] for k in keys[:4]}),
              lifecycle=dict(launches=life["kernel1_launches"],
-                            bodies=life["bodies"], layers=LIFE_LAYERS)),
+                            bodies=life["bodies"], layers=LIFE_LAYERS),
+             parallel=dict(launches=train["parallel"]["kernel1_launches"],
+                           bodies=train["parallel"]["serve_bodies"],
+                           layers=FULL_LAYERS)),
         dict(name="w8a8_matmul", route="cuda",
              source=src + "w8a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:140",
@@ -4888,6 +5085,7 @@ def run_all(args, refdir: str) -> int:
              **{k: parts_timing[k] for k in keys},
              splits=parts_timing["splits"],
              cross_4g=dict(launches=main1["launches"]["paged_flash_parts"],
+                           layers=MODE1_LAYERS,
                            splits=cross_timing["splits"],
                            **{k: cross_timing[k] for k in keys})),
         dict(name="w8a16_matmul", route="cuda",
@@ -4904,6 +5102,7 @@ def run_all(args, refdir: str) -> int:
              source=src + "fused_decode_attention.cu",
              replaces="t5gemma_tts_tpu/ops/fused_attn.py:97",
              launches=main1["launches"]["fused_decode_attention"],
+             layers=MODE1_LAYERS,
              max_abs_err=max(worst_fused["bf16"],
                              fused_timing["max_abs_err"]),
              **{k: fused_timing[k] for k in keys},

@@ -9,10 +9,14 @@ same-speaker ``neighbors/`` generation (duration-diff distance, strided
 subsampling).
 
 Batches of zero-padded waveforms are encoded by the port's
-``AudioTokenizer.encode`` on one device (``cuda`` unless ``--device cpu``);
-the reference runs one encoder thread per GPU, the JAX package one SPMD
-program over its mesh. The files are the JAX package's, byte for byte, for
-the same codes. ``iter_hf_dataset`` reads a dataset from a local path only.
+``AudioTokenizer.encode`` on one device (``cuda`` unless ``--device cpu``)
+or, under ``torchrun`` (``WORLD_SIZE`` above 1), spread over the ranks:
+each rank encodes its contiguous rows of every batch with its own
+tokenizer, the codes are all-gathered, and rank 0 alone writes, the same
+files a one-process run writes. The reference runs one encoder thread per
+GPU, the JAX package one SPMD program over its mesh. The files are the JAX
+package's, byte for byte, for the same codes. ``iter_hf_dataset`` reads a
+dataset from a local path only.
 """
 
 from __future__ import annotations
@@ -169,18 +173,48 @@ class SampleRecord:
     split: str
 
 
+def _encode(audio_tokenizer, wavs: np.ndarray, mesh) -> np.ndarray:
+    """Codes [B, T, 1] of a zero-padded batch: one ``encode`` call, or over
+    ``mesh`` (data-parallel over all ranks) each rank's contiguous rows
+    (the batch padded with silent rows to a multiple of the world), then
+    all-gathered."""
+    if mesh is None:
+        return audio_tokenizer.encode(wavs)
+    import torch
+
+    from ..parallel import mesh as mesh_mod
+
+    b = wavs.shape[0]
+    per = -(-b // mesh.world)
+    padded = np.zeros((per * mesh.world, wavs.shape[1]), np.float32)
+    padded[:b] = wavs
+    lo = mesh.rank * per
+    mine = audio_tokenizer.encode(padded[lo:lo + per])
+    codes = mesh_mod.all_gather(
+        torch.from_numpy(np.ascontiguousarray(mine)).to(mesh.device), 0,
+        None, mesh.world)
+    return codes[:b].cpu().numpy()
+
+
 def prepare(
     samples: Iterable[Sample],
     audio_tokenizer,
     cfg: PreprocessConfig,
+    mesh=None,
 ) -> List[SampleRecord]:
     """Filter + batch-encode + write. ``audio_tokenizer`` is a
     ``codec.audio_tokenizer.AudioTokenizer`` with encoder weights; each
     batch of ``cfg.encode_batch`` waveforms, zero-padded to the longest, is
     one ``encode`` call, and each utterance keeps ``len(wav) // hop`` of its
-    codes (at least one)."""
+    codes (at least one). ``mesh`` (a ``parallel.Mesh``; every rank calls
+    with the same samples): the batch's rows are encoded across the ranks
+    and rank 0 writes."""
+    from ..parallel import mesh as mesh_mod
+
+    lead = mesh is None or mesh.lead
     dirs = ensure_dirs(cfg.out_dir)
     done = load_done_ids(dirs)
+    mesh_mod.barrier(mesh)      # every rank has read what is done
     encode_sr = audio_tokenizer.encode_sample_rate
     rng = np.random.default_rng(cfg.seed)
 
@@ -195,13 +229,14 @@ def prepare(
         wavs = np.zeros((len(buf), max_len), np.float32)
         for i, s in enumerate(buf):
             wavs[i, : len(s.wav)] = s.wav
-        codes = audio_tokenizer.encode(wavs)  # [B, T, 1]
+        codes = _encode(audio_tokenizer, wavs, mesh)  # [B, T, 1]
         for i, s in enumerate(buf):
             t = int(len(s.wav) // np.prod(audio_tokenizer.cfg.acoustic_cfg.ratios))
             toks = codes[i, : max(t, 1), 0]
             split = s_split[i]
-            write_outputs(dirs, split, s.utt_id, toks, normalize_text(s.text),
-                          cfg.overwrite)
+            if lead:
+                write_outputs(dirs, split, s.utt_id, toks,
+                              normalize_text(s.text), cfg.overwrite)
             records.append(SampleRecord(
                 utt_id=f"{hashlib.md5(s.utt_id.encode()).hexdigest()[:2]}/{s.utt_id}",
                 speaker=s.speaker,
@@ -234,11 +269,12 @@ def prepare(
         if len(buf) >= cfg.encode_batch:
             flush()
     flush()
-    log.info("preprocess stats: %s", dict(stats))
-
-    if cfg.make_neighbors:
+    if lead:
+        log.info("preprocess stats: %s", dict(stats))
+    if cfg.make_neighbors and lead:
         generate_neighbors(records, dirs["neighbors"],
                            cfg.max_neighbors_per_utt, cfg.seed)
+    mesh_mod.barrier(mesh)      # the files are written
     return records
 
 
@@ -435,10 +471,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _cli_tokenizer(args):
-    from ..device import resolve_device
-
-    device = resolve_device(args.device)
+def _cli_tokenizer(args, device):
     if args.tiny_random_codec:
         from ..codec.audio_tokenizer import AudioTokenizer
         from ..codec.model import (
@@ -497,7 +530,10 @@ def main(argv=None) -> int:
 
     if args.neighbors_only:
         # Replay metadata for utterances already in the manifests and rebuild
-        # neighbors/ (reference prepare_emilia_en.py:1293-1483).
+        # neighbors/ (reference prepare_emilia_en.py:1293-1483); under
+        # torchrun rank 0 alone
+        if int(os.environ.get("RANK", 0)) != 0:
+            return 0
         dirs = ensure_dirs(cfg.out_dir)
         done = load_done_ids(dirs)
         if args.wav_folder:
@@ -530,7 +566,17 @@ def main(argv=None) -> int:
         log.info("neighbors rebuilt for %d utterances", len(records))
         return 0
 
-    tok = _cli_tokenizer(args)
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        from ..parallel import mesh as mesh_mod
+
+        device = mesh_mod.init_distributed(args.device)
+        mesh = mesh_mod.make_mesh()
+    else:
+        from ..device import resolve_device
+
+        device = resolve_device(args.device)
+    tok = _cli_tokenizer(args, device)
     encode_sr = tok.encode_sample_rate
     if args.wav_folder:
         it = iter_wav_folder(args.wav_folder, encode_sr)
@@ -540,7 +586,7 @@ def main(argv=None) -> int:
             streaming=args.streaming, text_column=args.text_column,
             speaker_column=args.speaker_column,
             audio_column=args.audio_column, id_column=args.id_column)
-    records = prepare(it, tok, cfg)
+    records = prepare(it, tok, cfg, mesh)
     log.info("wrote %d utterances to %s", len(records), cfg.out_dir)
     return 0
 

@@ -50,6 +50,7 @@ from ..ops import rope as rope_ops
 from ..ops.paged_attn import identity_page_indices
 from ..ops.quant import Int4Weight, QuantWeight, map_weight
 from ..ops.quant import q_matmul as _mm
+from ..parallel import tensor as tp
 
 PyTree = Any
 PAGE_SIZE = 128
@@ -71,15 +72,22 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
+        dims: Optional[ModuleDims] = None) -> torch.Tensor:
     """GeGLU: act(x @ gate) * (x @ up) @ down (one gate_up matmul when the
-    params are fused for decode)."""
+    params are fused for decode). Under tensor parallelism (``dims`` given,
+    ``parallel/tensor.py``) gate/up hold a column block and down the
+    matching row block: the output is summed over the model group."""
     if "gate_up" in p:
         g, u = _mm(x, p["gate_up"]).chunk(2, dim=-1)
         h = gelu_tanh(g) * u
-    else:
-        h = gelu_tanh(_mm(x, p["gate"])) * _mm(x, p["up"])
-    return _mm(h, p["down"])
+        return _mm(h, p["down"])
+    split = dims is not None and tp.splits(p["up"], dims.intermediate_size)
+    if split:
+        x = tp.copy_to_model(x)
+    h = gelu_tanh(_mm(x, p["gate"])) * _mm(x, p["up"])
+    out = _mm(h, p["down"])
+    return tp.reduce_from_model(out) if split else out
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
@@ -130,29 +138,42 @@ def _qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor, dims: ModuleDims):
 
 
 def self_attention(p, x, cos, sin, bias, dims: ModuleDims) -> torch.Tensor:
-    """Self-attention with RoPE over this call's own keys."""
+    """Self-attention with RoPE over this call's own keys. Under tensor
+    parallelism this rank computes its whole heads (``tp.attention_dims``)
+    and the output projection's partial sums are reduced."""
+    dims, split = tp.attention_dims(p, dims)
+    if split:
+        x = tp.copy_to_model(x)
     q, k, v = _qkv_proj(p, x, dims)
     q = rope_ops.apply_rope(q, cos, sin)
     k = rope_ops.apply_rope(k, cos, sin)
     out = gqa_attention(q, k, v, bias, dims.q_scale, dims.attn_logit_softcap)
-    return _mm(_merge_heads(out), p["o"])
+    out = _mm(_merge_heads(out), p["o"])
+    return tp.reduce_from_model(out) if split else out
 
 
 def cross_attention(p, x, kv_cache, bias, dims: ModuleDims,
                     q_cos=None, q_sin=None) -> torch.Tensor:
     """PM-RoPE cross-attention over precomputed encoder K/V; the query gets
     rotary with progress positions when q_cos/q_sin are given."""
+    dims, split = tp.attention_dims(p, dims)
+    if split:
+        x = tp.copy_to_model(x)
     q = _split_heads(_mm(x, p["q"]), dims.num_heads, dims.head_dim)
     if q_cos is not None:
         q = rope_ops.apply_rope(q, q_cos, q_sin)
     k, v = kv_cache
     out = gqa_attention(q, k.to(x.dtype), v.to(x.dtype), bias, dims.q_scale,
                         dims.attn_logit_softcap)
-    return _mm(_merge_heads(out), p["o"])
+    out = _mm(_merge_heads(out), p["o"])
+    return tp.reduce_from_model(out) if split else out
 
 
 def cross_kv(p, memory, dims: ModuleDims, k_cos=None, k_sin=None):
-    """Encoder memory -> cross K/V [B, Hkv, Tenc, hd]; keys get PM rotary."""
+    """Encoder memory -> cross K/V [B, Hkv, Tenc, hd]; keys get PM rotary.
+    Under tensor parallelism, this rank's kv heads (the caller takes
+    ``memory`` through ``tp.copy_to_model`` once for all layers)."""
+    dims = tp.attention_dims(p, dims)[0]
     k = _split_heads(_mm(memory, p["k"]), dims.num_kv_heads, dims.head_dim)
     v = _split_heads(_mm(memory, p["v"]), dims.num_kv_heads, dims.head_dim)
     if k_cos is not None:
@@ -239,7 +260,7 @@ def _encoder_layer(h, lp, bias, cos, sin, dims: ModuleDims):
                        rms_norm(h, lp["pre_self_attn_norm"], eps),
                        cos, sin, bias, dims)
     h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
-    m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
+    m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps), dims)
     return h + rms_norm(m, lp["post_ff_norm"], eps)
 
 
@@ -249,7 +270,8 @@ def encoder_forward(params: PyTree, dims: ModuleDims, *, input_ids=None,
     """Bidirectional encoder; returns the last hidden state [B, T, D].
     ``remat`` rematerializes each layer in the backward."""
     if inputs_embeds is None:
-        inputs_embeds = F.embedding(input_ids.long(), params["embed"])
+        inputs_embeds = tp.vocab_embedding(input_ids, params["embed"],
+                                           dims.vocab_size)
     h = _embed_scale(inputs_embeds, dims)
     cos, sin = rope_ops.rope_cos_sin(position_ids, dims.head_dim,
                                      dims.rope_theta)
@@ -298,6 +320,8 @@ def build_cross_kv(params: PyTree, dims: ModuleDims, memory: torch.Tensor,
     else:
         k_cos = k_sin = None
     cp = params["layers"]["cross_attn"]
+    if tp.attention_dims(cp, dims)[1]:
+        memory = tp.copy_to_model(memory)
     ks, vs = zip(*(cross_kv(layer_params(cp, li), memory, dims, k_cos, k_sin)
                    for li in range(dims.num_layers)))
     return torch.stack(ks), torch.stack(vs)
@@ -320,7 +344,7 @@ def _cross_and_mlp(h, lp, xk, xv, cross_bias, dims, q_cos, q_sin):
                         rms_norm(h, lp["pre_cross_attn_norm"], eps),
                         (xk, xv), cross_bias, dims, q_cos, q_sin)
     h = h + rms_norm(a, lp["post_cross_attn_norm"], eps)
-    m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
+    m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps), dims)
     return h + rms_norm(m, lp["post_ff_norm"], eps)
 
 

@@ -24,6 +24,7 @@ from ..ops import chunked_ce
 from ..ops import masks as mask_ops
 from ..ops import rope as rope_ops
 from ..ops.quant import q_matmul
+from ..parallel import tensor as tp
 from . import t5gemma
 
 PyTree = Any
@@ -35,6 +36,9 @@ class VoiceOutputs(NamedTuple):
     perplexity: torch.Tensor
     top10acc: torch.Tensor
     effective_ntokens: torch.Tensor
+    # the CE weights' sum, mean_ce's denominator before its clamp (the
+    # data-parallel step weighs each rank's mean_ce by it)
+    ce_weight: torch.Tensor
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -48,7 +52,9 @@ def init_params(seed: int, cfg: VoiceConfig,
     """Seeded random parameters, generated on ``device`` (a full-size model
     never passes through host memory)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # the meta device (shapes only, nothing allocated) has no generator
+    gen = (torch.Generator(device=dev).manual_seed(seed)
+           if dev.type != "meta" else None)
     dtype = compute_dtype(cfg)
     d = cfg.backbone.hidden_size
     va = cfg.audio_embedding_vocab
@@ -77,12 +83,26 @@ def init_params(seed: int, cfg: VoiceConfig,
 def predict_head(head: Dict[str, torch.Tensor],
                  hidden: torch.Tensor) -> torch.Tensor:
     """2-layer head with exact (erf) GELU -> audio-token logits; ``w1`` and
-    ``w2`` may be W8A8 ``QuantWeight`` leaves, ``w2`` an ``Int4Weight``."""
+    ``w2`` may be W8A8 ``QuantWeight`` leaves, ``w2`` an ``Int4Weight``.
+    Under tensor parallelism ``w1`` / ``b1`` hold a column block and ``w2``
+    the matching row block: the logits are summed over the model group
+    before ``b2``."""
+    split = tp.splits(head["w1"], hidden.shape[-1])
+    if split:
+        hidden = tp.copy_to_model(hidden)
     h = F.gelu(q_matmul(hidden, head["w1"]) + head["b1"])
-    return q_matmul(h, head["w2"]) + head["b2"]
+    out = q_matmul(h, head["w2"])
+    if split:
+        out = tp.reduce_from_model(out)
+    return out + head["b2"]
 
 
-def embed_audio(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
+def embed_audio(params: PyTree, tokens: torch.Tensor,
+                vocab: Optional[int] = None) -> torch.Tensor:
+    """The audio embedding's rows for ``tokens``; ``vocab`` (the table's
+    whole row count) lets a tensor-parallel block be looked up."""
+    if vocab is not None:
+        return tp.vocab_embedding(tokens, params["audio_embed"], vocab)
     return F.embedding(tokens.long(), params["audio_embed"])
 
 
@@ -147,7 +167,8 @@ def forward(params: PyTree, cfg: VoiceConfig,
         dec_pos = torch.arange(t_dec, dtype=torch.float32,
                                device=y.device)[None].expand(y.shape[0], t_dec)
         pm_dec = pm_enc = None
-    embedded = embed_audio(params, dec_input).to(memory.dtype)
+    embedded = embed_audio(params, dec_input,
+                           cfg.audio_embedding_vocab).to(memory.dtype)
     cross_k, cross_v = t5gemma.build_cross_kv(params["decoder"], dims, memory,
                                               pm_enc)
     hidden, _ = t5gemma.decoder_forward(
@@ -215,7 +236,8 @@ def _assemble_outputs(cfg: VoiceConfig, nll, hit, targets,
     else:
         w = torch.ones_like(nll)
     w = w * ce_mask.float()
-    wsum = torch.clamp(w.sum(), min=1e-8)
+    weight = w.sum()
+    wsum = torch.clamp(weight, min=1e-8)
     mean_ce = (nll * w).sum() / wsum
     ntokens = counted.sum()
     return VoiceOutputs(
@@ -224,4 +246,5 @@ def _assemble_outputs(cfg: VoiceConfig, nll, hit, targets,
         perplexity=torch.exp(mean_ce),
         top10acc=(hit & counted).sum(),
         effective_ntokens=ntokens,
+        ce_weight=weight.detach(),
     )

@@ -12,6 +12,13 @@ pulls and casts ``dlogits`` to the model dtype where the JAX backward does.
 
 Top-10 ties: a target whose logit equals the 10th largest value counts as
 a hit (rank by value), where the dense ``token_loss`` ranks by index.
+
+Under tensor parallelism (``parallel/tensor.py``) ``w1`` / ``b1`` hold a
+column block of the head's hidden and ``w2`` the matching row block: each
+block's logits are this rank's partial product summed over the model group
+before the bias, the log-sum-exp and the top 10; in the backward the
+hidden's pull ``dlogits @ w2_blockᵀ`` stays local and the head's input
+gathers its gradient through ``tp.copy_to_model``.
 """
 
 from __future__ import annotations
@@ -21,23 +28,30 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh as mesh_mod
+from ..parallel import tensor as tp
+
 
 def _h2(w1, b1, hidden):
     """Post-GELU intermediate of the head (model dtype, exact erf GELU)."""
     return F.gelu(hidden @ w1 + b1)
 
 
-def _block_logits(w2, b2, h2, st: int, en: int) -> torch.Tensor:
+def _block_logits(w2, b2, h2, st: int, en: int, group=None) -> torch.Tensor:
     """f32 logits for vocab columns [st, en): the product in the model
-    dtype, then upcast, as the dense path does."""
-    return (h2 @ w2[:, st:en] + b2[st:en]).float()
+    dtype, then upcast, as the dense path does (``group``: the partial
+    products summed over the model group first)."""
+    if group is None:
+        return (h2 @ w2[:, st:en] + b2[st:en]).float()
+    part = mesh_mod.all_reduce((h2 @ w2[:, st:en]).contiguous(), group)
+    return (part + b2[st:en]).float()
 
 
 def _blocks(va: int, chunk: int) -> List[Tuple[int, int]]:
     return [(st, min(st + chunk, va)) for st in range(0, va, chunk)]
 
 
-def _compute(chunk: int, w1, b1, w2, b2, hidden, targets):
+def _compute(chunk: int, w1, b1, w2, b2, hidden, targets, group=None):
     """One pass over the vocab blocks -> (nll, top10 hit, lse)."""
     h2 = _h2(w1, b1, hidden)
     va = w2.shape[1]
@@ -51,7 +65,7 @@ def _compute(chunk: int, w1, b1, w2, b2, hidden, targets):
                        device=dev)
     targets = targets.long()
     for st, en in _blocks(va, chunk):
-        logits = _block_logits(w2, b2, h2, st, en)
+        logits = _block_logits(w2, b2, h2, st, en, group)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         s = s * torch.exp(m - m_new) + torch.exp(
             logits - m_new[:, :, None]).sum(dim=-1)
@@ -73,9 +87,11 @@ class HeadNllTop10(torch.autograd.Function):
     """(nll [B, T] f32, top10 hit [B, T] bool) with the chunked backward."""
 
     @staticmethod
-    def forward(ctx, chunk, w1, b1, w2, b2, hidden, targets):
-        nll, hit, lse = _compute(chunk, w1, b1, w2, b2, hidden, targets)
+    def forward(ctx, chunk, w1, b1, w2, b2, hidden, targets, group=None):
+        nll, hit, lse = _compute(chunk, w1, b1, w2, b2, hidden, targets,
+                                 group)
         ctx.chunk = chunk
+        ctx.group = group
         ctx.save_for_backward(w1, b1, w2, b2, hidden, targets, lse)
         ctx.mark_non_differentiable(hit)
         return nll, hit
@@ -96,7 +112,7 @@ class HeadNllTop10(torch.autograd.Function):
         dw2, db2 = [], []
         dh2 = torch.zeros(h2.shape, dtype=torch.float32, device=h2.device)
         for st, en in _blocks(va, ctx.chunk):
-            logits = _block_logits(w2, b2, h2d, st, en)
+            logits = _block_logits(w2, b2, h2d, st, en, ctx.group)
             softmax = torch.exp(logits - lse[:, :, None])
             cols = torch.arange(st, en, device=logits.device)
             onehot = (targets[:, :, None] == cols).float()
@@ -119,7 +135,7 @@ class HeadNllTop10(torch.autograd.Function):
                 db1.to(b1.dtype) if db1 is not None else None,
                 torch.cat(dw2, dim=1) if need[3] else None,
                 torch.cat(db2, dim=0) if need[4] else None,
-                dhidden, None)
+                dhidden, None, None)
 
 
 def head_nll_top10(chunk: int, head: Dict[str, torch.Tensor],
@@ -128,5 +144,9 @@ def head_nll_top10(chunk: int, head: Dict[str, torch.Tensor],
     """(nll [B, T] f32, top10 hit [B, T] bool) of the 2-layer prediction
     head over ``hidden`` [B, T, D] against integer ``targets`` [B, T], in
     vocab blocks of ``chunk`` columns (never materializing [B, T, Va])."""
+    group = None
+    if tp.splits(head["w1"], hidden.shape[-1]):
+        hidden = tp.copy_to_model(hidden)
+        group = tp.active().model_group
     return HeadNllTop10.apply(chunk, head["w1"], head["b1"], head["w2"],
-                              head["b2"], hidden, targets)
+                              head["b2"], hidden, targets, group)

@@ -12,6 +12,13 @@ loader's position (``loader``). :func:`read_params` reads only the
 export. An orbax bundle written by the JAX trainer has no ``state.pt`` and
 is refused: the port never imports ``jax``, and the JAX package's own
 export writes the directory the port loads.
+
+Over a mesh (``mesh`` and the state's ``specs``, ``parallel.state_specs``)
+every rank joins in gathering each leaf whole, one leaf at a time, and rank
+0 writes the same ``state.pt`` one process writes; all ranks then meet at a
+barrier. A bundle restores at any world size and any ``(dp, tp)``: each
+rank reads the whole file (memory-mapped) and keeps its own block of each
+leaf.
 """
 
 from __future__ import annotations
@@ -44,12 +51,34 @@ ORBAX_REFUSAL = (
 
 def save_bundle(exp_dir: str, state: Any, progress: Dict[str, Any],
                 name: str = BUNDLE, rotate: bool = True,
-                loader: Optional[Dict[str, Any]] = None) -> str:
+                loader: Optional[Dict[str, Any]] = None, mesh=None,
+                specs: Any = None) -> str:
     """Write ``state`` (a tree of tensors) and ``loader`` (tensors,
     numbers, lists) to ``<exp_dir>/<name>/state.pt`` and ``progress`` to
-    ``progress.json``."""
-    os.makedirs(exp_dir, exist_ok=True)
+    ``progress.json``. ``mesh``: ``state`` holds this rank's blocks, laid
+    out as ``specs``; collective."""
     path = os.path.join(exp_dir, name)
+    if mesh is not None:
+        from ..parallel import mesh as mesh_mod
+
+        leaves = {}
+        for (p, t), (_, spec) in zip(leaves_with_path(state),
+                                     leaves_with_path(specs)):
+            whole = mesh_mod.gather_leaf(t.detach(), spec, mesh)
+            if mesh.lead:
+                leaves[keystr(p)] = whole.cpu()
+            del whole
+        if mesh.lead:
+            _write(exp_dir, path, name, rotate, leaves, loader, progress)
+        mesh_mod.barrier(mesh)
+        return path
+    leaves = {keystr(p): t.detach().cpu() for p, t in leaves_with_path(state)}
+    _write(exp_dir, path, name, rotate, leaves, loader, progress)
+    return path
+
+
+def _write(exp_dir, path, name, rotate, leaves, loader, progress) -> None:
+    os.makedirs(exp_dir, exist_ok=True)
     if rotate and os.path.exists(path):
         prev = os.path.join(exp_dir, BUNDLE_PREV)
         if os.path.exists(prev):
@@ -58,18 +87,16 @@ def save_bundle(exp_dir: str, state: Any, progress: Dict[str, Any],
     elif os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    leaves = {keystr(p): t.detach().cpu() for p, t in leaves_with_path(state)}
     torch.save({"state": leaves, "loader": loader},
                os.path.join(path, STATE_FILE))
     with open(os.path.join(exp_dir, PROGRESS), "w") as f:
         json.dump(progress, f, indent=2)
-    return path
 
 
-def _read_bundle(path: str) -> Dict[str, Any]:
+def _read_bundle(path: str, mmap: bool = False) -> Dict[str, Any]:
     """The contents of one bundle directory (``state`` and ``loader``)."""
     return torch.load(_state_file(path), map_location="cpu",
-                      weights_only=True)
+                      weights_only=True, mmap=mmap)
 
 
 def _state_file(path: str) -> str:
@@ -94,21 +121,30 @@ def read_params(path: str) -> Any:
     return from_paths(pairs)
 
 
-def restore_bundle(exp_dir: str, template: Any, name: Optional[str] = None
+def restore_bundle(exp_dir: str, template: Any, name: Optional[str] = None,
+                   mesh=None, specs: Any = None
                    ) -> Tuple[Any, Dict[str, Any], Optional[Dict[str, Any]]]:
     """The newest usable bundle (``bundle``, else ``bundle_prev``) laid out
     as ``template``, each tensor on its template leaf's device -> (state,
-    progress, loader)."""
+    progress, loader). ``mesh``: ``template`` holds this rank's blocks,
+    laid out as ``specs``, and each leaf is cut to its block."""
     candidates = [name] if name else [BUNDLE, BUNDLE_PREV]
     for cand in candidates:
         path = os.path.join(exp_dir, cand)
         if not os.path.exists(path):
             continue
-        saved = _read_bundle(path)
+        saved = _read_bundle(path, mmap=mesh is not None)
         leaves = saved["state"]
+        spec_of = {}
+        if mesh is not None:
+            from ..parallel import mesh as mesh_mod
+
+            spec_of = {keystr(p): s for p, s in leaves_with_path(specs)}
 
         def take(p, like):
             t = leaves[keystr(p)]
+            if mesh is not None:
+                t = mesh_mod.local_part(t, spec_of[keystr(p)], mesh)
             if t.shape != like.shape or t.dtype != like.dtype:
                 raise ValueError(f"{path}: {keystr(p)} is {t.dtype} "
                                  f"{tuple(t.shape)}, the state wants "

@@ -4,11 +4,19 @@ Counterpart of ``t5gemma_tts_tpu/train/cli.py``, with its flags and
 ``--device``: parses the flags, writes ``args.json`` and ``config.json``
 into the experiment directory (``--resume`` merges the stored args back),
 builds the datasets and runs :class:`~.trainer.Trainer` on one device,
-``cuda`` unless ``--device cpu``. ``--tp`` above 1 and
-``--zero_opt_sharding 1`` raise (ROADMAP Queue 1 item 15).
+``cuda`` unless ``--device cpu``. Under ``torchrun`` (``WORLD_SIZE`` above
+1) every rank joins the process group (NCCL, one card a rank; gloo with
+``--device cpu``) and trains on a ``(data, model)`` mesh of ``--tp``-wide
+model groups, with the optimizer's moments split over the data group
+under ``--zero_opt_sharding 1`` (the default); only rank 0 writes
+``args.json`` / ``config.json``, copies the code base and logs. One
+process builds no mesh and trains unsplit whatever ``--tp`` says, as the
+JAX CLI does on one device.
 
 Run: python -m t5gemma_tts_tpu_torch.train.cli --dataset_dir /data/emilia \
         --exp_dir ./exp --num_steps 143391 --optimizer_name ScaledAdam ...
+     torchrun --nproc_per_node 8 -m t5gemma_tts_tpu_torch.train.cli \
+        --tp 2 --zero_opt_sharding 1 ...
 """
 
 from __future__ import annotations
@@ -104,11 +112,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "and dump stats/wav (audio decode needs --codec_dir)")
     p.add_argument("--codec_dir", default=None,
                    help="local XCodec2 safetensors dir for diagnostics decode")
-    # parallelism (one device only: ROADMAP Queue 1 item 15)
+    # parallelism (torchrun's ranks)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (1 only)")
-    p.add_argument("--zero_opt_sharding", type=int, default=0,
-                   help="ZeRO-1 optimizer-state sharding (0 only)")
+                   help="tensor-parallel size (model group width)")
+    p.add_argument("--zero_opt_sharding", type=int, default=1,
+                   help="ZeRO-1: split the optimizer's moments over the "
+                        "data-parallel ranks (default on; 0 replicates "
+                        "them on each rank)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; never falls back")
     return p
@@ -148,32 +158,50 @@ def load_text_tokenizer(name: str):
 def main(argv: Optional[list] = None):
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    if args.tp != 1 or args.zero_opt_sharding:
-        from .trainer import PARALLEL_REFUSAL
-
-        raise NotImplementedError(PARALLEL_REFUSAL)
 
     from ..config import VoiceConfig, backbone_preset
     from ..data.dataset import VoiceDataset
     from ..data.manifest import DataConfig
     from ..device import resolve_device
+    from ..parallel import mesh as mesh_mod
     from . import checkpoint as ckpt
     from .trainer import Trainer, TrainerConfig
 
-    device = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    mesh, joined = None, False
+    if world > 1:
+        import torch.distributed as dist
+
+        joined = not dist.is_initialized()
+        device = mesh_mod.init_distributed(args.device)
+        mesh = mesh_mod.make_mesh(tp=args.tp)
+        if not mesh.lead:
+            logging.getLogger().setLevel(logging.WARNING)
+        log.info("mesh: dp %d x tp %d", mesh.dp, mesh.tp)
+    else:               # one process: no mesh, as the JAX CLI at one device
+        device = resolve_device(args.device)
+        if args.tp != 1:
+            log.warning("--tp %d needs torchrun's ranks: one process "
+                        "trains unsplit", args.tp)
+    lead = mesh is None or mesh.lead
     # args snapshot + resume merge
     args_path = os.path.join(args.exp_dir, "args.json")
     if args.resume and os.path.isfile(args_path):
         with open(args_path) as f:
             old = json.load(f)
-        fresh = {"resume", "num_steps", "num_epochs", "exp_dir", "device"}
+        # the launch's own: where it runs and how its ranks split the work
+        # (a bundle restores at any world size and any (dp, tp))
+        fresh = {"resume", "num_steps", "num_epochs", "exp_dir", "device",
+                 "tp", "zero_opt_sharding"}
         for k, v in old.items():
             if k not in fresh and hasattr(args, k):
                 setattr(args, k, v)
         log.info("resume: merged stored args from %s", args_path)
-    os.makedirs(args.exp_dir, exist_ok=True)
-    with open(args_path, "w") as f:
-        json.dump(vars(args), f, indent=2, default=str)
+    mesh_mod.barrier(mesh)          # every rank has read args.json
+    if lead:
+        os.makedirs(args.exp_dir, exist_ok=True)
+        with open(args_path, "w") as f:
+            json.dump(vars(args), f, indent=2, default=str)
 
     cfg = VoiceConfig(
         backbone=backbone_preset(args.backbone_preset),
@@ -189,7 +217,8 @@ def main(argv: Optional[list] = None):
         gradient_checkpointing=bool(args.t5_gradient_checkpointing),
         ce_vocab_chunk=args.ce_vocab_chunk,
     )
-    ckpt.save_config(args.exp_dir, cfg)
+    if lead:
+        ckpt.save_config(args.exp_dir, cfg)
 
     text_tokenizer, add_eos, text_pad = load_text_tokenizer(
         args.text_tokenizer_name)
@@ -276,17 +305,22 @@ def main(argv: Optional[list] = None):
         use_lora=bool(args.use_lora),
         lora_r=args.lora_r,
         lora_alpha=args.lora_alpha,
+        zero_opt_sharding=bool(args.zero_opt_sharding),
     )
 
     from ..utils.snapshot import copy_codebase
     from .logging_utils import MultiLogger
 
-    copy_codebase(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                  args.exp_dir)
-    tb = MultiLogger(args.exp_dir, use_wandb=bool(os.environ.get("WANDB_MODE")),
-                     config=vars(args))
+    tb = None
+    if lead:
+        copy_codebase(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            args.exp_dir)
+        tb = MultiLogger(args.exp_dir,
+                         use_wandb=bool(os.environ.get("WANDB_MODE")),
+                         config=vars(args))
     generation_hook = None
-    if args.val_generation_text:
+    if args.val_generation_text and lead:
         from .diagnostics import make_generation_hook
 
         generation_hook = make_generation_hook(
@@ -295,11 +329,16 @@ def main(argv: Optional[list] = None):
             tb_writer=tb, device=device)
 
     trainer = Trainer(cfg, tcfg, train_ds, valid_ds, params=params,
-                      tb_writer=tb, generation_hook=generation_hook,
-                      device=device)
+                      mesh=mesh, tb_writer=tb,
+                      generation_hook=generation_hook, device=device)
     progress = trainer.train()
-    tb.close()
+    if tb is not None:
+        tb.close()
     log.info("training done: %s", progress)
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return progress
 
 

@@ -9,6 +9,16 @@ leaves over the detached base, which ``ops/quant.q_matmul`` multiplies as
 backward touches only adapter-sized tensors. :func:`apply` materializes
 ``W + (alpha / r) A B`` (validation), :func:`merge` folds the adapters into
 plain weights (export, or serving after ``fuse_for_decode``).
+
+Under tensor parallelism the adapters stay whole on every rank while the
+base holds this rank's block (``parallel/tensor.py``). On a column-split
+base leaf the rank adds ``(x @ A) @ B[:, its columns]``; on a row-split one
+(``o``, ``down``) ``(x_block @ A[its rows]) @ B``, a partial sum that the
+product's own all-reduce completes. Both factors enter through
+``tp.copy_to_model``, so their gradients are summed over the model group
+and come out whole and equal on every rank. :func:`apply` cuts the update
+to the base's block; :func:`merge` takes whole leaves
+(``parallel.gather_params``).
 """
 
 from __future__ import annotations
@@ -17,6 +27,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+
+from ..parallel import tensor as tp
 
 PyTree = Any
 
@@ -105,7 +117,12 @@ def wrap(params: PyTree, adapters: PyTree, cfg: LoraConfig) -> PyTree:
     def combine(p, ad):
         if ad is None:
             return p.detach()
-        return LoraWeight(p.detach(), ad["a"], ad["b"], cfg.scale)
+        a, b = ad["a"], ad["b"]
+        rows, cols = p.shape[-2] != a.shape[-2], p.shape[-1] != b.shape[-1]
+        if rows or cols:                # a tensor-parallel block of p
+            a = tp.local_block(a, -2) if rows else tp.copy_to_model(a)
+            b = tp.local_block(b, -1) if cols else tp.copy_to_model(b)
+        return LoraWeight(p.detach(), a, b, cfg.scale)
 
     return _combine_trees(params, adapters, combine)
 
@@ -115,12 +132,25 @@ def _delta(ad, cfg: LoraConfig) -> torch.Tensor:
                         ad["b"].float()) * cfg.scale
 
 
-def apply(params: PyTree, adapters: PyTree, cfg: LoraConfig) -> PyTree:
-    """Effective params: frozen base + scaled low-rank update."""
+def _block(delta: torch.Tensor, like: torch.Tensor,
+           rank: int) -> torch.Tensor:
+    """``delta`` cut to the shape of ``like``, a model rank's block of it
+    (the whole of it outside tensor parallelism)."""
+    for d in (-2, -1):
+        n = like.shape[d]
+        if delta.shape[d] != n:
+            delta = delta.narrow(d, rank * n, n)
+    return delta
+
+
+def apply(params: PyTree, adapters: PyTree, cfg: LoraConfig,
+          tp_rank: int = 0) -> PyTree:
+    """Effective params: frozen base + scaled low-rank update (``params``
+    may hold model rank ``tp_rank``'s blocks)."""
     def combine(p, ad):
         if ad is None:
             return p.detach()
-        return p.detach() + _delta(ad, cfg).to(p.dtype)
+        return p.detach() + _block(_delta(ad, cfg), p, tp_rank).to(p.dtype)
 
     return _combine_trees(params, adapters, combine)
 

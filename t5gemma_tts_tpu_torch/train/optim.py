@@ -16,6 +16,15 @@ update and takes its periodic branches (the rms refresh, the learned-scale
 step, the clip threshold's refresh) only on their steps, where the JAX
 function selects with ``where``: the same values, without the work and
 the full-size temporaries of the branches not taken.
+
+Over a mesh (``layout``, a ``parallel.Layout``) each rank holds its
+tensor-parallel block of every leaf and, under ZeRO-1, only its slice of
+the moments: a leaf's reductions (the rms, ``sum(p * g)``, Eve's norm) are
+summed over the model group where the leaf is split, the model-wide sums
+(the clipping norm, AdamW's gradient norm) count a replicated leaf once,
+the elementwise update runs on this rank's slice, and the new parameter
+slices are all-gathered over the data group. Without a layout nothing of
+this runs.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from ..utils.tree import flatten as _flat
-from ..utils.tree import keystr, tree_map
+from ..utils.tree import keystr
 from ..utils.tree import unflatten as _unflat
 
 PyTree = Any
@@ -75,26 +84,76 @@ def _sum(x: torch.Tensor, dims) -> torch.Tensor:
     return x.sum(dim=dims, keepdim=True) if dims else x
 
 
-def _rms(p: torch.Tensor, stacked: bool) -> torch.Tensor:
-    return torch.sqrt(_mean(p.float() ** 2, _reduce_dims(p, stacked)))
-
-
-def _is_scalarish(p: torch.Tensor, stacked: bool) -> bool:
-    """One element per real tensor (plain Adam for these)."""
+def _is_scalarish(p: torch.Tensor, stacked: bool, shape=None) -> bool:
+    """One element per real tensor (plain Adam for these); ``shape``: the
+    whole leaf's, where ``p`` is a block of it."""
+    shape = tuple(p.shape if shape is None else shape)
+    numel = 1
+    for n in shape:
+        numel *= n
     if stacked:
-        return p.numel() == (p.shape[0] if p.ndim else 1)
-    return p.numel() == 1
+        return numel == (shape[0] if shape else 1)
+    return numel == 1
+
+
+def _leaf_mean(x: torch.Tensor, dims, layout, i: int) -> torch.Tensor:
+    """``_mean`` over the whole leaf ``i`` (its blocks summed over the
+    model group where it is split)."""
+    if layout is None or not layout.split(i):
+        return _mean(x, dims)
+    count = 1
+    for d in dims:
+        count *= x.shape[d]
+    return layout.model_sum(x.sum(dim=dims, keepdim=True), i) / (
+        count * layout.mesh.tp)
+
+
+def _rms(p: torch.Tensor, stacked: bool, layout=None, i: int = 0
+         ) -> torch.Tensor:
+    """The rms of leaf ``i`` (each layer's, where stacked)."""
+    return torch.sqrt(_leaf_mean(p.float() ** 2, _reduce_dims(p, stacked),
+                                 layout, i))
+
+
+def _leaf_sum(x: torch.Tensor, dims, layout, i: int) -> torch.Tensor:
+    s = _sum(x, dims)
+    return s if layout is None else layout.model_sum(s, i)
+
+
+def _model_total(parts, layout) -> torch.Tensor:
+    """sum(parts) over the whole model: ``parts`` holds each leaf's
+    (index, value); a replicated leaf counts once across the model group."""
+    if layout is None:
+        return sum(v for _, v in parts)
+    total = sum((v for i, v in parts if layout.counted_here(i)),
+                torch.zeros((), dtype=F32, device=parts[0][1].device))
+    return layout.model_sum(total)
+
+
+def _slicer(layout, i: int, like: torch.Tensor):
+    return (lambda x: x) if layout is None else layout.slicer(i, like)
+
+
+def _gathered(layout, leaves):
+    if layout is None:
+        return leaves
+    return [layout.gather_slice(i, x) for i, x in enumerate(leaves)]
 
 
 def _scalar(x, like: torch.Tensor, dtype=F32) -> torch.Tensor:
     return torch.tensor(x, dtype=dtype, device=like.device)
 
 
-def init(params: PyTree, cfg: ScaledAdamConfig) -> ScaledAdamState:
+def init(params: PyTree, cfg: ScaledAdamConfig,
+         layout=None) -> ScaledAdamState:
+    """``layout``: ``params`` are this rank's blocks (the moments its
+    ZeRO-1 slices)."""
     paths, leaves = _flat(params)
     dev = leaves[0].device
-    rms = [_rms(p, _is_stacked(path)) for path, p in zip(paths, leaves)]
-    zeros = [torch.zeros(p.shape, dtype=F32, device=p.device) for p in leaves]
+    rms = [_rms(p, _is_stacked(path), layout, i)
+           for i, (path, p) in enumerate(zip(paths, leaves))]
+    zeros = [torch.zeros(_slicer(layout, i, p)(p).shape, dtype=F32,
+                         device=p.device) for i, p in enumerate(leaves)]
     return ScaledAdamState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
         delta=_unflat(params, zeros),
@@ -112,7 +171,7 @@ def init(params: PyTree, cfg: ScaledAdamConfig) -> ScaledAdamState:
 
 @torch.no_grad()
 def update(grads: PyTree, state: ScaledAdamState, params: PyTree,
-           lr: torch.Tensor, cfg: ScaledAdamConfig
+           lr: torch.Tensor, cfg: ScaledAdamConfig, layout=None
            ) -> Tuple[PyTree, ScaledAdamState]:
     beta1, beta2 = cfg.betas
     period = cfg.size_update_period
@@ -122,6 +181,7 @@ def update(grads: PyTree, state: ScaledAdamState, params: PyTree,
     stacked = [_is_stacked(p) for p in paths]
     leaves_g = [g.float() for g in _flat(grads)[1]]
     leaves_p32 = [p.float() for p in leaves_p]
+    shapes = ([None] * len(leaves_p) if layout is None else layout.shapes)
     rms_list = _flat(state.param_rms)[1]
     dev = step.device
     lr = torch.as_tensor(lr, dtype=F32, device=dev)
@@ -130,13 +190,11 @@ def update(grads: PyTree, state: ScaledAdamState, params: PyTree,
     # adaptive clipping
     model_norms, norm_threshold = state.model_norms, state.norm_threshold
     if cfg.clipping_scale is not None:
-        tot_sumsq = torch.zeros((), dtype=F32, device=dev)
-        for g, r, p, st in zip(leaves_g, rms_list, leaves_p32, stacked):
-            if _is_scalarish(p, st):
-                tot_sumsq = tot_sumsq + (g * g).sum()
-            else:
-                tot_sumsq = tot_sumsq + ((g * r) ** 2).sum()
-        tot_norm = torch.sqrt(tot_sumsq)
+        tot_norm = torch.sqrt(_model_total(
+            [(i, (g * g).sum() if _is_scalarish(p, st, shapes[i])
+              else ((g * r) ** 2).sum())
+             for i, (g, r, p, st) in enumerate(zip(
+                 leaves_g, rms_list, leaves_p32, stacked))], layout))
         cup = cfg.clipping_update_period
         model_norms = model_norms.clone()
         model_norms[s % cup] = tot_norm
@@ -159,16 +217,18 @@ def update(grads: PyTree, state: ScaledAdamState, params: PyTree,
     # 1 - beta2 ** (s + 1) < 0.99 until step 89 (beta2 0.95)
     corrected = 1 - beta2 ** (s + 1) < 0.99
 
-    for p, g, delta, eas, rms, seas, sgrads, st in zip(
+    for i, (p, g, delta, eas, rms, seas, sgrads, st) in enumerate(zip(
             leaves_p32, leaves_g, delta_list, eas_list, rms_list, seas_list,
-            sg_list, stacked):
+            sg_list, stacked)):
+        zs = _slicer(layout, i, p)      # this rank's ZeRO-1 slice
+        gz = zs(g)
         delta = beta1 * delta
-        eas = (beta2 * eas).addcmul_(g, g, value=1 - beta2)
-        if _is_scalarish(p, st):
+        eas = (beta2 * eas).addcmul_(gz, gz, value=1 - beta2)
+        if _is_scalarish(p, st, shapes[i]):
             # plain Adam for scalars
             denom = torch.sqrt(eas / bias2m) + cfg.eps
-            delta = delta - lr * cfg.scalar_lr_scale * (1 - beta1) * g / denom
-            new_p.append(torch.clamp(p, -cfg.scalar_max, cfg.scalar_max)
+            delta = delta - lr * cfg.scalar_lr_scale * (1 - beta1) * gz / denom
+            new_p.append(torch.clamp(zs(p), -cfg.scalar_max, cfg.scalar_max)
                          + delta)
             new_delta.append(delta)
             new_eas.append(eas)
@@ -179,9 +239,9 @@ def update(grads: PyTree, state: ScaledAdamState, params: PyTree,
 
         dims = _reduce_dims(p, st)
         sgrads = sgrads.clone()
-        sgrads[s % period] = _sum(p * g, dims)
+        sgrads[s % period] = _leaf_sum(p * g, dims, layout, i)
         if is_rms_step:                 # periodic rms refresh
-            rms = torch.sqrt(_mean(p * p, dims))
+            rms = torch.sqrt(_leaf_mean(p * p, dims, layout, i))
         if do_size:                     # the learned-scale step
             beta2c = beta2 ** period
             seas = beta2c * seas + (1 - beta2c) * (sgrads ** 2).mean(dim=0)
@@ -196,21 +256,21 @@ def update(grads: PyTree, state: ScaledAdamState, params: PyTree,
             scale_step = torch.where(rms > cfg.param_max_rms,
                                      (-size_lr * period).expand_as(scale_step),
                                      scale_step)
-            delta.add_((1 - beta1) * p * scale_step)
+            delta.add_((1 - beta1) * zs(p) * zs(scale_step))
 
         # main rms-scaled Adam step
         denom = (eas / torch.clamp(bias2m, min=1e-8) if corrected
                  else eas.clone()).sqrt_().add_(cfg.eps)
         alpha = -lr * (1 - beta1) * torch.clamp(rms, min=cfg.param_min_rms)
-        delta.add_(torch.div(g, denom, out=denom).mul_(alpha))
-        new_p.append(p + delta)
+        delta.add_(torch.div(gz, denom, out=denom).mul_(zs(alpha)))
+        new_p.append(zs(p) + delta)
         new_delta.append(delta)
         new_eas.append(eas)
         new_rms.append(rms)
         new_seas.append(seas)
         new_sg.append(sgrads)
 
-    cast = [n.to(o.dtype) for n, o in zip(new_p, leaves_p)]
+    cast = _gathered(layout, [n.to(o.dtype) for n, o in zip(new_p, leaves_p)])
     return _unflat(params, cast), ScaledAdamState(
         step=step + 1,
         delta=_unflat(params, new_delta),
@@ -242,12 +302,13 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
-def adamw_init(params: PyTree) -> AdamWState:
+def adamw_init(params: PyTree, layout=None) -> AdamWState:
     leaves = _flat(params)[1]
 
     def zeros():
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                              device=p.device), params)
+        return _unflat(params, [
+            torch.zeros(_slicer(layout, i, p)(p).shape, dtype=F32,
+                        device=p.device) for i, p in enumerate(leaves)])
 
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=leaves[0].device),
@@ -261,11 +322,12 @@ def _adam_moments(g, m, v, b1, b2):
 
 @torch.no_grad()
 def adamw_update(grads: PyTree, state: AdamWState, params: PyTree,
-                 lr: torch.Tensor, cfg: AdamWConfig):
+                 lr: torch.Tensor, cfg: AdamWConfig, layout=None):
     b1, b2 = cfg.betas
     flat_g = _flat(grads)[1]
     if cfg.grad_clip and cfg.grad_clip > 0:
-        gsq = sum((g.float() ** 2).sum() for g in flat_g)
+        gsq = _model_total([(i, (g.float() ** 2).sum())
+                            for i, g in enumerate(flat_g)], layout)
         scale = torch.clamp(cfg.grad_clip / (torch.sqrt(gsq) + 1e-6), max=1.0)
         flat_g = [g * scale for g in flat_g]
     step = state.step + 1
@@ -273,15 +335,18 @@ def adamw_update(grads: PyTree, state: AdamWState, params: PyTree,
     bc2 = 1 - b2 ** step.float()
     lr = torch.as_tensor(lr, dtype=F32, device=step.device)
     out_p, out_m, out_v = [], [], []
-    for p, g, m, v in zip(_flat(params)[1], flat_g, _flat(state.mu)[1],
-                          _flat(state.nu)[1]):
-        m, v = _adam_moments(g, m, v, b1, b2)
+    for i, (p, g, m, v) in enumerate(zip(_flat(params)[1], flat_g,
+                                         _flat(state.mu)[1],
+                                         _flat(state.nu)[1])):
+        zs = _slicer(layout, i, p)
+        m, v = _adam_moments(zs(g), m, v, b1, b2)
         upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        p32 = p.float()
+        p32 = zs(p).float()
         p32 = p32 - lr * (upd + cfg.weight_decay * p32)
         out_p.append(p32.to(p.dtype))
         out_m.append(m)
         out_v.append(v)
+    out_p = _gathered(layout, out_p)
     return _unflat(params, out_p), AdamWState(
         step=step, mu=_unflat(params, out_m), nu=_unflat(params, out_v))
 
@@ -294,13 +359,13 @@ class EveConfig:
     target_rms: float = 0.1
 
 
-def eve_init(params: PyTree) -> AdamWState:
-    return adamw_init(params)
+def eve_init(params: PyTree, layout=None) -> AdamWState:
+    return adamw_init(params, layout)
 
 
 @torch.no_grad()
 def eve_update(grads: PyTree, state: AdamWState, params: PyTree,
-               lr: torch.Tensor, cfg: EveConfig):
+               lr: torch.Tensor, cfg: EveConfig, layout=None):
     """AdamW whose weight decay applies only while a tensor's rms exceeds
     ``target_rms``."""
     b1, b2 = cfg.betas
@@ -309,19 +374,29 @@ def eve_update(grads: PyTree, state: AdamWState, params: PyTree,
     bc2 = 1 - b2 ** step.float()
     lr = torch.as_tensor(lr, dtype=F32, device=step.device)
     out_p, out_m, out_v = [], [], []
-    for p, g, m, v in zip(_flat(params)[1], _flat(grads)[1],
-                          _flat(state.mu)[1], _flat(state.nu)[1]):
-        m, v = _adam_moments(g, m, v, b1, b2)
+    for i, (p, g, m, v) in enumerate(zip(_flat(params)[1], _flat(grads)[1],
+                                         _flat(state.mu)[1],
+                                         _flat(state.nu)[1])):
+        zs = _slicer(layout, i, p)
+        m, v = _adam_moments(zs(g), m, v, b1, b2)
         denom = torch.sqrt(v) * bc2 ** -0.5 + cfg.eps
         p32 = p.float()
-        if p.numel() > 1:
-            above = torch.linalg.vector_norm(p32.reshape(-1)) > (
-                cfg.target_rms * p.numel() ** 0.5)
-            p32 = p32 * (1 - cfg.weight_decay * above.float())
+        numel = p.numel() * (1 if layout is None or not layout.split(i)
+                             else layout.mesh.tp)
+        if numel > 1:
+            if layout is None or not layout.split(i):
+                norm = torch.linalg.vector_norm(p32.reshape(-1))
+            else:
+                norm = torch.sqrt(layout.model_sum((p32 * p32).sum(), i))
+            above = norm > cfg.target_rms * numel ** 0.5
+            p32 = zs(p32) * (1 - cfg.weight_decay * above.float())
+        else:
+            p32 = zs(p32)
         p32 = p32 - (lr / bc1) * m / denom
         out_p.append(p32.to(p.dtype))
         out_m.append(m)
         out_v.append(v)
+    out_p = _gathered(layout, out_p)
     return _unflat(params, out_p), AdamWState(
         step=step, mu=_unflat(params, out_m), nu=_unflat(params, out_v))
 

@@ -6,8 +6,14 @@ accumulation over consecutive same-bucket batches, periodic validation
 with best-bundle tracking and early stopping on a plateau, bundle rotation
 and cadence snapshots, resume, divergence abort, TensorBoard / wandb
 logging, the generation hook, and LoRA (adapters train over a frozen
-base). It runs on one device (``cuda`` unless the caller passes ``cpu``):
-a mesh or ZeRO-sharded optimizer state raises (ROADMAP Queue 1 item 15).
+base). It runs on one device (``cuda`` unless the caller passes ``cpu``)
+or, given a ``parallel.Mesh``, as one rank of a data- and tensor-parallel
+run: the parameters are this rank's blocks, the optimizer's moments its
+ZeRO-1 slices when ``zero_opt_sharding`` is on, every rank's seeded
+sampler builds the same global batch and keeps its rows, validation
+metrics come out global, and only rank 0 logs, writes bundles and runs the
+generation hook (on gathered parameters). A process group of more than one
+rank needs a mesh.
 
 Resume is exact: a bundle also records the loader's position (the
 sampler batches the epoch has consumed, the batches waiting for their
@@ -38,8 +44,6 @@ from . import optim, train_step
 
 log = logging.getLogger(__name__)
 
-PARALLEL_REFUSAL = ("one device only: a mesh, tensor parallelism and "
-                    "ZeRO-sharded optimizer state are ROADMAP Queue 1 item 15")
 
 
 @dataclass
@@ -69,12 +73,19 @@ class TrainerConfig:
     seed: int = 1
     text_pad_token: int = 0
     text_max_length: int = 1000
-    # ZeRO-1 optimizer-state sharding needs a mesh (Queue 1 item 15)
+    # ZeRO-1: the optimizer's moments split over the mesh's data group
+    # (without a mesh there is nothing to split)
     zero_opt_sharding: bool = False
     inference_every_n_steps: int = 3000
     use_lora: bool = False
     lora_r: int = 16
     lora_alpha: int = 32
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 class Trainer:
@@ -90,9 +101,16 @@ class Trainer:
         generation_hook: Optional[Callable] = None,
         device: DeviceLike = "cuda",
     ):
-        if mesh is not None or tcfg.zero_opt_sharding:
-            raise NotImplementedError(PARALLEL_REFUSAL)
         self.device = resolve_device(device)
+        if mesh is None and _world_size() > 1:
+            raise ValueError(
+                f"a process group of {_world_size()} ranks needs a mesh: "
+                "build one over all ranks (parallel.make_mesh) so that each "
+                "rank takes its rows of the batch (parallel.shard_batch)")
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.lead
+        if mesh is not None:
+            self.device = mesh.device
         self.cfg = cfg
         self.tcfg = tcfg
         self.train_ds = train_ds
@@ -109,19 +127,29 @@ class Trainer:
         if params is None:
             params = voice.init_params(tcfg.seed, cfg, self.device)
         params = tree_to(params, self.device)
+        self.param_specs = None
+        if mesh is not None:
+            from .. import parallel
+
+            self.param_specs = parallel.param_specs(params, cfg, mesh.tp)
 
         self.lcfg = None
+        self.layout = None
         if tcfg.use_lora:
             from . import lora
 
             self.lcfg = lora.LoraConfig(r=tcfg.lora_r, alpha=tcfg.lora_alpha)
-            self.base_params = params
             gen = torch.Generator(device=self.device).manual_seed(
                 tcfg.seed + 1)
+            # drawn from the whole leaves' shapes; the adapters stay whole
             adapters = lora.init_adapters(gen, params, self.lcfg)
-            self.state = train_step.init_state(adapters, self.ocfg)
-            lora_step = train_step.make_lora_train_step(cfg, self.ocfg,
-                                                        self.lcfg)
+            params = self._shard(params)
+            self.base_params = params
+            self.layout = self._layout(adapters, None)
+            self.state = train_step.init_state(adapters, self.ocfg,
+                                               self.layout)
+            lora_step = train_step.make_lora_train_step(
+                cfg, self.ocfg, self.lcfg, self.layout)
 
             def step_fn(state, batch, lr):
                 ads, opt, metrics = lora_step(state.params, state.opt,
@@ -132,27 +160,44 @@ class Trainer:
 
             self._step_fn = step_fn
         else:
-            self.state = train_step.init_state(params, self.ocfg)
-            self._step_fn = train_step.make_train_step(cfg, self.ocfg)
-        self._eval_fn = train_step.make_eval_step(cfg)
+            params = self._shard(params)
+            self.layout = self._layout(params, self.param_specs)
+            self.state = train_step.init_state(params, self.ocfg,
+                                               self.layout)
+            self._step_fn = train_step.make_train_step(cfg, self.ocfg,
+                                                       self.layout)
+        self._eval_fn = train_step.make_eval_step(cfg, mesh)
+        self.state_specs = None
+        # whether any rank has a generation hook (the gather before it is
+        # collective)
+        self._hooked = generation_hook is not None
+        if mesh is not None:
+            from ..parallel import mesh as mesh_mod
 
+            self.state_specs = mesh_mod.state_specs(self.state, self.layout)
+            flag = torch.tensor([float(self._hooked)], device=self.device)
+            self._hooked = bool(mesh_mod.all_reduce(flag, None) > 0)
+
+        dp = mesh.dp if mesh is not None else 1
         self.plan = batching.make_plan(
             train_ds.lengths, tcfg.max_num_tokens, tcfg.num_buckets,
             max_len=int(train_ds.cfg.audio_max_length
-                        * train_ds.cfg.encodec_sr))
+                        * train_ds.cfg.encodec_sr), batch_multiple=dp)
         self.sampler = batching.BucketBatchSampler(
             train_ds.lengths, self.plan, shuffle=True, seed=tcfg.seed)
         if valid_ds is not None:
             self.val_plan = batching.make_plan(
                 valid_ds.lengths, tcfg.val_max_num_tokens, tcfg.num_buckets,
                 max_len=int(valid_ds.cfg.audio_max_length
-                            * valid_ds.cfg.encodec_sr))
+                            * valid_ds.cfg.encodec_sr), batch_multiple=dp)
 
         from ..utils.profiling import param_count_breakdown
 
-        counts = param_count_breakdown(self.state.params)
-        log.info("parameter counts: %s",
-                 {k: f"{v / 1e6:.1f}M" for k, v in counts.items()})
+        if self.lead:
+            counts = param_count_breakdown(self.state.params)
+            log.info("parameter counts%s: %s",
+                     "" if mesh is None else " (rank 0's blocks)",
+                     {k: f"{v / 1e6:.1f}M" for k, v in counts.items()})
 
         # cur_step: sampler batches the epoch has consumed
         self.progress: Dict[str, Any] = {
@@ -165,13 +210,58 @@ class Trainer:
             defaultdict(list)
         if ckpt.has_bundle(tcfg.exp_dir):
             self.state, progress, loader = ckpt.restore_bundle(
-                tcfg.exp_dir, self.state)
+                tcfg.exp_dir, self.state, mesh=mesh, specs=self.state_specs)
             self.progress.update(progress)
             if loader is not None:
                 self._load_loader(loader)
-            log.info("resumed at step %d", self.progress["step"])
+            self._info("resumed at step %d", self.progress["step"])
 
     # ------------------------------------------------------------------
+
+    def _shard(self, params):
+        """This rank's blocks of whole parameters (all of them alone)."""
+        if self.mesh is None:
+            return params
+        from .. import parallel
+
+        return parallel.shard_params(params, self.mesh, self.param_specs)
+
+    def _layout(self, target, specs):
+        """The trained tree's place on the mesh (None alone): ``target``
+        this rank's blocks, ``specs`` theirs (None: ``target`` is whole,
+        as the adapters are)."""
+        if self.mesh is None:
+            return None
+        from .. import parallel
+
+        if specs is None:
+            specs = parallel.param_specs(target, self.cfg, self.mesh.tp)
+        return parallel.Layout(self.mesh, specs, target,
+                               zero=self.tcfg.zero_opt_sharding)
+
+    def _info(self, *args) -> None:
+        if self.lead:
+            log.info(*args)
+
+    def _whole_params(self):
+        """Plain whole parameters (LoRA merged) from every rank's blocks:
+        collective over a mesh."""
+        from .. import parallel
+
+        params = self.state.params
+        base = getattr(self, "base_params", None)
+        if self.mesh is not None:
+            if self.lcfg is None:
+                params = parallel.gather_params(params, self.mesh,
+                                                self.param_specs)
+            else:
+                base = parallel.gather_params(base, self.mesh,
+                                              self.param_specs)
+        if self.lcfg is not None:
+            from . import lora
+
+            params = lora.merge(base, params, self.lcfg)
+        return params
 
     def _loader(self) -> Dict[str, Any]:
         """The data position a bundle records: waiting batches and the
@@ -193,7 +283,8 @@ class Trainer:
 
     def _save(self, name: str = ckpt.BUNDLE, rotate: bool = True) -> None:
         ckpt.save_bundle(self.tcfg.exp_dir, self.state, self.progress,
-                         name=name, rotate=rotate, loader=self._loader())
+                         name=name, rotate=rotate, loader=self._loader(),
+                         mesh=self.mesh, specs=self.state_specs)
 
     def _lr(self, step: int) -> torch.Tensor:
         t = self.tcfg
@@ -214,8 +305,14 @@ class Trainer:
             text_pad=self.tcfg.text_pad_token, audio_pad=self.cfg.special.pad)
 
     def _device_batch(self, np_batches: List[Dict[str, np.ndarray]]):
-        return {k: torch.from_numpy(np.stack([nb[k] for nb in np_batches]))
-                .to(self.device) for k in np_batches[0]}
+        stacked = {k: np.stack([nb[k] for nb in np_batches])
+                   for k in np_batches[0]}
+        if self.mesh is not None:
+            from .. import parallel
+
+            stacked = parallel.shard_batch(stacked, self.mesh, axis=1)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in stacked.items()}
 
     # ------------------------------------------------------------------
 
@@ -264,8 +361,9 @@ class Trainer:
 
                 self.progress["step"] = step + 1
                 if int(metrics.nan_step):
-                    log.warning("step %d skipped (non-finite gradients)",
-                                step)
+                    if self.lead:
+                        log.warning("step %d skipped (non-finite "
+                                    "gradients)", step)
                     self._log_dominant_params(batch)
                 running_loss = loss if running_loss is None else (
                     0.98 * running_loss + 0.02 * loss)
@@ -273,7 +371,7 @@ class Trainer:
                     raise RuntimeError(
                         "training diverged: running loss is not finite")
 
-                if self.tb is not None and \
+                if self.tb is not None and self.lead and \
                         (step + 1) % t.tb_write_every_n_steps == 0:
                     for k in ("loss", "mean_ce", "perplexity", "top10acc",
                               "grad_norm", "lr"):
@@ -281,7 +379,7 @@ class Trainer:
                                            float(getattr(metrics, k)),
                                            step + 1)
                 if (step + 1) % t.print_every_n_steps == 0:
-                    log.info(
+                    self._info(
                         "step %d | loss %.4f | ppl %.2f | top10 %.3f | "
                         "lr %.2e | data %.1fs train %.1fs",
                         step + 1, loss, float(metrics.perplexity),
@@ -291,7 +389,7 @@ class Trainer:
                     self._save(name=f"bundle_step{step + 1}", rotate=False)
                 if (step + 1) % t.val_every_n_steps == 0:
                     if not self.validate_and_save(step + 1):
-                        log.info("early stopping at step %d", step + 1)
+                        self._info("early stopping at step %d", step + 1)
                         done = True
                 if self.progress["step"] >= t.num_steps:
                     done = True
@@ -307,7 +405,8 @@ class Trainer:
 
     def _log_dominant_params(self, batch) -> None:
         """Name the tensors dominating the rms-scaled gradient norm after a
-        skipped step."""
+        skipped step (over a mesh every rank joins in the gradients, and
+        rank 0 reports its own blocks)."""
         if not isinstance(self.state.opt, optim.ScaledAdamState):
             return
         try:
@@ -323,7 +422,9 @@ class Trainer:
                     return voice.forward(p, self.cfg, b)
 
             grads, _ = train_step.accumulate_grads(self.state.params, mb,
-                                                   forward)
+                                                   forward, self.mesh)
+            if not self.lead:
+                return
             for row in optim.dominant_parameter_report(
                     grads, self.state.opt, self.state.params):
                 log.warning(
@@ -345,13 +446,18 @@ class Trainer:
         if self.lcfg is not None:
             from . import lora
 
-            params = lora.apply(self.base_params, params, self.lcfg)
+            params = lora.apply(self.base_params, params, self.lcfg,
+                                0 if self.mesh is None else self.mesh.tp_rank)
         tot = defaultdict(float)
         for bucket_id, rows in sampler:
             examples = [self.valid_ds[i] if i >= 0 else None for i in rows]
             b = self._to_batch(examples, bucket_id, self.val_plan)
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in b.items()}
+            if self.mesh is not None:
+                from .. import parallel
+
+                b = parallel.shard_batch(b, self.mesh, axis=0)
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+                     .to(self.device) for k, v in b.items()}
             m = self._eval_fn(params, batch)
             ntok = float(m.ntokens)
             tot["loss_sum"] += float(m.mean_ce) * ntok
@@ -366,10 +472,10 @@ class Trainer:
         t = self.tcfg
         if self.valid_ds is not None:
             val = self.validate()
-            if self.tb is not None:
+            if self.tb is not None and self.lead:
                 self.tb.add_scalar("val/loss", val["loss"], step)
                 self.tb.add_scalar("val/top10acc", val["top10acc"], step)
-            log.info("val @ %d: loss %.4f top10 %.3f", step, val["loss"],
+            self._info("val @ %d: loss %.4f top10 %.3f", step, val["loss"],
                      val["top10acc"])
             score = val["loss"]
             improved = score < self.progress["best_score"] - max(
@@ -378,18 +484,15 @@ class Trainer:
                 self.progress["best_score"] = score
                 self.progress["best_step"] = step
                 self._save(name=ckpt.BEST_BUNDLE, rotate=False)
-            if (self.generation_hook is not None
-                    and step % t.inference_every_n_steps == 0):
-                try:
-                    params = self.state.params
-                    if self.lcfg is not None:   # a plain tree, LoRA merged
-                        from . import lora
-
-                        params = lora.merge(self.base_params, params,
-                                            self.lcfg)
-                    self.generation_hook(params, step)
-                except Exception as exc:  # diagnostics must not kill training
-                    log.warning("generation diagnostics failed: %s", exc)
+            if self._hooked and step % t.inference_every_n_steps == 0:
+                # a plain whole tree, LoRA merged (gathered over a mesh)
+                params = self._whole_params()
+                if self.generation_hook is not None and self.lead:
+                    try:
+                        self.generation_hook(params, step)
+                    except Exception as exc:  # diagnostics must not kill
+                        log.warning("generation diagnostics failed: %s", exc)
+                del params
         self._save()
         if (self.valid_ds is not None and t.early_stop_step > 0
                 and step - self.progress["best_step"] >= t.early_stop_step):

@@ -48,7 +48,8 @@ for mod in ("decode.speculative", "decode.continuous", "codec.streaming",
             "train.cli", "data.manifest", "data.batching", "data.stretch",
             "data.dataset", "data.preprocess", "utils.profiling",
             "utils.tree", "utils.safetensors_io", "utils.snapshot",
-            "export.hf_export", "export.convert_reference_bundle"):
+            "export.hf_export", "export.convert_reference_bundle",
+            "parallel", "parallel.mesh", "parallel.tensor"):
     assert "t5gemma_tts_tpu_torch." + mod in names, (mod, names)
 from t5gemma_tts_tpu_torch.ops import paged_attn
 for fn in ("paged_attention_reference", "paged_flash_parts",
@@ -103,12 +104,18 @@ def _imported(tree):
 
 def test_no_source_imports_jax_orbax_or_safetensors():
     """Imports inside functions count too: a lazy import of a banned
-    package would still fail on a machine without it."""
+    package would still fail on a machine without it. The scan takes in
+    ``parallel/`` and the gloo ranks' worker and the card's parallel test,
+    which run with torch and the port alone."""
     pkg = os.path.join(ROOT, "t5gemma_tts_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "tests", f) for f in (
+            "torch_parallel_worker.py", "test_torch_parallel_cuda.py")] + [
         os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
         if f.endswith(".py") and "templates" not in d.split(os.sep)]
     assert len(files) > 60
+    for name in ("__init__.py", "mesh.py", "tensor.py"):
+        assert os.path.join(pkg, "parallel", name) in files, name
     found = []
     for path in files:
         with open(path) as f:
