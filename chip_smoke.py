@@ -191,7 +191,9 @@ Phases, in order; any failure exits non-zero before the result line:
    random f32 weights): log_mel, encode and decoder-step ms, the
    transcriber's wall over its six rungs, the greedy ids against the card's
    own teacher-forced argmax, a 2-layer truncation of the encoder on the
-   card against the CPU; a ``[front]`` JSON line.
+   card against the CPU; a ``[front]`` JSON line. The HTTP phases and the
+   tiered start run on bf16 and int8 pipelines of their own at 13 + 13
+   layers (``FRONT_LAYERS``, since ``[serve_tp]`` was added).
 
 4k. training (after 4f, on a card the earlier phases have released):
    (a) LoRA at 2b-2b full width, 13 + 13 layers (the run's time; seeded
@@ -240,6 +242,30 @@ Phases, in order; any failure exits non-zero before the result line:
    tokens equal to a pipeline's over the in-memory merge; each write and
    read in s and GB/s; a ``[lifecycle]`` JSON line.
 
+serve_tp. serving over the mesh (after 4l): (a) the kernels of a
+   tensor-parallel rank at its 2b-2b shapes against their plain versions,
+   timed, with their bounds and launches: kernel 1 at Hq / Hkv 4 / 2 (tp
+   2) and 2 / 1 (tp 4), B = 4, bf16, self and cross, its split plan
+   filling a wave; kernel 2's seven parts a layer at tp 2 and tp 4 (w8
+   B = 4, w4 B = 1, two layers, int8 pages; at tp 4 an activation tile
+   spans two ranks), every rank of the group in this process
+   (:func:`run_ranks`), against the one-process stack and the plain one
+   (TP_PART_TOL); kernels 3 and 4 at the row-split K blocks of the
+   prefill and the head, every rank's ``quant.rows_matmul`` (the group's
+   reductions done between its calls, :func:`rows_over_group`) bit-equal
+   to the plain product. (b) Two ranks on cuda:0
+   (gloo over CUDA tensors: NCCL refuses two ranks on one device; the
+   kernels built by this process before they start) decode through
+   ``engine.decode_tokens`` at tp 2: bf16 B = 4 at 26 + 26 layers, int8
+   B = 4 and int4 B = 1 at 13 + 13, SERVE_TP_FRAMES frames, after rank 0's
+   world-1 decode of the same weights; the ranks' tokens equal, and equal
+   to world 1's but at a near-tie, their logits within
+   SERVE_TP_LOGITS_TOL of world 1's before it; launches (kernel 1 2 x 26
+   a step; kernel 2's parts 7 x 13 a step; kernels 3 / 4 as many as world
+   1's), collectives and their bytes, eager ms a step against world 1's. (c) NCCL at world 1, ``make_mesh(dp=1,
+   tp=1)``: the mesh's shard served graphed inside ``model_parallel``,
+   frames equal to the plain path's. A ``[serve_tp]`` JSON line.
+
 Every main path (4, 4b, 4c's int4 run, 4f, 4g) runs its decode graphed and
 eager and is profiled both ways; a ``[graph]`` line sums them up as JSON.
 
@@ -277,6 +303,19 @@ PEAK_INT8_OPS = 1979e12        # H100 SXM, int8 tensor cores, dense
 REL_FRO_TOL_H = 5e-2
 REL_FRO_TOL_KV = 5e-3
 REL_FRO_TOL_STACK = 1e-1
+# A tensor-parallel rank's decode-layer parts against the one-process stack
+# and the plain one (relative Frobenius error of h, k and v): the same
+# levels and integer sums, only the attention's f32 partial sums in
+# another order. On one H100 (PR 18) the sound parts read 1.3e-7 at most
+# and 9.4e-4 where that order flips an int8 level (the card test, bf16
+# pages, tp 4); planted faults read 1.6e-2 and up (the GeGLU absmax of half
+# of each piece of a tile that spans ranks, at tp 4) and 7.2e-2 and up (a
+# tile's scale read without the rank's first column k0).
+TP_PART_TOL = 4e-3
+# The two-rank tp-2 decode's logits against world 1's, relative, at every
+# step before a row parts from world 1's tokens: 1.5 x the largest reading
+# of two runs on one H100 (PR 18; bf16 2.58e-2, int8 4.95e-2, int4 4.55e-2).
+SERVE_TP_LOGITS_TOL = {"bf16": 4e-2, "int8": 7.5e-2, "int4": 7.5e-2}
 TOL_ABS = 1e-4                 # f32 outputs from the same bf16/int8 pages:
 TOL_REL = 1e-4                 # only the order of summation differs
 MODEL_LAYERS = 26              # 2b-2b decoder depth
@@ -285,6 +324,8 @@ MODEL_LAYERS = 26              # 2b-2b decoder depth
 E4M3_LAYERS = 13
 W8A16_LAYERS = 13              # 4f's own pipeline (for the run's time)
 MODE1_LAYERS = 13              # 4g's own pipeline (for the run's time)
+FRONT_LAYERS = 13              # 4j's own pipelines (for the run's time,
+                               # since [serve_tp] was added)
 PAGE = 128
 
 
@@ -2315,7 +2356,7 @@ def phase_clone_reference(card: str, directory: str) -> None:
 
 
 def near_tie_parting(row, cpu_logits, card_logits, cpu_tokens,
-                     card_tokens) -> str:
+                     card_tokens, tol: float = REL_FRO_TOL_STACK) -> str:
     """Where a row's card stream parts from its CPU stream, held to the
     parting protocol: W8A16 rounds f32 activations to bf16, so an
     activation that the two devices compute one f32 rounding apart next to
@@ -2326,8 +2367,8 @@ def near_tie_parting(row, cpu_logits, card_logits, cpu_tokens,
     flip cascade's bound (REL_FRO_TOL_STACK); at it the CPU's margin
     between its token and the card's is within the gap between the
     devices' logits there (a near-tie). The card's logits come from its
-    eager loop, which gives the graphed loop's tokens. Returns the
-    report."""
+    eager loop, which gives the graphed loop's tokens. ``tol``: the bound
+    before the parting step. Returns the report."""
     steps = sorted(set(cpu_tokens) & set(card_tokens))
     parted = [s for s in steps
               if int(cpu_tokens[s][row]) != int(card_tokens[s][row])]
@@ -2344,10 +2385,10 @@ def near_tie_parting(row, cpu_logits, card_logits, cpu_tokens,
     a, b = int(cpu_tokens[t][row]), int(card_tokens[t][row])
     ls, lp = cpu_logits[t][row], card_logits[t][row].cpu()
     margin, gap = float(ls[a] - ls[b]), float((lp - ls).abs().max())
-    if before > REL_FRO_TOL_STACK or margin > gap:
+    if before > tol or margin > gap:
         raise AssertionError(f"row {row} parts at step {t}: logits "
                              f"{before:.2e} apart before it (tol "
-                             f"{REL_FRO_TOL_STACK:g}); CPU margin {margin:.3e}"
+                             f"{tol:g}); CPU margin {margin:.3e}"
                              f" against a logit gap of {gap:.3e}")
     return (f"row {row} parts at step {t} at a near-tie: the devices' logits "
             f"apart by at most {before:.2e} (relative) before it; there the "
@@ -2423,7 +2464,8 @@ def _counters():
             "w8a8_matmul": quant.w8a8_matmul,
             "w4a8_matmul": quant.w4a8_matmul,
             "w8a16_matmul": quant.w8a16_matmul,
-            "fused_decode_attention": fa.fused_decode_attention}
+            "fused_decode_attention": fa.fused_decode_attention,
+            "decode_layer_part": mk.decode_layer_part}
 
 
 def _counted(fn):
@@ -4663,6 +4705,632 @@ def phase_lifecycle(card: str, seed: int, dataset: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# [serve_tp]: tensor-parallel serving at each rank's shapes, and two ranks
+# on the one card
+# ---------------------------------------------------------------------------
+
+SERVE_TP_QUANT_LAYERS = 13      # the int8 / int4 two-rank decodes' depth
+SERVE_TP_FRAMES = 48            # the two-rank decodes' frame buffer: every
+                                # collective is a gloo exchange through the
+                                # host, 2.5-4.4 ms each on one H100 machine
+SERVE_TP_TIMEOUT = 900          # seconds: the two ranks' launch, at most
+
+
+def serve_tp_inputs(cfg, b: int) -> tuple:
+    """The main path's requests as decode inputs (numpy): text bytes
+    through the character tokenizer, no prompt, targets of 50 frames a
+    second; ``b`` = 1 takes the 4.0 s request."""
+    texts = TEXTS if b > 1 else TEXTS[-1:]
+    durations = DURATIONS if b > 1 else DURATIONS[-1:]
+    enc = char_tokenizer(cfg.text_vocab_size)
+    ids = [enc(t) for t in texts]
+    tx = max(len(i) for i in ids)
+    x = np.zeros((b, tx), np.int32)
+    for r, i in enumerate(ids):
+        x[r, :len(i)] = i
+    x_lens = np.asarray([len(i) for i in ids], np.int32)
+    prompt = np.zeros((b, 1), np.int32)
+    targets = np.asarray([int(round(d * cfg.encodec_sr)) for d in durations],
+                         np.int32)
+    return x, x_lens, prompt, np.zeros((b,), np.int32), targets
+
+
+SERVE_TP_CASES = (("bf16", MODEL_LAYERS, 4),
+                  ("int8", SERVE_TP_QUANT_LAYERS, 4),
+                  ("int4", SERVE_TP_QUANT_LAYERS, 1))
+
+
+def serve_tp_rank(outdir: str) -> int:
+    """One rank of ``[serve_tp]``'s tp-2 launch on the card (``python3
+    chip_smoke.py --serve-tp-rank OUTDIR`` with torchrun's RANK and
+    WORLD_SIZE): gloo over CUDA tensors on cuda:0, since NCCL refuses two
+    ranks on one device. For each case (weights, depth, batch) it makes the
+    seeded 2b-2b weights at the case's depth, rank 0 first decodes them in
+    one process (the world-1 run, eager, greedy, logits kept), then every
+    rank cuts its shard (``parallel.serving_shard``) and decodes eagerly
+    inside ``model_parallel``, its kernel counts set to 0 just before and
+    read just after; rank 0 holds its tokens to the world-1 run under the
+    near-tie clause. The cases come from OUTDIR/spec.json. Writes
+    OUTDIR/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from t5gemma_tts_tpu_torch import parallel
+    from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
+    from t5gemma_tts_tpu_torch.decode import engine
+    from t5gemma_tts_tpu_torch.models import voice
+    from t5gemma_tts_tpu_torch.parallel import mesh as mesh_mod
+    from t5gemma_tts_tpu_torch.parallel import tensor as tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(outdir, "spec.json")) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    from datetime import timedelta
+
+    parallel.init_distributed(
+        "cuda", init_method=f"tcp://127.0.0.1:{spec['port']}",
+        timeout=timedelta(seconds=SERVE_TP_TIMEOUT), gloo_on_cuda=True)
+    mesh = parallel.make_mesh(dp=1, tp=2)
+    results = {}
+    for weights, layers, b in spec["cases"]:
+        cfg = VoiceConfig()
+        if layers != MODEL_LAYERS:
+            cfg = depth_cut(cfg, layers)
+        quant = dict(quantize=weights != "bf16",
+                     weight_bits=4 if weights == "int4" else 8)
+        dcfg = DecodeConfig(kv_cache="paged" if weights == "bf16"
+                            else "paged_i8", top_k=1,
+                            max_frames=SERVE_TP_FRAMES)
+        ins = [torch.from_numpy(a).cuda() for a in serve_tp_inputs(cfg, b)]
+        whole = voice.init_params(spec["seed"], cfg, "cuda")
+        ref_logits, ref_tokens, ref = {}, {}, None
+        if rank == 0:
+            one = parallel.serving_shard(whole, cfg,
+                                         parallel.Mesh(dp=1, tp=1), **quant)
+            ref, ref_wall, ref_launches = _counted(lambda: _recorded(
+                lambda: engine.decode_tokens(one, cfg, dcfg, *ins,
+                                             seed=spec["seed"]),
+                ref_logits, ref_tokens))
+            ref_logits = {s: v.cpu() for s, v in ref_logits.items()}
+            del one
+        local = parallel.serving_shard(whole, cfg, mesh, **quant)
+        del whole
+        torch.cuda.empty_cache()
+        dist.barrier()
+        logits, tokens = {}, {}
+        mesh_mod.reset_counts()
+        with tp.model_parallel(mesh):
+            out, wall, launches = _counted(lambda: _recorded(
+                lambda: engine.decode_tokens(local, cfg, dcfg, *ins,
+                                             seed=spec["seed"]),
+                logits, tokens))
+        res = dict(tokens=out.tokens.cpu(), gen_lens=out.gen_lens.cpu(),
+                   steps=out.steps, wall=wall, launches=launches,
+                   collectives=dict(mesh_mod.COUNTS), layers=layers, b=b,
+                   gb=torch.cuda.max_memory_allocated() / 1e9)
+        if rank == 0:
+            tol = SERVE_TP_LOGITS_TOL[weights]
+            steps = sorted(set(ref_tokens) & set(tokens))
+            partings, apart = [], []
+            for r in range(b):
+                parted = [s for s in steps
+                          if int(ref_tokens[s][r]) != int(tokens[s][r])]
+                apart.append(max(
+                    (float((logits[s][r].cpu() - ref_logits[s][r]).norm()
+                           / ref_logits[s][r].norm())
+                     for s in steps if not parted or s < parted[0]),
+                    default=0.0))
+                if apart[-1] > tol:
+                    raise AssertionError(
+                        f"{weights} row {r}: logits {apart[-1]:.2e} apart "
+                        f"from world 1's before it parts (tol {tol:g})")
+                ln = int(out.gen_lens[r])
+                if int(ref.gen_lens[r]) != ln or not torch.equal(
+                        ref.tokens[r, :ln], out.tokens[r, :ln]):
+                    partings.append(near_tie_parting(
+                        r, ref_logits, logits, ref_tokens, tokens, tol))
+            res.update(ref_wall=ref_wall, ref_steps=ref.steps,
+                       ref_launches=ref_launches, partings=partings,
+                       logits_apart=apart)
+        results[weights] = res
+        del local, logits, tokens, ref_logits
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    torch.save(results, os.path.join(outdir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_layer_args(args, dims, mesh) -> tuple:
+    """(a rank's decode-layer inputs: its kv heads of ``args``' slabs and
+    scale planes, its first kv head)."""
+    from t5gemma_tts_tpu_torch import parallel
+
+    hkv = parallel.serving_dims(dims, mesh).num_kv_heads
+    lo = mesh.tp_rank * hkv if hkv != dims.num_kv_heads else 0
+    out = dict(args)
+    for name in ("prompt_k", "prompt_v", "gen_k", "gen_v", "cross_k",
+                 "cross_v"):
+        out[name] = args[name][lo:lo + hkv]
+    if args["kv_scales"] is not None:
+        out["kv_scales"] = tuple(x[lo:lo + hkv] for x in args["kv_scales"])
+    return out, lo
+
+
+def tp_layer_ranks(layers, dims, cfg, args, t):
+    """The TpLayers of every rank of a tp-``t`` group over its shard of
+    ``layers`` and its kv heads of ``args``' slabs, made inside
+    ``model_parallel`` (the group's reductions are :func:`run_ranks`'):
+    [(TpLayers, first kv head)]."""
+    from t5gemma_tts_tpu_torch import parallel
+    from t5gemma_tts_tpu_torch.ops import megakernel as mk
+    from t5gemma_tts_tpu_torch.parallel import tensor as tp
+
+    out = []
+    for r in range(t):
+        mesh = parallel.Mesh(dp=1, tp=t, rank=r)
+        shard = parallel.serving_shard({"decoder": {"layers": layers}}, cfg,
+                                       mesh)["decoder"]["layers"]
+        a, lo = rank_layer_args(args, dims, mesh)
+        with tp.model_parallel(mesh):
+            ldims = tp.local_dims(shard, dims)[0]
+        f = ldims.intermediate_size
+        k0 = r * f if f != dims.intermediate_size else 0
+        out.append((mk.TpLayers(shard, dims, ldims, k0=k0, **a), lo))
+    return out
+
+
+def run_ranks(ranks) -> None:
+    """Every layer of the ``megakernel.TpLayers`` of all ranks of one model
+    group held in one process, the group's reductions done here between
+    the parts (what the collectives compute): a tensor-parallel layer at
+    each rank's shapes on one card."""
+    from t5gemma_tts_tpu_torch.ops import megakernel as mk
+
+    for li in range(ranks[0].dims.num_layers):
+        for part in range(mk.PARTS):
+            for r in ranks:
+                r.run(li, part)
+            views = [r.reduce_view(part) for r in ranks]
+            if views[0] is None:
+                continue
+            bufs = torch.stack([v[0] for v in views])
+            whole = (bufs.amax(dim=0) if views[0][1] == "max"
+                     else bufs.sum(dim=0).to(bufs.dtype))
+            for v in views:
+                v[0].copy_(whole)
+
+
+class _Stop(Exception):
+    pass
+
+
+def rows_over_group(xs, ws, out_dtype=None) -> list:
+    """``quant.rows_matmul`` of every rank of a group held in one process
+    (``xs[r]``, ``ws[r]``: rank r's columns of the activations and rows of
+    the weight) -> ([each rank's result], the group's row absmax, the
+    group's int32 sums). Each rank's call is made three
+    times: to read its row absmax, to read its int32 sums at the group's
+    absmax, and with the group's absmax and sums (what the collectives
+    return)."""
+    from t5gemma_tts_tpu_torch.ops import quant
+
+    def stop(store):
+        def f(t):
+            store.append(t.clone())
+            raise _Stop
+        return f
+
+    def call(x, w, group_max, group_sum):
+        try:
+            return quant.rows_matmul(x, w, group_max, group_sum, out_dtype)
+        except _Stop:
+            return None
+
+    amax, sums = [], []
+    for x, w in zip(xs, ws):
+        call(x, w, stop(amax), None)
+    gmax = torch.stack(amax).amax(dim=0)
+    for x, w in zip(xs, ws):
+        call(x, w, lambda _: gmax, stop(sums))
+    gsum = torch.stack(sums).sum(dim=0).to(torch.int32)
+    return ([call(x, w, lambda _: gmax, lambda _: gsum)
+             for x, w in zip(xs, ws)], gmax, gsum)
+
+
+def serve_tp_kernels(card: str, iters: int) -> dict:
+    """``[serve_tp]`` (a): the kernels of a tensor-parallel rank at its
+    shapes of 2b-2b, each against its plain version, timed, with its
+    bound and its launches: kernel 1 at Hq / Hkv 4 / 2 (tp 2) and 2 / 1
+    (tp 4), B = 4, bf16, self and cross; kernel 2's parts at tp 2 and tp 4
+    (w8 B = 4, w4 B = 1, int8 pages, two layers; at tp 4 a 512-wide
+    activation tile spans ranks 0 and 1), every rank of the group in this
+    process, the reductions done between the parts (TP_PART_TOL); kernels 3
+    and 4 at the row-split K blocks of the prefill (M = 260, w4 M = 65) and
+    the head (M = 4, w4 M = 1), every rank's ``quant.rows_matmul``
+    bit-equal to the plain product. Every reading is printed before a
+    limit fails."""
+    import dataclasses
+
+    from t5gemma_tts_tpu_torch.config import VoiceConfig
+    from t5gemma_tts_tpu_torch.ops import fused_attn as fa
+    from t5gemma_tts_tpu_torch.ops import megakernel as mk
+    from t5gemma_tts_tpu_torch.ops import quant
+    from t5gemma_tts_tpu_torch.parallel import tensor as tp
+    from t5gemma_tts_tpu_torch.parallel.mesh import _take_rows
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+    out = {"kernel1": [], "kernel2": [], "rows": []}
+    for t, (h, hkv) in ((2, (4, 2)), (4, (2, 1))):
+        for form in ("self", "cross"):
+            cur = form == "self"
+            args = attention_case(
+                rng, b=4, h=h, hkv=hkv, hd=256, quant=False,
+                a_lens=[1, 128, 165, 256] if cur else [12, 128, 133, 256],
+                b_lens=[0, 5, 129, 320] if cur else None, pp_a=2,
+                pp_b=3 if cur else 0, layers=2, li=1, include_current=cur,
+                device=dev)
+
+            def call(a=args, c=cur):
+                return fa.batch_paged_attention(
+                    **a, attn_logits_soft_cap=50.0, include_current=c)
+
+            before = fa.batch_paged_attention.launches
+            got = call()
+            launches = fa.batch_paged_attention.launches - before
+            want = fa.batch_paged_attention_plain(
+                **args, attn_logits_soft_cap=50.0, include_current=cur)
+            err = check_close(f"kernel 1 tp {t} {form}", got, want)
+            plan = attention_plan(args)
+            if plan[2] < fa.WAVE:
+                raise AssertionError(f"kernel 1 at Hkv {hkv}: {plan[2]} CTAs "
+                                     f"do not fill a wave")
+            k_ms = graph_ms(call, iters)
+            p_ms = cuda_ms(lambda a=args, c=cur:
+                           fa.batch_paged_attention_plain(
+                               **a, attn_logits_soft_cap=50.0,
+                               include_current=c), iters)
+            b_ms, by = bound_ms(*attention_bytes_ops(args, cur))
+            row = dict(tp=t, form=form, heads=f"{h}/{hkv}", max_abs_err=err,
+                       ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                       launches=launches, ctas=plan[2])
+            out["kernel1"].append(row)
+            print(f"[serve_tp] kernel 1 {form} at tp {t} (Hq/Hkv {h}/{hkv}, "
+                  f"hd 256, B = 4, bf16): max_abs_err={err:.3e} kernel_ms="
+                  f"{k_ms:.4f} (graph) plain_ms={p_ms:.4f} bound_ms="
+                  f"{b_ms:.5f} ({by}) "
+                  f"launches={launches} {plan_note(plan)} [{card}]")
+
+    cfg = VoiceConfig()
+    dims = dataclasses.replace(cfg.backbone.decoder, num_layers=2,
+                               layer_types=())
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, decoder=dims))
+    failed = []         # every reading is printed before the check fails
+    for int4 in (False, True):
+        layers = random_quant_layers(dims, 2, dev, seed=18 + int4, int4=int4)
+        b = 1 if int4 else 4
+        args = decode_layer_inputs(
+            dims, b, True, prompt=37, gen_lens=[129, 5, 0, 300][:b],
+            enc_lens=[44, 1, 29, 130][:b], gen_slab=384, device=dev, seed=19)
+        whole = mk.decode_stack(layers, dims, **args)
+        plain = mk.decode_stack_plain(layers, dims, **args)
+        for t in (2, 4):
+            ranks = tp_layer_ranks(layers, dims, cfg, args, t)
+            before = mk.decode_layer_part.launches
+            run_ranks([r for r, _ in ranks])
+            torch.cuda.synchronize()
+            launches = mk.decode_layer_part.launches - before
+            errs = []
+            for layer, lo in ranks:
+                h, k, v = layer.outputs()
+                hk = k.shape[2]
+                for ref in (whole, plain):
+                    errs.append((rel_fro(h, ref[0]),
+                                 rel_fro(k, ref[1][:, :, lo:lo + hk]),
+                                 rel_fro(v, ref[2][:, :, lo:lo + hk])))
+            worst = tuple(max(e[i] for e in errs) for i in range(3))
+            if max(worst) > TP_PART_TOL:
+                failed.append(f"kernel 2 parts {'int4' if int4 else 'int8'}"
+                              f" at tp {t}: relative error h/k/v {worst} "
+                              f"(tol {TP_PART_TOL:g})")
+            rank0 = ranks[0][0]
+
+            def one_rank(layer=rank0):
+                for li in range(dims.num_layers):
+                    for part in range(mk.PARTS):
+                        layer.run(li, part)
+
+            k_ms = graph_ms(one_rank, max(iters // 4, 2)) / dims.num_layers
+            p_ms = cuda_ms(lambda: mk.decode_layer_plain(
+                layers, dims, li=1, **args), 2)
+            b_ms, by = bound_ms(decode_layer_bytes(
+                rank0.ldims, dict(rank0.args, h=args["h"]),
+                0.5 if int4 else 1.0), 0)
+            row = dict(tp=t, weights="int4" if int4 else "int8", b=b,
+                       rel_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                       bound_by=by, launches=launches,
+                       max_abs_err=float((ranks[0][0].outputs()[0]
+                                          - plain[0]).abs().max()))
+            out["kernel2"].append(row)
+            print(f"[serve_tp] kernel 2 parts {row['weights']} B = {b} at tp "
+                  f"{t} (a rank: {rank0.ldims.num_heads}/"
+                  f"{rank0.ldims.num_kv_heads} heads, F "
+                  f"{rank0.ldims.intermediate_size} from column "
+                  f"{rank0.k0}, tile {rank0.tile}): relative error h/k/v "
+                  f"{worst[0]:.2e}/{worst[1]:.2e}/{worst[2]:.2e} against the "
+                  f"one-process stack and the plain one (tol "
+                  f"{TP_PART_TOL:g}); a rank's layer "
+                  f"kernel_ms={k_ms:.4f} (graph, its 7 parts) plain_ms="
+                  f"{p_ms:.4f} (the whole layer) bound_ms={b_ms:.5f} ({by}, "
+                  f"its weights and KV) launches={launches} ({t} ranks x 7 "
+                  f"parts x 2 layers) [{card}]")
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    out["bf16_rows"] = []
+    for label, k in (("o", 2048), ("down", 9216)):
+        for t in (2, 4):
+            x = torch.randn((4, k // t), generator=g, device=dev
+                            ).to(torch.bfloat16)
+            w = (torch.randn((k // t, 2304), generator=g, device=dev) * 0.02
+                 ).to(torch.bfloat16)
+            got, want = tp._f32_product(x, w), x.float() @ w.float()
+            err = rel_fro(got, want)
+            if err > 1e-5:
+                failed.append(f"bf16 {label} rows at tp {t}: the f32-output "
+                              f"GEMM {err:.2e} from the f32 product")
+            k_ms = cuda_ms(lambda a=x, b=w: tp._f32_product(a, b), iters)
+            c_ms = cuda_ms(lambda a=x, b=w: a.float() @ b.float(), iters)
+            out["bf16_rows"].append(dict(product=label, tp=t, k=k // t,
+                                         ms=k_ms, f32_copy_ms=c_ms,
+                                         rel_err=err))
+            print(f"[serve_tp] bf16 row-split {label} at tp {t} (M=4, a "
+                  f"rank's K={k // t}, N=2304): one bf16 GEMM with an f32 "
+                  f"output {k_ms:.4f} ms against f32 copies and an f32 GEMM "
+                  f"{c_ms:.4f} ms, {err:.2e} apart [{card}]")
+
+    for int4 in (False, True):
+        shapes = ([("head w2", 1, 2304, 65541), ("prefill o", 65, 2048, 2304),
+                   ("prefill down", 65, 9216, 2304)] if int4 else
+                  [("head w2", 4, 2304, 65541), ("prefill o", 260, 2048, 2304),
+                   ("prefill down", 260, 9216, 2304)])
+        for label, m, k, n in shapes:
+            x = torch.randn((m, k), generator=g, device=dev)
+            w = (torch.randn((k, n), generator=g, device=dev) * 0.02
+                 ).to(torch.bfloat16)
+            qw = (quant.quantize_weight_int4_lanes(w) if int4
+                  else quant.quantize_weight(w))
+            x8, sx = quant.quantize_act_plain(x)
+            plain = (quant.int_matmul_exact(x8, quant.weight_levels(qw))
+                     .float() * sx * qw.scale[None, :]).to(x.dtype)
+            for t in (2, 4):
+                kr = k // t
+                xs = [x[:, r * kr:(r + 1) * kr].contiguous() for r in range(t)]
+                ws = [_take_rows(qw, r * kr, kr) for r in range(t)]
+                got, gmax, gsum = rows_over_group(xs, ws)
+                apart = max(float((g_r - plain).abs().max()) for g_r in got)
+                if apart:
+                    failed.append(f"{label} at tp {t}: the ranks' rows_matmul "
+                                  f"differs from the plain product by up to "
+                                  f"{apart:.3e}")
+
+                def rank_call(a=xs[0], wr=ws[0]):
+                    return quant.rows_matmul(a, wr, lambda _: gmax,
+                                             lambda _: gsum)
+
+                def rank_plain(a=xs[0], wr=ws[0]):
+                    x8, sx = quant.quantize_act_plain(a)
+                    return (quant.int_matmul_exact(
+                        x8, quant.weight_levels(wr)).float() * sx
+                        * wr.scale[None, :]).to(a.dtype)
+
+                k_ms = graph_ms(rank_call, iters)
+                p_ms = cuda_ms(rank_plain, iters)
+                lib = int_mm_call(xs[0], ws[0])
+                lib_ms = cuda_ms(lib, iters)
+                nb, ops = w8a8_cost(m, kr, n, 4, 4, 0.5 if int4 else 1.0)
+                b_ms, by = bound_ms(nb, ops, PEAK_INT8_OPS)
+                row = dict(tp=t, product=label, m=m, k=kr, n=n,
+                           weights="int4" if int4 else "int8",
+                           max_abs_err=apart, ms=k_ms,
+                           plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                           bound_by=by, route=quant.product_plan(m, ws[0])
+                           ["route"])
+                out["rows"].append(row)
+                print(f"[serve_tp] {'W4A8' if int4 else 'W8A8'} row-split "
+                      f"{label} at tp {t} (M={m}, a rank's K={kr}, N={n}, "
+                      f"{row['route']}): every rank's rows_matmul against "
+                      f"the plain product max_abs_err={apart:.3e} (tol 0); "
+                      f"a rank's kernel_ms={k_ms:.4f} (graph: its absmax, "
+                      f"quantize, int32 product and rescale) plain_ms="
+                      f"{p_ms:.4f} (its block, plain) "
+                      f"library_ms={lib_ms:.4f} (torch._int_mm + rescale) "
+                      f"bound_ms={b_ms:.5f} ({by}) [{card}]")
+    if failed:
+        raise AssertionError("[serve_tp] " + "; ".join(failed))
+    return out
+
+
+def serve_tp_world1(card: str, seed: int) -> dict:
+    """``[serve_tp]`` (c): NCCL at world 1, ``make_mesh(dp=1, tp=1)``: the
+    mesh's serving shard (the whole tree at tp 1) served graphed inside
+    ``model_parallel`` against the plain path's graphed serve, one 1.0 s
+    greedy request at B = 1 on 2b-2b at FULL_LAYERS + FULL_LAYERS layers:
+    frames equal."""
+    import torch.distributed as dist
+
+    from t5gemma_tts_tpu_torch import parallel
+    from t5gemma_tts_tpu_torch.config import DecodeConfig, VoiceConfig
+    from t5gemma_tts_tpu_torch.decode import engine
+    from t5gemma_tts_tpu_torch.models import voice
+    from t5gemma_tts_tpu_torch.parallel import tensor as tp
+
+    cfg = dataclasses.replace(depth_cut(VoiceConfig(), FULL_LAYERS),
+                              dtype="bfloat16")
+    dcfg = DecodeConfig(kv_cache="paged", top_k=1, max_frames=512)
+    ins = [torch.from_numpy(a[-1:]).cuda() for a in serve_tp_inputs(cfg, 4)]
+    whole = voice.init_params(seed, cfg, "cuda")
+    parallel.init_distributed(
+        "cuda", init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        mesh = parallel.make_mesh(dp=1, tp=1)
+        served = {}
+        for name in ("plain", "mesh"):
+            params = parallel.serving_shard(whole, cfg, mesh)
+            with tp.model_parallel(mesh if name == "mesh" else None):
+                out, wall, launches = _counted(lambda: engine.graphed_decoder(
+                    cfg, dcfg)(params, *ins, seed))
+            served[name] = (out, launches)
+            engine.release_sessions()
+    finally:
+        dist.destroy_process_group()
+    (a, la), (b, lb) = served["plain"], served["mesh"]
+    n = int(a.gen_lens[0])
+    if int(b.gen_lens[0]) != n or not torch.equal(a.tokens[0, :n],
+                                                  b.tokens[0, :n]):
+        raise AssertionError("the world-1 mesh's graphed serve differs from "
+                             "the plain path's")
+    if lb["batch_paged_attention"] != 2 * FULL_LAYERS * b.launched_steps:
+        raise AssertionError(f"world-1 mesh serve launches {lb}")
+    return dict(frames=n, bodies=b.launched_steps,
+                kernel1_launches=lb["batch_paged_attention"])
+
+
+def serve_tp_entry(stp: dict, weights: str, counter: str, table: str
+                   ) -> dict:
+    """A kernel's ``tp`` entry of the kernels' line: its launches in the
+    two-rank tp-2 ``weights`` decode (rank 0's count), that run's depth and
+    steps, and its rows of :func:`serve_tp_kernels` (each with ms,
+    plain_ms, bound_ms and bound_by at a rank's shapes)."""
+    run = stp["runs"][weights]
+    rows = stp["kernels"][table]
+    if table != "kernel1":
+        rows = [r for r in rows if r["weights"] == weights]
+    return dict(launches=run["launches"].get(counter, 0),
+                layers=run["layers"], steps=run["steps"], shapes=rows)
+
+
+def phase_serve_tp(card: str, seed: int, iters: int, workdir: str,
+                   cases=SERVE_TP_CASES, full: bool = True) -> dict:
+    """``[serve_tp]``: (a) :func:`serve_tp_kernels`; (b) two ranks on
+    cuda:0 (gloo over CUDA tensors; the kernels are built already, by this
+    process) decode SERVE_TP_CASES through ``engine.decode_tokens`` at tp 2
+    (:func:`serve_tp_rank`): bf16 B = 4 at 26 + 26 layers (kernel 1 at Hq /
+    Hkv 4 / 2, 2 x 26 launches a step), int8 B = 4 and int4 B = 1 at
+    SERVE_TP_QUANT_LAYERS + SERVE_TP_QUANT_LAYERS (kernel 2's parts, 7 a
+    layer a step; kernels 3 and 4 at the row-split blocks), each rank's
+    tokens equal to the other's and to the world-1 run's but at a near-tie,
+    their logits within SERVE_TP_LOGITS_TOL of world 1's before it;
+    (c) :func:`serve_tp_world1`. ``full=False``: (b) alone."""
+    t_start = time.time()
+    kernels = serve_tp_kernels(card, iters) if full else None
+    torch.cuda.empty_cache()
+    outdir = os.path.join(workdir, "serve_tp")
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "spec.json"), "w") as f:
+        json.dump(dict(port=free_port(), seed=seed, cases=cases), f)
+    procs = []
+    logs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK="0")
+        log = open(os.path.join(outdir, f"rank{rank}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-tp-rank",
+             outdir], env=env, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=SERVE_TP_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(outdir, f"rank{r}.log")) as f:
+                raise AssertionError(f"[serve_tp] rank {r} exited "
+                                     f"{p.returncode}:\n{f.read()[-6000:]}")
+    ranks = [torch.load(os.path.join(outdir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    runs = {}
+    for weights, layers, b in cases:
+        r0, r1 = ranks[0][weights], ranks[1][weights]
+        if not (torch.equal(r0["tokens"], r1["tokens"])
+                and torch.equal(r0["gen_lens"], r1["gen_lens"])):
+            raise AssertionError(f"[serve_tp] {weights}: the two ranks' "
+                                 f"tokens differ")
+        lc = r0["launches"]
+        steps = r0["steps"]
+        runs[weights] = dict(
+            layers=layers, b=b, steps=steps, frames=r0["gen_lens"].tolist(),
+            wall_s=r0["wall"], ms_per_step=1e3 * r0["wall"] / max(steps, 1),
+            world1_wall_s=r0["ref_wall"],
+            world1_ms_per_step=1e3 * r0["ref_wall"] / max(r0["ref_steps"], 1),
+            launches={k: v for k, v in lc.items() if v},
+            world1_launches={k: v for k, v in r0["ref_launches"].items()
+                             if v},
+            collectives=r0["collectives"]["calls"],
+            collective_bytes=r0["collectives"]["bytes"],
+            rank_peak_gb=[ranks[0][weights]["gb"], ranks[1][weights]["gb"]],
+            partings=r0["partings"], logits_apart=r0["logits_apart"])
+        print(f"[serve_tp] two ranks on cuda:0 (gloo over CUDA tensors), "
+              f"tp 2, {weights} B = {b} at {layers} + {layers} layers: "
+              f"{steps} steps, the ranks' tokens agree; "
+              f"{b - len(r0['partings'])} of {b} rows token-equal to the "
+              f"world-1 run's; logits apart from world 1's before a row "
+              f"parts (relative, by row) "
+              f"{'/'.join(f'{a:.2e}' for a in r0['logits_apart'])} (tol "
+              f"{SERVE_TP_LOGITS_TOL[weights]:g})"
+              f"{''.join('; ' + p for p in r0['partings'])}; eager ms a step "
+              f"{runs[weights]['ms_per_step']:.2f} (world 1: "
+              f"{runs[weights]['world1_ms_per_step']:.2f}); "
+              f"{runs[weights]['collectives']} collectives moving "
+              f"{runs[weights]['collective_bytes'] / 1e6:.1f} MB; launches "
+              f"{runs[weights]['launches']} (world 1: "
+              f"{runs[weights]['world1_launches']}); rank peak GB "
+              f"{runs[weights]['rank_peak_gb'][0]:.2f}/"
+              f"{runs[weights]['rank_peak_gb'][1]:.2f} [{card}]")
+        if weights == "bf16":
+            want = {"batch_paged_attention": 2 * layers * steps}
+        else:
+            want = {"decode_layer_part": 7 * layers * steps,
+                    "batch_paged_attention": 0}
+        for k, v in want.items():
+            if lc[k] != v:
+                raise AssertionError(f"[serve_tp] {weights}: {k} launched "
+                                     f"{lc[k]} times, not {v}: {lc}")
+        # kernels 3 and 4: every product of world 1's run, the row-split
+        # ones through rows_matmul (the head's w2 a step at least)
+        for k in ("w8a8_matmul", "w4a8_matmul"):
+            if weights != "bf16" and r0["ref_steps"] == steps and \
+                    lc[k] != r0["ref_launches"][k]:
+                raise AssertionError(
+                    f"[serve_tp] {weights}: {k} launched {lc[k]} times, world "
+                    f"1 {r0['ref_launches'][k]}")
+        prod = "w4a8_matmul" if weights == "int4" else "w8a8_matmul"
+        if weights != "bf16" and lc[prod] < steps:
+            raise AssertionError(f"[serve_tp] {weights}: {prod} launched "
+                                 f"{lc[prod]} times in {steps} steps")
+    world1 = serve_tp_world1(card, seed) if full else None
+    if full:
+        print(f"[serve_tp] NCCL world 1, mesh dp 1 x tp 1: served graphed, "
+              f"{world1['frames']} frames equal to the plain path's, kernel "
+              f"1 {world1['kernel1_launches']} launches over "
+              f"{world1['bodies']} step bodies [{card}]")
+    res = dict(kernels=kernels, runs=runs, world1=world1,
+               seconds=time.time() - t_start)
+    print(f"[serve_tp] {json.dumps(res)}")
+    return res
+
+
 def n_params(tree) -> int:
     """Weights in a parameter tree, quantized ones counted by their
     levels."""
@@ -4683,13 +5351,44 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--serve-tp-rank", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=("serve_tp", "serve_tp_kernels",
+                                       "serve_tp_bf16"),
+                    help="build the kernels and run this part of [serve_tp] "
+                         "alone (no result line)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.serve_tp_rank:
+        return serve_tp_rank(args.serve_tp_rank)
+    if args.only:
+        return run_only(args)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as refdir:
         return run_all(args, refdir)
+
+
+def run_only(args) -> int:
+    """``--only``: the kernels built, then one part of ``[serve_tp]``:
+    all of it, its kernels (a), or the two ranks' bf16 decode (b)."""
+    from t5gemma_tts_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"[device] {card} | torch {torch.__version__}")
+    cuda_build.build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        if args.only == "serve_tp_kernels":
+            serve_tp_kernels(card, args.iters)
+        else:
+            phase_serve_tp(card, args.seed, args.iters, workdir,
+                           cases=SERVE_TP_CASES[:1]
+                           if args.only == "serve_tp_bf16" else
+                           SERVE_TP_CASES,
+                           full=args.only == "serve_tp")
+    return 0
 
 
 def run_all(args, refdir: str) -> int:
@@ -4843,15 +5542,21 @@ def run_all(args, refdir: str) -> int:
     engine.release_sessions()
     torch.cuda.empty_cache()
     stamp("4i (serving)")
-    # 4j: the HTTP front end over 4i's pipelines (int8 continuous, a bf16
-    # stream beside a one-shot request of its bucket), the tiered start,
-    # and Whisper at the large-v3-turbo widths
-    front = {"http_int8": phase_http_continuous(card, main8["pipe"],
-                                                args.seed),
-             "http_stream": phase_http_stream(card, pipe16, args.seed),
-             "fast_start": phase_fast_start(card, pipe16, args.seed),
+    # 4j: the HTTP front end (int8 continuous, a bf16 stream beside a
+    # one-shot request of its bucket), the tiered start, and Whisper at the
+    # large-v3-turbo widths; on pipelines of their own at FRONT_LAYERS +
+    # FRONT_LAYERS layers
+    cfg_j = depth_cut(cfg, FRONT_LAYERS)
+    pipe_j = build_pipeline(cfg_j, XCodec2Config(), "cuda", args.seed)
+    pipe_j8 = build_pipeline(cfg_j, XCodec2Config(), "cuda", args.seed,
+                             int8=True)
+    front = {"layers": FRONT_LAYERS,
+             "http_int8": phase_http_continuous(card, pipe_j8, args.seed),
+             "http_stream": phase_http_stream(card, pipe_j, args.seed),
+             "fast_start": phase_fast_start(card, pipe_j, args.seed),
              "whisper": phase_whisper(card, args.seed)}
     print(f"[front] {json.dumps(front)}")
+    del pipe_j, pipe_j8
     engine.release_sessions()
     torch.cuda.empty_cache()
     stamp("4j (front end, ASR)")
@@ -4963,6 +5668,12 @@ def run_all(args, refdir: str) -> int:
     life = phase_lifecycle(card, args.seed, pre["dir"])
     print(f"[lifecycle] {json.dumps(dict(life, preprocess=pre))}")
     stamp("4l (lifecycle)")
+    # [serve_tp]: tensor-parallel serving at each rank's shapes, two ranks
+    # on this card, the NCCL world-1 mesh served graphed
+    engine.release_sessions()
+    torch.cuda.empty_cache()
+    stp = phase_serve_tp(card, args.seed, args.iters, refdir)
+    stamp("serve_tp")
     # the graphed loop against the eager one, path by path
     graph = {run["tag"]: dict(run["ab"], **{
                  f"profile_{form}_{k}": v
@@ -5010,7 +5721,9 @@ def run_all(args, refdir: str) -> int:
                             bodies=life["bodies"], layers=LIFE_LAYERS),
              parallel=dict(launches=train["parallel"]["kernel1_launches"],
                            bodies=train["parallel"]["serve_bodies"],
-                           layers=FULL_LAYERS)),
+                           layers=FULL_LAYERS),
+             tp=serve_tp_entry(stp, "bf16", "batch_paged_attention",
+                               "kernel1")),
         dict(name="w8a8_matmul", route="cuda",
              source=src + "w8a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:140",
@@ -5028,7 +5741,8 @@ def run_all(args, refdir: str) -> int:
                        for ph, r in (("4b", prod8), ("4c", prod4),
                                      ("4d", prod_spec4), ("4h", prod8c),
                                      ("4h", prod4c), ("4i", prod8s))
-                       for p in r.get("w8a8", [])]),
+                       for p in r.get("w8a8", [])],
+             tp=serve_tp_entry(stp, "int8", "w8a8_matmul", "rows")),
         dict(name="decode_stack", route="cuda",
              source=src + "decode_layer.cu",
              replaces="t5gemma_tts_tpu/ops/megakernel.py:115",
@@ -5048,7 +5762,8 @@ def run_all(args, refdir: str) -> int:
                  launches=serve["int8"]["launches"]["decode_stack"],
                  max_abs_err=serve_timing8["decode_stack"]["max_abs_err"],
                  splits=serve_timing8["decode_stack"]["splits"],
-                 **{k: serve_timing8["decode_stack"][k] for k in keys[:4]})),
+                 **{k: serve_timing8["decode_stack"][k] for k in keys[:4]}),
+             tp=serve_tp_entry(stp, "int8", "decode_layer_part", "kernel2")),
         dict(name="w4a8_matmul", route="cuda",
              source=src + "w4a8_matmul.cu",
              replaces="t5gemma_tts_tpu/ops/quant.py:656",
@@ -5060,7 +5775,8 @@ def run_all(args, refdir: str) -> int:
              products=[dict(p, run=f"{ph} {p['run']}")
                        for ph, r in (("4c", prod4), ("4d", prod_spec4),
                                      ("4h", prod4c))
-                       for p in r.get("w4a8", [])]),
+                       for p in r.get("w4a8", [])],
+             tp=serve_tp_entry(stp, "int4", "w4a8_matmul", "rows")),
         dict(name="decode_stack_int4", route="cuda",
              source=src + "decode_layer.cu",
              replaces="t5gemma_tts_tpu/ops/megakernel.py:115",
@@ -5075,7 +5791,8 @@ def run_all(args, refdir: str) -> int:
                          max_abs_err=max(*worst_chain.values(),
                                          chain_timing["max_abs_err"]),
                          splits=chain_timing["splits"],
-                         **{k: chain_timing[k] for k in keys[:4]})),
+                         **{k: chain_timing[k] for k in keys[:4]}),
+             tp=serve_tp_entry(stp, "int4", "decode_layer_part", "kernel2")),
         dict(name="paged_flash_parts", route="cuda",
              source=src + "paged_flash_parts.cu",
              replaces="t5gemma_tts_tpu/ops/paged_attn.py:122",

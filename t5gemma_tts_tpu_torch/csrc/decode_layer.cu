@@ -238,6 +238,30 @@ geglu_quant_kernel(const float* gu, int F, int ftile, int8_t* t8, float* st) {
   if (threadIdx.x == 0) st[b * (F / ftile) + j] = s;
 }
 
+// A tensor-parallel rank's GeGLU: its F columns are k0 .. k0 + F of the
+// whole intermediate, whose activation scales are per `tile`-wide tile (NT
+// tiles). One block per (touched tile, row b): t = gelu_tanh(g) * u over
+// the tile's local columns into t_out [B, F], and the local absmax of the
+// tile into amax [B, NT] (geglu_quant_kernel's values, its quantization
+// left for the group's absmax).
+__global__ void __launch_bounds__(kRowThreads)
+geglu_part_kernel(const float* gu, int F, int k0, int tile, int NT, float* t_out, float* amax) {
+  __shared__ float red[kRowThreads / 32];
+  const int j = k0 / tile + blockIdx.x;
+  const int64_t b = blockIdx.y;
+  const int lo = max(j * tile - k0, 0), hi = min((j + 1) * tile - k0, F);
+  const float* g = gu + b * 2 * F;
+  const float* u = g + F;
+  float m = 0.f;
+  for (int e = lo + threadIdx.x; e < hi; e += kRowThreads) {
+    const float t = __fmul_rn(gelu_tanh(g[e]), u[e]);
+    t_out[b * F + e] = t;
+    m = fmaxf(m, fabsf(t));
+  }
+  m = block_max(m, red);
+  if (threadIdx.x == 0) amax[b * NT + j] = m;
+}
+
 // ---------------------------------------------------------------------------
 // attention: split-KV partials, then the merge with the in-flight chain
 // ---------------------------------------------------------------------------
@@ -568,6 +592,8 @@ struct MergeArgs {
   int clamp_a;
   int H, Hkv, hd, chain, chunk, splits;
   float soft_cap;
+  float* out_f32;       // F32OUT: [B, H * hd] the rows, unquantized
+  float* amax;          // F32OUT: [B] each row's absmax
 };
 
 // Splits of one query that hold tokens: [0, n_a) of segment A and
@@ -584,8 +610,10 @@ __device__ __forceinline__ void live_splits(const MergeArgs& p, int b, int& n_a,
 
 // One CTA per pseudo-row b, a warp per query head: the partials in split
 // order, the in-flight chain j = 0 .. pos_in, acc / (l > 0 ? l : 1); then
-// the row's int8 levels and scale (quantize_rows_kernel's arithmetic).
-template <bool QUANT>
+// the row's int8 levels and scale (quantize_rows_kernel's arithmetic), or,
+// F32OUT (a tensor-parallel rank's heads), the f32 row and its absmax for
+// the group's quantization.
+template <bool QUANT, bool F32OUT = false>
 __global__ void __launch_bounds__(kAttnThreads)
 merge_quant_kernel(const MergeArgs p) {
   extern __shared__ float row[];   // [H * hd]
@@ -698,6 +726,13 @@ merge_quant_kernel(const MergeArgs p) {
   const int ho = p.H * hd;
   float amax = 0.f;
   for (int d = threadIdx.x; d < ho; d += kAttnThreads) amax = fmaxf(amax, fabsf(row[d]));
+  if constexpr (F32OUT) {
+    for (int d = threadIdx.x; d < ho; d += kAttnThreads)
+      p.out_f32[static_cast<int64_t>(b) * ho + d] = row[d];
+    amax = block_max(amax, red);
+    if (threadIdx.x == 0) p.amax[b] = amax;
+    return;
+  }
   const float s = act_scale(block_max(amax, red));
   for (int d = threadIdx.x; d < ho; d += kAttnThreads)
     p.x8[static_cast<int64_t>(b) * ho + d] = quant_level(row[d], s);
@@ -716,7 +751,8 @@ cudaError_t launch_pass(Kernel kernel, const AttnArgs& p, size_t smem, int bc, c
 }
 
 template <bool QUANT>
-cudaError_t launch_attention(const AttnArgs& p, const MergeArgs& m, int B, cudaStream_t s) {
+cudaError_t launch_attention(const AttnArgs& p, const MergeArgs& m, int B, bool f32out,
+                             cudaStream_t s) {
   const size_t NQ = static_cast<size_t>(p.chain) * (p.H / p.Hkv);
   if (p.splits > 0) {
     const size_t lens = sizeof(int) * p.chain;
@@ -728,7 +764,11 @@ cudaError_t launch_attention(const AttnArgs& p, const MergeArgs& m, int B, cudaS
                               lens,
                           B / p.chain, s));
   }
-  merge_quant_kernel<QUANT><<<B, kAttnThreads, p.H * p.hd * sizeof(float), s>>>(m);
+  const size_t smem = p.H * p.hd * sizeof(float);
+  if (f32out)
+    merge_quant_kernel<QUANT, true><<<B, kAttnThreads, smem, s>>>(m);
+  else
+    merge_quant_kernel<QUANT><<<B, kAttnThreads, smem, s>>>(m);
   return cudaGetLastError();
 }
 
@@ -771,6 +811,18 @@ struct DecodeArgs {
   float eps, soft_cap, q_scale;
 };
 
+// The extra buffers of a tensor-parallel rank's layer parts (run_part),
+// mirrored by the ctypes Structure in ops/megakernel.py.
+struct PartArgs {
+  float* attn;          // [B, H * hd] the attention rows (parts 0, 2 -> 1, 3)
+  float* amax;          // [B, max(1, NT)] absmax, local then the group's
+  int32_t* isum;        // [B, max(1, NT), D] int32 sums, local then the group's
+  float* gbuf;          // [B, F] the GeGLU values (part 4 -> 5)
+  int k0;               // this rank's first column of the whole F
+  int tile;             // the whole F's activation tile (512, or F when F < 512)
+  int NT;               // tiles of the whole F
+};
+
 namespace {
 
 cudaError_t norm_step(const DecodeArgs& a, const float* y, const float* w_post,
@@ -796,9 +848,11 @@ cudaError_t gemv(const DecodeArgs& a, int which, int li, int N, int K, int ktile
 }
 
 // Attention of layer li (self: prompt + generated + the in-flight chain;
-// cross: the encoder pages), ending in x8 / sx = quant(attn).
+// cross: the encoder pages), ending in x8 / sx = quant(attn), or with
+// out_f32 in the f32 rows and their absmax amax [B].
 cudaError_t attention(const DecodeArgs& a, int li, bool self, const float* k_cur,
-                      const float* v_cur, cudaStream_t s) {
+                      const float* v_cur, cudaStream_t s, float* out_f32 = nullptr,
+                      float* amax = nullptr) {
   const int bc = a.B / a.chain;
   AttnArgs p{};
   p.q = a.qbuf;
@@ -824,8 +878,10 @@ cudaError_t attention(const DecodeArgs& a, int li, bool self, const float* k_cur
   p.splits = self ? a.splits_self : a.splits_cross;
   const MergeArgs m{a.qbuf, k_cur, v_cur, a.part_acc, a.part_m, a.part_l, a.x8, a.sx,
                     {p.seg[0].len, p.seg[1].len}, {p.seg[0].T, p.seg[1].T}, p.clamp_a,
-                    a.H, a.Hkv, a.hd, a.chain, p.chunk, p.splits, a.soft_cap};
-  return a.kv_quant ? launch_attention<true>(p, m, a.B, s) : launch_attention<false>(p, m, a.B, s);
+                    a.H, a.Hkv, a.hd, a.chain, p.chunk, p.splits, a.soft_cap, out_f32, amax};
+  const bool f32out = out_f32 != nullptr;
+  return a.kv_quant ? launch_attention<true>(p, m, a.B, f32out, s)
+                    : launch_attention<false>(p, m, a.B, f32out, s);
 }
 
 cudaError_t run_layer(const DecodeArgs& a, int li, int out_li, cudaStream_t s) {
@@ -863,6 +919,106 @@ cudaError_t run_layer(const DecodeArgs& a, int li, int out_li, cudaStream_t s) {
   return norm_step(a, a.dout, a.norms[5] + ld, nullptr, s);
 }
 
+// ---------------------------------------------------------------------------
+// a tensor-parallel rank's layer, in parts
+// ---------------------------------------------------------------------------
+//
+// Under tensor parallelism a rank holds whole heads (H, Hkv of DecodeArgs
+// are its own) and F columns k0 .. k0 + F of the intermediate; the
+// products qkv, cross q and gate_up are column blocks, o, cross o and down
+// row blocks. The one-process layer reads a sum over heads or over F at
+// six points, so a rank's layer runs as seven parts, and the host reduces
+// over the model group between them:
+//
+//   part 0  steps 1-5, the attention rows left f32   -> amax [B]    MAX
+//   part 1  quant at the group's amax; o as int32     -> isum [B, D] SUM
+//   part 2  rescale; step 7; steps 8-11 (cross q, its attention rows)
+//                                                     -> amax [B]    MAX
+//   part 3  quant; cross o as int32                   -> isum [B, D] SUM
+//   part 4  rescale; step 13; gate_up; GeGLU of the
+//           local columns                             -> amax [B, NT] MAX
+//   part 5  quant per tile at the group's amax; down
+//           as int32 per whole-F tile                 -> isum [B, NT, D] SUM
+//   part 6  step 16's f32 sum over the tiles in tile order; step 17
+//
+// The levels, the integer sums and every f32 rounding are the one-process
+// layer's (the tile sums are exact in int32 and their f32 sum runs in the
+// one-process order), so a rank's h equals the one-process h bit for bit.
+// A tile that spans two ranks (F a rank not a multiple of 512, or F < 512)
+// is cut at the rank boundary; its absmax and its integer sum come whole
+// from the group.
+
+
+cudaError_t quant_tiles(const DecodeArgs& a, const float* x, int K, int k0, int tile, int NT,
+                        const float* amax, cudaStream_t s) {
+  quantize_tiles_kernel<float><<<a.B, kRowThreads, 0, s>>>(x, K, k0, tile, NT, amax, a.x8, a.sx);
+  return cudaGetLastError();
+}
+
+cudaError_t gemv_int(const DecodeArgs& a, int which, int li, int N, int K, int k0, int tile,
+                     int NT, int32_t* out, cudaStream_t s) {
+  const int64_t layer_bytes = static_cast<int64_t>(N) * (a.w4 ? K / 2 : K);
+  GemvIntArgs p{a.x8, a.w[which] + li * layer_bytes, out, a.B, N, K, k0, tile, NT};
+  return a.w4 ? launch_gemv_int<true>(p, s) : launch_gemv_int<false>(p, s);
+}
+
+cudaError_t rescale(const DecodeArgs& a, const PartArgs& t, int which, int li, int NT,
+                    cudaStream_t s) {
+  return launch_rescale_tiles<float>(t.isum, a.sx, a.ws[which] + static_cast<int64_t>(li) * a.D,
+                                     a.B, NT, a.D, a.dout, s);
+}
+
+cudaError_t run_part(const DecodeArgs& a, const PartArgs& t, int li, int part, cudaStream_t s) {
+  const int D = a.D, ho = a.H * a.hd, nkv = a.Hkv * a.hd;
+  const int nqkv = ho + 2 * nkv;
+  const int64_t ld = static_cast<int64_t>(li) * D;
+  switch (part) {
+    case 0:
+      T5G_CHECK(norm_step(a, nullptr, nullptr, a.norms[0] + ld, s));
+      T5G_CHECK(gemv(a, 0, li, nqkv, D, D, a.proj, s));
+    {
+      // k_new / v_new are [L, B, Hkv, hd]: layer li's slice
+      float* knew = a.k_new + static_cast<int64_t>(li) * a.B * nkv;
+      float* vnew = a.v_new + static_cast<int64_t>(li) * a.B * nkv;
+      rope_kernel<<<dim3(a.B, (nqkv + kRowThreads - 1) / kRowThreads), kRowThreads, 0, s>>>(
+          a.proj, nqkv, a.cos, a.sin, a.H, a.Hkv, a.hd, a.q_scale, a.qbuf, knew, vnew);
+      T5G_CHECK(cudaGetLastError());
+      return attention(a, li, true, knew, vnew, s, t.attn, t.amax);
+    }
+    case 1:
+    case 3:
+      T5G_CHECK(quant_tiles(a, t.attn, ho, 0, ho, 1, t.amax, s));
+      return gemv_int(a, part == 1 ? 1 : 3, li, D, ho, 0, ho, 1, t.isum, s);
+    case 2:
+      T5G_CHECK(rescale(a, t, 1, li, 1, s));
+      T5G_CHECK(norm_step(a, a.dout, a.norms[1] + ld, a.norms[2] + ld, s));
+      T5G_CHECK(gemv(a, 2, li, ho, D, D, a.proj, s));
+      rope_kernel<<<dim3(a.B, (ho + kRowThreads - 1) / kRowThreads), kRowThreads, 0, s>>>(
+          a.proj, ho, a.qcos, a.qsin, a.H, a.Hkv, a.hd, a.q_scale, a.qbuf, nullptr, nullptr);
+      T5G_CHECK(cudaGetLastError());
+      return attention(a, li, false, nullptr, nullptr, s, t.attn, t.amax);
+    case 4: {
+      T5G_CHECK(rescale(a, t, 3, li, 1, s));
+      T5G_CHECK(norm_step(a, a.dout, a.norms[3] + ld, a.norms[4] + ld, s));
+      T5G_CHECK(gemv(a, 4, li, 2 * a.F, D, D, a.proj, s));
+      T5G_CHECK(cudaMemsetAsync(t.amax, 0, sizeof(float) * a.B * t.NT, s));
+      const int touched = (t.k0 + a.F - 1) / t.tile - t.k0 / t.tile + 1;
+      geglu_part_kernel<<<dim3(touched, a.B), kRowThreads, 0, s>>>(a.proj, a.F, t.k0, t.tile, t.NT,
+                                                                  t.gbuf, t.amax);
+      return cudaGetLastError();
+    }
+    case 5:
+      T5G_CHECK(quant_tiles(a, t.gbuf, a.F, t.k0, t.tile, t.NT, t.amax, s));
+      T5G_CHECK(cudaMemsetAsync(t.isum, 0, sizeof(int32_t) * a.B * t.NT * D, s));
+      return gemv_int(a, 5, li, D, a.F, t.k0, t.tile, t.NT, t.isum, s);
+    case 6:
+      T5G_CHECK(rescale(a, t, 5, li, t.NT, s));
+      return norm_step(a, a.dout, a.norms[5] + ld, nullptr, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 bool plan_fits(int chunk, int splits, int capacity) {
   return chunk > 0 && kBlock % chunk == 0 &&
          static_cast<int64_t>(chunk) * splits == capacity;
@@ -892,4 +1048,20 @@ extern "C" int t5g_decode_layer(const DecodeArgs* a, int li, void* stream) {
 
 extern "C" int t5g_decode_stack(const DecodeArgs* a, void* stream) {
   return static_cast<int>(run_layers(*a, 0, a->L, static_cast<cudaStream_t>(stream)));
+}
+
+// Part `part` (0-6) of layer li of a tensor-parallel rank (run_part);
+// k_new / v_new hold all L layers, chain is 1.
+extern "C" int t5g_decode_layer_part(const DecodeArgs* a, const PartArgs* t, int li, int part,
+                                     void* stream) {
+  const DecodeArgs& d = *a;
+  if (d.hd % 8 || d.hd > 256 || d.H % d.Hkv || d.chain != 1 || d.F % 16 ||
+      (d.H * d.hd) % 16 || t->k0 % 16 || t->tile % 16 || t->tile <= 0 ||
+      (t->k0 + d.F + t->tile - 1) / t->tile > t->NT || li < 0 || li >= d.L ||
+      d.D * sizeof(float) > 48 * 1024 || d.H * d.hd * sizeof(float) > 48 * 1024 ||
+      !plan_fits(d.chunk_self, d.splits_self, d.Tp + d.Tg) ||
+      !plan_fits(d.chunk_cross, d.splits_cross, d.Tx))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d.B == 0) return 0;
+  return static_cast<int>(run_part(d, *t, li, part, static_cast<cudaStream_t>(stream)));
 }

@@ -48,3 +48,16 @@ extern "C" int t5g_w4a8_matmul(const void* x, int x_is_bf16, int M, int K, const
   return static_cast<int>(
       t5g::launch_tc<true>(x8, sx, w, sw, out, out_is_bf16, part, M, N, K, s));
 }
+
+// A rank's row-split block (w8a8_matmul.cu's t5g_w8a8_int, on this
+// product's routes): the exact int32 sums of x8 and the int4 levels [M, N].
+extern "C" int t5g_w4a8_int(const int8_t* x8, int M, int K, const int8_t* w, int N,
+                            int32_t* out, int32_t* part, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 1) {
+    t5g::GemvIntArgs p{x8, w, out, M, N, K, 0, K, 1};
+    return static_cast<int>(t5g::launch_gemv_int<true>(p, s));
+  }
+  return static_cast<int>(t5g::launch_tc<true>(x8, nullptr, w, nullptr, out, t5g::kOutInt32,
+                                               part, M, N, K, s));
+}

@@ -232,4 +232,148 @@ static inline cudaError_t launch_quantize_rows(const InT* x, int64_t x_stride, i
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Row-split products (tensor parallelism). A rank holds K columns
+// [k0, k0 + K) of a product whose activations the one-process path
+// quantizes per row (or per `tile`-wide K tile) over the whole K. So the
+// rank's quantization takes the group's absmax (an all-reduce MAX between
+// calls), its product leaves exact int32 sums per whole-K tile (summed over
+// the group as int32 between calls) and the rescale runs once on the sums,
+// in tile order: the same levels, integer sums and f32 roundings as the
+// one-process kernels.
+// ---------------------------------------------------------------------------
+
+// One block per row: amax[m] = max_k |x[m, k]|.
+template <typename InT>
+__global__ void __launch_bounds__(kRowThreads)
+row_absmax_kernel(const InT* x, int K, float* amax) {
+  __shared__ float red[kRowThreads / 32];
+  const int64_t row = blockIdx.x;
+  const InT* xr = x + row * K;
+  float m = 0.f;
+  for (int k = threadIdx.x; k < K; k += kRowThreads) m = fmaxf(m, fabsf(load_f32(xr, k)));
+  m = block_max(m, red);
+  if (threadIdx.x == 0) amax[row] = m;
+}
+
+// One block per row of x [M, K] (local columns k0 .. k0 + K of a product
+// whose activation scales are per `tile`-wide tile of the whole K, NT
+// tiles): the level of x[m, k] at its tile's scale act_scale(amax[m, j]),
+// and sx[m, j] for every tile.
+template <typename InT>
+__global__ void __launch_bounds__(kRowThreads)
+quantize_tiles_kernel(const InT* x, int K, int k0, int tile, int NT, const float* amax,
+                      int8_t* x8, float* sx) {
+  const int64_t row = blockIdx.x;
+  const InT* xr = x + row * K;
+  const float* am = amax + row * NT;
+  for (int k = threadIdx.x; k < K; k += kRowThreads)
+    x8[row * K + k] = quant_level(load_f32(xr, k), act_scale(am[(k0 + k) / tile]));
+  for (int j = threadIdx.x; j < NT; j += kRowThreads) sx[row * NT + j] = act_scale(am[j]);
+}
+
+struct GemvIntArgs {
+  const int8_t* x8;   // [M, K] local columns, rows 16-byte aligned
+  const int8_t* w;    // [N, K] int8 levels, or [N, K / 2] packed int4
+  int32_t* out;       // [M, NT, N]: each touched tile's exact int32 sum
+  int M, N, K, k0, tile, NT;
+};
+
+// w8a8_gemv_kernel's weight stream with integer results: per whole-K tile
+// j that the local columns touch, sum_{k in tile j} x8[m, k] * w[n, k]
+// over the local part of the tile (int4: the sum of 16 q x8, shifted right
+// by 4, exact). Tiles the local columns do not touch are left as they are.
+template <int MR, bool W4>
+__global__ void __launch_bounds__(kGemvWarps * 32)
+gemv_int_kernel(const GemvIntArgs p) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kGemvWarps + warp;
+  if (n >= p.N) return;
+  const int m0 = blockIdx.y * MR;
+  const int rows = min(MR, p.M - m0);
+  const int8_t* wrow = p.w + static_cast<int64_t>(n) * (W4 ? p.K / 2 : p.K);
+  const int j0 = p.k0 / p.tile, j1 = (p.k0 + p.K - 1) / p.tile;
+  for (int j = j0; j <= j1; ++j) {
+    const int lo = max(j * p.tile - p.k0, 0) / 16;
+    const int hi = min((j + 1) * p.tile - p.k0, p.K) / 16;
+    int acc[MR];
+#pragma unroll
+    for (int r = 0; r < MR; ++r) acc[r] = 0;
+#pragma unroll 4
+    for (int c = lo + lane; c < hi; c += 32) {
+      int wv[4];
+      load_weights16<W4>(wrow, c, wv);
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        if (r < rows) {
+          const int4 xv = __ldg(reinterpret_cast<const int4*>(
+              p.x8 + static_cast<int64_t>(m0 + r) * p.K) + c);
+          acc[r] = __dp4a(xv.x, wv[0], acc[r]);
+          acc[r] = __dp4a(xv.y, wv[1], acc[r]);
+          acc[r] = __dp4a(xv.z, wv[2], acc[r]);
+          acc[r] = __dp4a(xv.w, wv[3], acc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      if (r < rows) {
+        int tot = __reduce_add_sync(0xffffffffu, acc[r]);
+        if constexpr (W4) tot >>= 4;
+        if (lane == 0) p.out[(static_cast<int64_t>(m0 + r) * p.NT + j) * p.N + n] = tot;
+      }
+    }
+  }
+}
+
+template <int MR, bool W4>
+static inline cudaError_t launch_gemv_int_rows(const GemvIntArgs& p, cudaStream_t s) {
+  const dim3 grid((p.N + kGemvWarps - 1) / kGemvWarps, (p.M + MR - 1) / MR);
+  gemv_int_kernel<MR, W4><<<grid, kGemvWarps * 32, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool W4>
+static inline cudaError_t launch_gemv_int(const GemvIntArgs& p, cudaStream_t s) {
+  if (p.K % 16 || p.k0 % 16 || p.tile % 16 || p.tile <= 0 || p.NT <= 0 ||
+      (p.k0 + p.K + p.tile - 1) / p.tile > p.NT)
+    return cudaErrorInvalidValue;
+  if (W4 && p.tile > 65536) return cudaErrorInvalidValue;
+  if (p.M == 0 || p.N == 0 || p.K == 0) return cudaSuccess;
+  if (p.M <= 1) return launch_gemv_int_rows<1, W4>(p, s);
+  if (p.M <= 2) return launch_gemv_int_rows<2, W4>(p, s);
+  if (p.M <= 4) return launch_gemv_int_rows<4, W4>(p, s);
+  if (p.M <= 8) return launch_gemv_int_rows<8, W4>(p, s);
+  return launch_gemv_int_rows<kMaxRows, W4>(p, s);
+}
+
+// One thread per (m, n): out[m, n] = (sum_j f32(acc[m, j, n]) * sx[m, j]) * sw[n]
+// in tile order from 0, w8a8_gemv_kernel's f32 arithmetic on the group's
+// integer sums (NT = 1: (f32(acc) * sx) * sw).
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+rescale_tiles_kernel(const int32_t* acc, const float* sx, const float* sw, int M, int NT, int N,
+                     OutT* out) {
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (o >= static_cast<int64_t>(M) * N) return;
+  const int64_t m = o / N;
+  const int n = static_cast<int>(o - m * N);
+  float a = 0.f;
+  for (int j = 0; j < NT; ++j)
+    a = __fadd_rn(a, __fmul_rn(__int2float_rn(acc[(m * NT + j) * N + n]), sx[m * NT + j]));
+  store_out(out, o, __fmul_rn(a, sw[n]));
+}
+
+template <typename OutT>
+static inline cudaError_t launch_rescale_tiles(const int32_t* acc, const float* sx,
+                                               const float* sw, int M, int NT, int N, OutT* out,
+                                               cudaStream_t s) {
+  const int64_t mn = static_cast<int64_t>(M) * N;
+  if (mn == 0) return cudaSuccess;
+  rescale_tiles_kernel<OutT><<<static_cast<unsigned>((mn + 255) / 256), 256, 0, s>>>(
+      acc, sx, sw, M, NT, N, out);
+  return cudaGetLastError();
+}
+
 }  // namespace t5g

@@ -18,6 +18,14 @@
 //                    (w8a8_tc.cuh::tc_describe; zeros on the GEMV route).
 // t5g_w8a8_gemv:     the GEMV route at any M, int8 or (w4) packed int4
 //                    weights; no caller on the main path (a yardstick).
+//
+// A rank's row-split block under tensor parallelism (w8a8.cuh), the
+// all-reduces between the calls:
+// t5g_row_absmax:    amax [M] of x's rows;
+// t5g_quantize_rows_amax: x8 and sx [M] at the group's amax [M];
+// t5g_w8a8_int:      the exact int32 sums x8 @ w8^T [M, N], on the routes
+//                    of t5g_w8a8_matmul (part: its split-K scratch);
+// t5g_rescale_rows:  out = (f32(acc) * sx) * sw on the group's sums.
 
 #include "w8a8.cuh"
 #include "w8a8_tc.cuh"
@@ -66,4 +74,50 @@ extern "C" int t5g_w8a8_matmul(const void* x, int x_is_bf16, int M, int K, const
   if (e != 0) return e;
   return static_cast<int>(t5g::launch_tc<false>(x8, sx, w, sw, out, out_is_bf16, part, M, N,
                                                 K, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int t5g_row_absmax(const void* x, int x_is_bf16, int M, int K, float* amax,
+                              void* stream) {
+  if (M == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16)
+    t5g::row_absmax_kernel<__nv_bfloat16>
+        <<<M, t5g::kRowThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(x), K, amax);
+  else
+    t5g::row_absmax_kernel<float><<<M, t5g::kRowThreads, 0, s>>>(static_cast<const float*>(x), K,
+                                                                  amax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int t5g_quantize_rows_amax(const void* x, int x_is_bf16, int M, int K,
+                                      const float* amax, int8_t* x8, float* sx, void* stream) {
+  if (M == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16)
+    t5g::quantize_tiles_kernel<__nv_bfloat16><<<M, t5g::kRowThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), K, 0, K, 1, amax, x8, sx);
+  else
+    t5g::quantize_tiles_kernel<float><<<M, t5g::kRowThreads, 0, s>>>(
+        static_cast<const float*>(x), K, 0, K, 1, amax, x8, sx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int t5g_w8a8_int(const int8_t* x8, int M, int K, const int8_t* w, int N,
+                            int32_t* out, int32_t* part, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= kGemvRows) {
+    t5g::GemvIntArgs p{x8, w, out, M, N, K, 0, K, 1};
+    return static_cast<int>(t5g::launch_gemv_int<false>(p, s));
+  }
+  return static_cast<int>(t5g::launch_tc<false>(x8, nullptr, w, nullptr, out, t5g::kOutInt32,
+                                                part, M, N, K, s));
+}
+
+extern "C" int t5g_rescale_rows(const int32_t* acc, const float* sx, const float* sw, int M,
+                                int N, void* out, int out_is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      out_is_bf16
+          ? t5g::launch_rescale_tiles(acc, sx, sw, M, 1, N, static_cast<__nv_bfloat16*>(out), s)
+          : t5g::launch_rescale_tiles(acc, sx, sw, M, 1, N, static_cast<float*>(out), s));
 }

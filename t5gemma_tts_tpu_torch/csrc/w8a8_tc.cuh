@@ -74,10 +74,14 @@ constexpr int kTcMaxRows = 144;    // activation rows per CTA at most
 constexpr int kTcThreads = 288;    // 2 consumer warpgroups + 1 producer warp
 constexpr int kTcConsumerWarps = 8;
 
+// TcArgs::out_bf16 of a product that stores its exact int32 sums [M, N]
+// (a rank's row-split block, w8a8.cuh): no rescale, sx and sw unread
+constexpr int kOutInt32 = 2;
+
 struct TcArgs {
   const float* sx;   // [M]
   const float* sw;   // [N]
-  void* out;         // [M, N] f32 or bf16 (splits == 1)
+  void* out;         // [M, N] f32, bf16 or (kOutInt32) int32 (splits == 1)
   int32_t* part;     // [splits, M, N] int32 partial sums (splits > 1)
   int M, N, ktiles, splits, rowtiles, ntiles, out_bf16;
 };
@@ -493,6 +497,8 @@ w8a8_tc_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ C
     const int64_t o = static_cast<int64_t>(m) * p.N + n;
     if (p.splits > 1) {
       p.part[static_cast<int64_t>(sp) * p.M * p.N + o] = acc[i];
+    } else if (p.out_bf16 == kOutInt32) {
+      static_cast<int32_t*>(p.out)[o] = W4 ? (acc[i] >> 4) : acc[i];
     } else {
       const int tot = W4 ? (acc[i] >> 4) : acc[i];   // a sum of 16 q x8: exact
       const float v = __fmul_rn(__fmul_rn(__int2float_rn(tot), p.sx[m]), p.sw[n]);
@@ -514,6 +520,10 @@ w8a8_tc_merge_kernel(const TcArgs p) {
   int tot = 0;
   for (int s = 0; s < p.splits; ++s) tot += p.part[s * mn + o];
   if constexpr (W4) tot >>= 4;
+  if (p.out_bf16 == kOutInt32) {
+    static_cast<int32_t*>(p.out)[o] = tot;
+    return;
+  }
   const int m = static_cast<int>(o / p.N), n = static_cast<int>(o % p.N);
   const float v = __fmul_rn(__fmul_rn(__int2float_rn(tot), p.sx[m]), p.sw[n]);
   if (p.out_bf16)

@@ -31,6 +31,15 @@ batch).
   the CPU the segment runs the body eagerly and stops, as JAX's
   ``while_loop`` does, when no row is live.
 
+Over a mesh (the JAX package's multi-device continuous decode): a
+data-parallel rank holds its span of the slots of a dense state
+(``parallel.shard_slot_state``; ``SlotState.slot0`` is its first global
+slot), admits only the requests of its slots and harvests them under
+their global slots; a tensor-parallel rank holds the whole state with its
+own kv heads (:func:`init_slots` inside ``model_parallel``) and runs its
+shard of every layer. At ``tp > 1`` the captured segment refuses (ROADMAP
+Queue 1 item 15 part D) and ``make_fns(..., graphed=False)`` serves.
+
 All shapes are fixed at :func:`init_slots` (text, prompt and frame
 buckets). :func:`resolve_cache_mode` takes the paged cache whenever the
 buckets fit the sliding window, on any device (the JAX rule "auto = dense
@@ -54,6 +63,7 @@ from ..ops import masks as mask_ops
 from ..ops import paged_attn
 from ..ops import rope as rope_ops
 from ..ops import sampling
+from ..parallel import tensor as tp
 from . import engine
 
 PyTree = Any
@@ -79,6 +89,7 @@ class SlotState:
     x_lens: torch.Tensor           # [B] encoder lengths
     prompt_lens: torch.Tensor      # [B] (excl. BOS)
     target_totals: torch.Tensor    # [B]
+    slot0: int = 0                 # the first slot's global index (dp)
 
 
 @dataclasses.dataclass
@@ -141,9 +152,13 @@ def resolve_cache_mode(cfg: VoiceConfig, dcfg: DecodeConfig,
 def init_slots(cfg: VoiceConfig, dcfg: DecodeConfig, batch: int,
                text_len: int, prompt_len: int,
                device: Union[str, torch.device] = "cuda") -> SlotState:
-    """An empty resident state at the given buckets (every slot idle)."""
+    """An empty resident state at the given buckets (every slot idle); its
+    cache has the kv heads of a rank of the enclosing
+    ``parallel.tensor.model_parallel`` mesh (``parallel.serving_dims``)."""
+    from ..parallel import mesh as mesh_mod
+
     dev = torch.device(device)
-    dims = cfg.backbone.decoder
+    dims = mesh_mod.serving_dims(cfg.backbone.decoder, tp.active())
     cdt = voice.compute_dtype(cfg)
     mode = resolve_cache_mode(cfg, dcfg, prompt_len)
     if mode == "dense":
@@ -197,7 +212,12 @@ def admit(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig,
           prompt_len: int, target_total: int, seed: IntLike) -> SlotState:
     """Prefill ONE request (``x`` [tx] and ``prompt`` [p_max] padded to the
     state's buckets) with the plain batch-1 ``engine.prefill`` and install
-    it into ``slot``; returns ``state``, written in place."""
+    it into ``slot`` (a global slot: a data-parallel rank's state admits
+    only its own slots and leaves the others' requests to their ranks);
+    returns ``state``, written in place."""
+    slot -= state.slot0
+    if not 0 <= slot < state.tokens.shape[0]:
+        return state
     dev = state.tokens.device
     st1 = engine.prefill(
         params, cfg, _admit_dcfg(state, dcfg), _vector(x, dev)[None],
@@ -284,7 +304,8 @@ def _make_body(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig,
         consec = engine.silence_counter_update(silence, token, st.prev_token,
                                                st.consec_silence)
 
-        emb = voice.embed_audio(params, token[:, None]).to(cdt)
+        emb = voice.embed_audio(params, token[:, None],
+                                cfg.audio_embedding_vocab).to(cdt)
         if cfg.use_pm_rope:
             pos = rope_ops.decode_step_position(
                 st.current_length, est_total, cfg.progress_scale)[:, None]
@@ -350,6 +371,9 @@ def make_fns(cfg: VoiceConfig, dcfg: DecodeConfig,
         capture for these weights yet (its eager warm-up body counts as
         one step of the live rows): call it before serving, so that no
         capture runs while other threads use the card. On the CPU: None."""
+        if graphed:
+            tp.refuse("the captured continuous segment (a captured NCCL "
+                      "all-reduce); make_fns(..., graphed=False) serves it")
         dev = state.tokens.device
         if dev.type != "cuda" or not graphed:
             return None
@@ -398,14 +422,15 @@ def make_fns(cfg: VoiceConfig, dcfg: DecodeConfig,
 
 @torch.inference_mode()
 def harvest(state: SlotState) -> Tuple[SlotState, List[Tuple[int, Any]]]:
-    """Collect the finished rows -> [(slot, tokens incl. EOG as int32
+    """Collect the finished rows -> [(global slot, tokens incl. EOG as int32
     numpy)] and free their slots. One copy to the host (``active & done``,
     the lengths and the token buffer together)."""
     packed = torch.cat([(state.active & state.done).to(torch.int32)[:, None],
                         state.gen_lens[:, None], state.tokens], dim=1)
     packed = packed.cpu().numpy()
     ready = np.nonzero(packed[:, 0])[0]
-    out = [(int(r), packed[r, 2:2 + packed[r, 1]].copy()) for r in ready]
+    out = [(state.slot0 + int(r), packed[r, 2:2 + packed[r, 1]].copy())
+           for r in ready]
     if len(ready):
         state.active.index_fill_(
             0, torch.as_tensor(ready, device=state.active.device), False)

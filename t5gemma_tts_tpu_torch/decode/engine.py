@@ -53,6 +53,16 @@ one decode's replays at a time either way, and no request loads its
 inputs into a session that another caller is replaying. The CPU path
 (:func:`decode_tokens`, and :func:`run_segment` on CPU tensors) takes no
 lock.
+
+Over a mesh (``parallel``: the ordinary entry points called with a rank's
+shard inside ``parallel.tensor.model_parallel(mesh)``) a data-parallel
+rank decodes its own rows, which draw their rows of the whole batch's
+uniforms (``StepInputs.row0``), and a tensor-parallel rank its own heads
+and columns of every layer, the logits summed over the model group before
+sampling, so every rank of a model group samples the same tokens and
+reads the same all-done flag. The graphed forms serve data parallelism;
+at ``tp > 1`` they refuse (a captured NCCL all-reduce is ROADMAP Queue 1
+item 15 part D) and the eager :func:`decode_tokens` serves.
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ from ..ops import fused_attn, megakernel, paged_attn, quant
 from ..ops import masks as mask_ops
 from ..ops import rope as rope_ops
 from ..ops import sampling
+from ..parallel import tensor as tp
 
 PyTree = Any
 INT32_MAX = 2 ** 31 - 1
@@ -191,12 +202,15 @@ class StepInputs:
     time_budget: torch.Tensor     # [B]
     text_budget: torch.Tensor     # [B]
     seed: torch.Tensor            # 0-dim int64
+    row0: torch.Tensor            # 0-dim int64, the batch's first global row
 
 
 def step_inputs(cfg: VoiceConfig, x_lens, prompt_lens, target_totals,
                 seed: Union[int, torch.Tensor]) -> StepInputs:
-    """A request's StepInputs: its budgets (:func:`decode_budgets`) and
-    its seed as a device tensor."""
+    """A request's StepInputs: its budgets (:func:`decode_budgets`), its
+    seed and its first global row (this data-parallel rank's,
+    ``tp.first_row``; 0 outside a mesh) as device tensors."""
+    row0 = tp.first_row(x_lens.shape[0])
     x_lens = x_lens.to(torch.int32)
     est_total, time_budget, text_budget = decode_budgets(
         cfg, x_lens, prompt_lens, target_totals)
@@ -204,7 +218,8 @@ def step_inputs(cfg: VoiceConfig, x_lens, prompt_lens, target_totals,
         x_lens=x_lens, prompt_offset=(prompt_lens + 1).to(torch.int32),
         est_total=est_total, time_budget=time_budget,
         text_budget=text_budget,
-        seed=sampling.as_int64(seed, x_lens.device))
+        seed=sampling.as_int64(seed, x_lens.device),
+        row0=sampling.as_int64(row0, x_lens.device))
 
 
 def _adjust_logits(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
@@ -251,6 +266,7 @@ def prefill(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens,
     t_max = p_max + 1 + max_steps
     cdt = voice.compute_dtype(cfg)
 
+    cache_dims = tp.local_dims(params["decoder"]["layers"], dims)[0]
     memory, enc_pos = voice.encode_text(params, cfg, x, x_lens)
     pm_enc = enc_pos if cfg.use_pm_rope else None
     cross_k, cross_v = t5gemma.build_cross_kv(params["decoder"], dims, memory,
@@ -267,7 +283,8 @@ def prefill(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens,
         prefill_pos = base / denom * cfg.progress_scale
     else:
         prefill_pos = base.expand(b, p_max + 1)
-    embedded = voice.embed_audio(params, cated).to(cdt)
+    embedded = voice.embed_audio(params, cated,
+                                 cfg.audio_embedding_vocab).to(cdt)
 
     kv_mode = resolve_kv_mode(cfg, dcfg, p_max + 1, max_steps, dev)
     t_keys = t_max if kv_mode == "dense" else p_max + 1
@@ -283,8 +300,8 @@ def prefill(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens,
     pm_dec = prefill_pos if cfg.use_pm_rope else None
 
     if kv_mode == "dense":
-        cache = t5gemma.init_cache(dims, b, t_max, x.shape[1], dtype=cdt,
-                                   device=dev)
+        cache = t5gemma.init_cache(cache_dims, b, t_max, x.shape[1],
+                                   dtype=cdt, device=dev)
         hidden, cache = t5gemma.decoder_forward(
             params["decoder"], dims, inputs_embeds=embedded,
             self_full_bias=full_bias, self_sliding_bias=sliding_bias,
@@ -294,7 +311,7 @@ def prefill(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens,
     else:
         store = paged_attn.KV_STORE_DTYPES[
             {"paged_f8": "f8", "paged_i8": "i8"}.get(kv_mode, "bf16")]
-        cache = t5gemma.init_paged_cache(dims, b, p_max + 1, max_steps,
+        cache = t5gemma.init_paged_cache(cache_dims, b, p_max + 1, max_steps,
                                          x.shape[1], store_dtype=store,
                                          device=dev)
         hidden, cache = t5gemma.paged_prefill(
@@ -325,12 +342,12 @@ def prefill(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig, x, x_lens,
 
 
 def _candidate_sample(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
-                      prev_token, consec_silence, seed, silence):
+                      prev_token, consec_silence, seed, silence, row0=0):
     """Top-(k+2) candidate path: every adjustment lowers at most two tokens
     (EOG + the repeated silence token), so the adjusted top-k lies inside
     the raw top-(k+2) candidates. ``step`` and ``seed`` are 0-dim (one
-    clock, row r drawing row r of ``step_uniform``) or [B] (per-row clocks
-    and seeds, row r drawing ``row_uniform``'s row r)."""
+    clock, row r drawing row ``row0 + r`` of ``step_uniform``) or [B]
+    (per-row clocks and seeds, row r drawing ``row_uniform``'s row r)."""
     eog = cfg.eog_inference
     kk = min(dcfg.top_k + 2, cfg.audio_embedding_vocab)
     vals, idx = torch.topk(logits, kk, dim=-1)
@@ -354,7 +371,7 @@ def _candidate_sample(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
         uniforms = sampling.row_uniform(seed, step, kk)
     else:
         uniforms = sampling.step_uniform(seed, step, *vals.shape,
-                                         logits.device)
+                                         logits.device, row0)
     token = sampling.sample_from_candidates(
         uniforms, vals, idx, top_k=dcfg.top_k, top_p=dcfg.top_p,
         temperature=dcfg.temperature)
@@ -363,19 +380,19 @@ def _candidate_sample(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
 
 def sample_step_token(cfg: VoiceConfig, dcfg: DecodeConfig, logits, step,
                       prev_token, consec_silence, seed,
-                      silence: Optional[torch.Tensor] = None):
+                      silence: Optional[torch.Tensor] = None, row0=0):
     """One step's guarded sampling -> (token [B], argmax_tok [B]), drawn
-    from ``sampling.step_uniform(seed, step, ...)``. ``step`` and ``seed``
-    are ints or 0-dim device tensors; ``silence`` comes from
-    :func:`silence_tensor`."""
+    from ``sampling.step_uniform(seed, step, ..., row0)``. ``step``, ``seed``
+    and ``row0`` (the batch's first global row) are ints or 0-dim device
+    tensors; ``silence`` comes from :func:`silence_tensor`."""
     step = sampling.as_int64(step, logits.device)
     if dcfg.top_k and dcfg.top_k > 0 and not (0.0 < dcfg.min_p < 1.0):
         return _candidate_sample(cfg, dcfg, logits, step, prev_token,
-                                 consec_silence, seed, silence)
+                                 consec_silence, seed, silence, row0)
     adjusted = _adjust_logits(cfg, dcfg, logits.float(), step, prev_token,
                               consec_silence, silence)
     uniforms = sampling.step_uniform(seed, step, *adjusted.shape,
-                                     logits.device)
+                                     logits.device, row0)
     token = sampling.sample(adjusted, uniforms, top_k=dcfg.top_k,
                             top_p=dcfg.top_p, min_p=dcfg.min_p,
                             temperature=dcfg.temperature)
@@ -426,7 +443,7 @@ def _make_body(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig,
         logits = voice.predict_head(params["head"], st.last_hidden)[:, 0]
         token, argmax_tok = sample_step_token(
             cfg, dcfg, logits, step, st.prev_token, st.consec_silence,
-            inp.seed, silence)
+            inp.seed, silence, inp.row0)
         token = apply_stop_rules(cfg, token, argmax_tok, step,
                                  inp.text_budget, inp.time_budget, max_steps)
 
@@ -441,7 +458,8 @@ def _make_body(params: PyTree, cfg: VoiceConfig, dcfg: DecodeConfig,
         consec = silence_counter_update(silence, token, st.prev_token,
                                         st.consec_silence)
 
-        emb = voice.embed_audio(params, token[:, None]).to(cdt)
+        emb = voice.embed_audio(params, token[:, None],
+                                cfg.audio_embedding_vocab).to(cdt)
         if cfg.use_pm_rope:
             pos = rope_ops.decode_step_position(
                 st.current_length, inp.est_total,
@@ -561,8 +579,8 @@ def _counted_wrappers():
     return (fused_attn.batch_paged_attention,
             fused_attn.fused_decode_attention, paged_attn.paged_flash_parts,
             megakernel.decode_layer, megakernel.decode_stack,
-            quant.quantize_act, quant.w8a8_matmul, quant.w4a8_matmul,
-            quant.w8a16_matmul)
+            megakernel.decode_layer_part, quant.quantize_act,
+            quant.w8a8_matmul, quant.w4a8_matmul, quant.w8a16_matmul)
 
 
 def _tensors(obj):
@@ -853,6 +871,7 @@ def _prefilled_session(params, cfg: VoiceConfig, dcfg: DecodeConfig, x,
     with ``stream`` the prefilled state is a segment stream's, registered
     and returned to the caller as its own. Returns (session, state). The
     caller holds SESSION_LOCK."""
+    tp.refuse("the graphed decode loop (a captured NCCL all-reduce)")
     state = prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
                     target_totals)
     inp = step_inputs(cfg, x_lens, prompt_lens, target_totals, seed)

@@ -47,6 +47,7 @@ from ..config import DecodeConfig, VoiceConfig
 from ..models import t5gemma, voice
 from ..ops import masks as mask_ops
 from ..ops import rope as rope_ops
+from ..parallel import tensor as tp
 from . import engine
 
 PyTree = Any
@@ -148,7 +149,10 @@ def decode_tokens_speculative(params: PyTree, cfg: VoiceConfig,
                               prompt_lens, target_totals, seed: int,
                               draft_fn: DraftFn, k: int) -> SpecOutputs:
     """Speculative counterpart of ``engine.decode_tokens`` (same inputs; the
-    token stream is the sequential engine's, see the module notes)."""
+    token stream is the sequential engine's, see the module notes). Over a
+    mesh it serves data parallelism; at ``tp > 1`` it raises (ROADMAP
+    Queue 1 item 15 part D)."""
+    tp.refuse("speculative decoding")
     dev = x.device
     kv_mode = engine.resolve_kv_mode(cfg, dcfg, prompt.shape[1] + 1,
                                      dcfg.max_frames + k, dev)

@@ -31,6 +31,15 @@ loop.
 
 Unlike the JAX package, the caches are updated in place (the step writes
 one token per layer into preallocated buffers instead of returning copies).
+
+Tensor parallelism (``parallel/tensor.py``): every layer loop takes its
+head counts and widths from the leaves, so a rank's shard runs its own
+heads and columns, and reduces over the model group after self o, cross o
+and down (``tp.row_product``: bf16 / f32 partials summed in f32 and cast
+once, W8A8 / W4A8 blocks with the group's scales and int32 sums); its
+caches are sized with its kv heads (``tp.local_dims``). Modes 0 and 1,
+float8 pages and the verify pass raise at ``tp > 1`` (ROADMAP Queue 1
+item 15 part D).
 """
 
 from __future__ import annotations
@@ -76,18 +85,23 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
         dims: Optional[ModuleDims] = None) -> torch.Tensor:
     """GeGLU: act(x @ gate) * (x @ up) @ down (one gate_up matmul when the
     params are fused for decode). Under tensor parallelism (``dims`` given,
-    ``parallel/tensor.py``) gate/up hold a column block and down the
-    matching row block: the output is summed over the model group."""
+    ``parallel/tensor.py``) gate/up (or gate_up) hold a column block and
+    down the matching row block: the output is summed over the model
+    group."""
+    split = dims is not None and tp.mlp_split(p, dims)
+    if split:
+        x = tp.copy_to_model(x)
     if "gate_up" in p:
         g, u = _mm(x, p["gate_up"]).chunk(2, dim=-1)
         h = gelu_tanh(g) * u
-        return _mm(h, p["down"])
-    split = dims is not None and tp.splits(p["up"], dims.intermediate_size)
-    if split:
-        x = tp.copy_to_model(x)
-    h = gelu_tanh(_mm(x, p["gate"])) * _mm(x, p["up"])
-    out = _mm(h, p["down"])
-    return tp.reduce_from_model(out) if split else out
+    else:
+        h = gelu_tanh(_mm(x, p["gate"])) * _mm(x, p["up"])
+    return _out_proj(h, p["down"], split)
+
+
+def _out_proj(x: torch.Tensor, w, split: bool) -> torch.Tensor:
+    """``x @ w``; a row-split ``w`` summed over the model group."""
+    return tp.row_product(x, w) if split else _mm(x, w)
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
@@ -122,7 +136,9 @@ def gqa_attention(q, k, v, bias, scale: float, softcap: Optional[float]):
 
 
 def _qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor, dims: ModuleDims):
-    """q/k/v projections; one fused matmul when the params carry "qkv"."""
+    """q/k/v projections; one fused matmul when the params carry "qkv". The
+    head counts are the leaves' (a tensor-parallel rank's own heads)."""
+    dims = tp.attention_dims(p, dims)[0]
     if "qkv" in p:
         qh = dims.num_heads * dims.head_dim
         kh = dims.num_kv_heads * dims.head_dim
@@ -148,8 +164,7 @@ def self_attention(p, x, cos, sin, bias, dims: ModuleDims) -> torch.Tensor:
     q = rope_ops.apply_rope(q, cos, sin)
     k = rope_ops.apply_rope(k, cos, sin)
     out = gqa_attention(q, k, v, bias, dims.q_scale, dims.attn_logit_softcap)
-    out = _mm(_merge_heads(out), p["o"])
-    return tp.reduce_from_model(out) if split else out
+    return _out_proj(_merge_heads(out), p["o"], split)
 
 
 def cross_attention(p, x, kv_cache, bias, dims: ModuleDims,
@@ -165,8 +180,7 @@ def cross_attention(p, x, kv_cache, bias, dims: ModuleDims,
     k, v = kv_cache
     out = gqa_attention(q, k.to(x.dtype), v.to(x.dtype), bias, dims.q_scale,
                         dims.attn_logit_softcap)
-    out = _mm(_merge_heads(out), p["o"])
-    return tp.reduce_from_model(out) if split else out
+    return _out_proj(_merge_heads(out), p["o"], split)
 
 
 def cross_kv(p, memory, dims: ModuleDims, k_cos=None, k_sin=None):
@@ -302,6 +316,8 @@ class DecoderCache:
 
 def init_cache(dims: ModuleDims, batch: int, max_len: int, enc_len: int,
                dtype=torch.bfloat16, device=None) -> DecoderCache:
+    """A zero dense cache of ``dims.num_kv_heads`` heads (a tensor-parallel
+    rank's own: ``tp.local_dims``)."""
     shape_self = (dims.num_layers, batch, dims.num_kv_heads, max_len,
                   dims.head_dim)
     shape_cross = (dims.num_layers, batch, dims.num_kv_heads, enc_len,
@@ -383,6 +399,7 @@ def decoder_forward(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     rows = torch.arange(h.shape[0], device=h.device)[:, None]
     if cache_pos is not None:
         slots = cache_pos[:, None] + torch.arange(h.shape[1], device=h.device)
+    split = tp.attention_dims(params["layers"]["self_attn"], dims)[1]
     for li, sliding in enumerate(dims.sliding_flags):
         lp = layer_params(params["layers"], li)
         bias = self_sliding_bias if sliding else self_full_bias
@@ -401,7 +418,7 @@ def decoder_forward(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         k, v = ck.to(h.dtype), cv.to(h.dtype)
         out = gqa_attention(q, k, v, bias, dims.q_scale,
                             dims.attn_logit_softcap)
-        a = _mm(_merge_heads(out), lp["self_attn"]["o"])
+        a = _out_proj(_merge_heads(out), lp["self_attn"]["o"], split)
         h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
         h = _cross_and_mlp(h, lp, cross_k[li], cross_v[li], cross_bias, dims,
                            q_cos, q_sin)
@@ -459,7 +476,11 @@ def init_paged_cache(dims: ModuleDims, batch: int, prompt_len: int,
                      gen_len: int, enc_len: int, *,
                      store_dtype=torch.bfloat16,
                      device=None) -> PagedDecoderCache:
-    """Allocate the paged cache (region lengths padded to page multiples)."""
+    """Allocate the paged cache (region lengths padded to page multiples)
+    with ``dims.num_kv_heads`` heads (a tensor-parallel rank's own:
+    ``tp.local_dims``)."""
+    if store_dtype == torch.float8_e4m3fn:
+        tp.refuse("the float8 paged cache")
     total = _pad_to(prompt_len, PAGE_SIZE) + _pad_to(gen_len, PAGE_SIZE)
     if total > dims.sliding_window:
         raise ValueError(
@@ -538,6 +559,7 @@ def paged_prefill(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
                                           dims)
     eps = dims.rms_norm_eps
+    split = tp.attention_dims(params["layers"]["self_attn"], dims)[1]
     for li, sliding in enumerate(dims.sliding_flags):
         lp = layer_params(params["layers"], li)
         bias = self_sliding_bias if sliding else self_full_bias
@@ -549,7 +571,7 @@ def paged_prefill(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         _write_region(cache.prompt_v, v, li, cache.prompt_v_scale)
         out = gqa_attention(q, k, v, bias, dims.q_scale,
                             dims.attn_logit_softcap)
-        a = _mm(_merge_heads(out), lp["self_attn"]["o"])
+        a = _out_proj(_merge_heads(out), lp["self_attn"]["o"], split)
         h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
         h = _cross_and_mlp(h, lp, cross_k[li], cross_v[li], cross_bias, dims,
                            q_cos, q_sin)
@@ -637,6 +659,8 @@ def _fused_attn_mode(cache: PagedDecoderCache) -> int:
         raise ValueError(f"T5G_FUSED_ATTN must be 0, 1, 2 or 3, got {mode}")
     if cache.gen_k.dtype == torch.int8 and mode != 3:
         return 2
+    if mode in (0, 1):
+        tp.refuse(f"T5G_FUSED_ATTN={mode} (kernels 5 and 7)")
     return mode
 
 
@@ -694,12 +718,17 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         gen_lengths = gen_lengths.to(torch.int32)
     mode = _fused_attn_mode(cache)
     if mode == 3:
-        if megakernel.supports(params["layers"], dims, cache):
+        ldims, attn_split, mlp_split = tp.local_dims(params["layers"], dims)
+        rank_dims = ldims if attn_split or mlp_split else None
+        if megakernel.supports(params["layers"], dims, cache, rank_dims):
             return _decode_step_stacked(params, dims, h, cos, sin, q_cos,
                                         q_sin, cache, prompt_lengths,
-                                        gen_lengths, enc_lengths)
+                                        gen_lengths, enc_lengths, rank_dims)
         mode = 2
 
+    layers = params["layers"]
+    self_split = tp.attention_dims(layers["self_attn"], dims)[1]
+    cdims, cross_split = tp.attention_dims(layers["cross_attn"], dims)
     prompt_kp, prompt_vp, gen_kp, gen_vp, cross_kp, cross_vp = _page_views(
         cache)
     prompt_s = (_scale_pages_view(cache.prompt_k_scale),
@@ -739,11 +768,12 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
                          (gen_kp, gen_vp, gen_lengths, g_idx))]
             attn = paged_attn.merge_attention_parts(parts, qv, k_cur, v_cur,
                                                     cap, torch.float32)
-        a = _mm(attn.to(h.dtype).reshape(b, 1, -1), lp["self_attn"]["o"])
+        a = _out_proj(attn.to(h.dtype).reshape(b, 1, -1),
+                      lp["self_attn"]["o"], self_split)
         h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
 
         hn = rms_norm(h, lp["pre_cross_attn_norm"], eps)
-        cq = _split_heads(_mm(hn, lp["cross_attn"]["q"]), dims.num_heads,
+        cq = _split_heads(_mm(hn, lp["cross_attn"]["q"]), cdims.num_heads,
                           dims.head_dim)
         if q_cos is not None:
             cq = rope_ops.apply_rope(cq, q_cos, q_sin)
@@ -757,10 +787,11 @@ def paged_decode_step(params: PyTree, dims: ModuleDims, *, inputs_embeds,
             cattn = paged_attn.paged_gqa_attention(
                 cqv, cross_kp, cross_vp, enc_lengths,
                 page_indices=tables["cross"][li], attn_logits_soft_cap=cap)
-        a = _mm(cattn.to(h.dtype).reshape(b, 1, -1), lp["cross_attn"]["o"])
+        a = _out_proj(cattn.to(h.dtype).reshape(b, 1, -1),
+                      lp["cross_attn"]["o"], cross_split)
         h = h + rms_norm(a, lp["post_cross_attn_norm"], eps)
 
-        m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
+        m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps), dims)
         h = h + rms_norm(m, lp["post_ff_norm"], eps)
         k_new.append(k[:, :, 0])
         v_new.append(v[:, :, 0])
@@ -807,6 +838,7 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
 
     Returns (hidden [B, S, D], cache, chain_k, chain_v) with chain_k/v
     [L, B, S, Hkv, hd] bf16, the next pass's pending block."""
+    tp.refuse("the speculative verify pass (paged_decode_multi)")
     b, s_len, _ = inputs_embeds.shape
     h = _embed_scale(inputs_embeds, dims)
     cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
@@ -901,9 +933,12 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
 
 
 def _decode_step_stacked(params, dims, h, cos, sin, q_cos, q_sin, cache,
-                         prompt_lengths, gen_lengths, enc_lengths):
+                         prompt_lengths, gen_lengths, enc_lengths,
+                         rank_dims=None):
     """The step's layers as one ``megakernel.decode_stack`` call (the JAX
-    package's mode 3, stacked)."""
+    package's mode 3, stacked); a tensor-parallel rank's block (its widths
+    ``rank_dims``) through ``tp.decode_stack``, the model group reducing
+    between its parts."""
     cos1, sin1 = cos[:, 0], sin[:, 0]
     if q_cos is not None:
         qc1, qs1 = q_cos[:, 0], q_sin[:, 0]
@@ -914,12 +949,17 @@ def _decode_step_stacked(params, dims, h, cos, sin, q_cos, q_sin, cache,
         kv_scales = (cache.prompt_k_scale, cache.prompt_v_scale,
                      cache.gen_k_scale, cache.gen_v_scale,
                      cache.cross_k_scale, cache.cross_v_scale)
-    h3, k_new, v_new = megakernel.decode_stack(
-        params["layers"], dims, h=h[:, 0].float(), cos=cos1, sin=sin1,
-        qcos=qc1, qsin=qs1, plens=prompt_lengths, glens=gen_lengths,
-        elens=enc_lengths, prompt_k=cache.prompt_k, prompt_v=cache.prompt_v,
-        gen_k=cache.gen_k, gen_v=cache.gen_v, cross_k=cache.cross_k,
-        cross_v=cache.cross_v, kv_scales=kv_scales)
+    args = dict(h=h[:, 0].float(), cos=cos1, sin=sin1, qcos=qc1, qsin=qs1,
+                plens=prompt_lengths, glens=gen_lengths, elens=enc_lengths,
+                prompt_k=cache.prompt_k, prompt_v=cache.prompt_v,
+                gen_k=cache.gen_k, gen_v=cache.gen_v, cross_k=cache.cross_k,
+                cross_v=cache.cross_v, kv_scales=kv_scales)
+    if rank_dims is None:
+        h3, k_new, v_new = megakernel.decode_stack(params["layers"], dims,
+                                                   **args)
+    else:
+        h3, k_new, v_new = tp.decode_stack(params["layers"], dims, rank_dims,
+                                           **args)
     h3 = rms_norm(h3, params["final_norm"], dims.rms_norm_eps)
     cache.pending_k.copy_(k_new)
     cache.pending_v.copy_(v_new)

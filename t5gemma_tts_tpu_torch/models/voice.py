@@ -86,15 +86,16 @@ def predict_head(head: Dict[str, torch.Tensor],
     ``w2`` may be W8A8 ``QuantWeight`` leaves, ``w2`` an ``Int4Weight``.
     Under tensor parallelism ``w1`` / ``b1`` hold a column block and ``w2``
     the matching row block: the logits are summed over the model group
-    before ``b2``."""
-    split = tp.splits(head["w1"], hidden.shape[-1])
+    before ``b2`` (``tp.row_product``: a quantized ``w2`` with the group's
+    activation scales and int32 sums)."""
+    split = tp.is_block(tp.out_width(head["w1"]), hidden.shape[-1],
+                        "the head's w1")
     if split:
         hidden = tp.copy_to_model(hidden)
     h = F.gelu(q_matmul(hidden, head["w1"]) + head["b1"])
-    out = q_matmul(h, head["w2"])
     if split:
-        out = tp.reduce_from_model(out)
-    return out + head["b2"]
+        return tp.row_product(h, head["w2"]) + head["b2"]
+    return q_matmul(h, head["w2"]) + head["b2"]
 
 
 def embed_audio(params: PyTree, tokens: torch.Tensor,

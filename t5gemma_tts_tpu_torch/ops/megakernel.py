@@ -52,18 +52,33 @@ dotted with the bf16-rounded q, position i raw with the raw q.
 
 The TPU kernel's 32-row batch padding, its int8-KV ``batch % 8`` gate and
 its tiled weight layouts have no counterpart here.
+
+Tensor parallelism: a rank's layers (its heads, its F columns) run as
+seven parts a layer (:class:`TpLayers`, ``t5g_decode_layer_part``; plain
+twin :func:`decode_layer_part_plain`), split where the one-process layer
+sums over heads or over F, and the model group reduces between them: the
+attention rows' absmax (MAX) before the o / cross-o quantization, the o /
+cross-o int32 sums (SUM), the GeGLU tiles' absmax (MAX; a tile may span
+ranks) and down's per-tile int32 sums (SUM), whose f32 sum then runs in
+the one-process tile order. So a rank's arithmetic is the one-process
+layer's; on the card only the attention's split plan, made for the rank's
+kv heads, orders its f32 partial sums differently. The caller runs a
+rank's block through :func:`decode_stack_tp` with its rank's widths and the
+group's reductions (``group_max`` / ``group_sum``); this module knows no
+mesh. :func:`decode_stack` stays the one call of the whole model, and
+refuses a rank's block.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from .fused_attn import MASK_VALUE, _check, quantize_kv, split_plan
-from .quant import (Int4Weight, QuantWeight, int4_levels, int_matmul_exact,
-                    quantize_act_plain)
+from .quant import (Int4Weight, QuantWeight, absmax_scale, int4_levels,
+                    int_matmul_exact, quantize_act_amax, quantize_act_plain)
 
 WTILE = 512      # GeGLU tile width (the TPU kernel's weight tile)
 TBLOCK = 128     # attention time block (= the cache's page size)
@@ -91,12 +106,16 @@ def widths_fit(d: int, ho: int, f: int) -> bool:
     return all(w % 16 == 0 for w in (d, ho, f)) and ftile_of(f) <= WTILE
 
 
-def supports(params_layers: Dict[str, Any], dims, cache) -> bool:
+def supports(params_layers: Dict[str, Any], dims, cache,
+             rank_dims=None) -> bool:
     """Whether the decode-layer path applies: fused W8A8 weights of every
     projection, or int4 weights of every projection (mixed int4 and int8
     is refused), bf16 pages or int8 pages with scale planes, widths the
     kernels take (:func:`widths_fit`) and a head_dim that is a multiple of
-    8 up to 256."""
+    8 up to 256. ``dims`` are the whole model's, on a tensor-parallel rank
+    too; ``rank_dims``, a rank's heads and F when the leaves are its block:
+    a block whose split the parts cannot run (:class:`TpLayers`) raises
+    instead of leaving the path."""
     ws = _weights(params_layers)
     w8 = all(isinstance(w, QuantWeight) and w.act_bits == 8
              and w.values.ndim == 3 for w in ws)
@@ -108,9 +127,13 @@ def supports(params_layers: Dict[str, Any], dims, cache) -> bool:
             or (pages == torch.int8 and cache.gen_k_scale is not None)):
         return False
     hd = dims.head_dim
-    return (widths_fit(dims.hidden_size, dims.num_heads * hd,
+    if not (widths_fit(dims.hidden_size, dims.num_heads * hd,
                        dims.intermediate_size)
-            and hd % 8 == 0 and hd <= 256)
+            and hd % 8 == 0 and hd <= 256):
+        return False
+    if rank_dims is not None:
+        _check_rank(params_layers, rank_dims)
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +375,7 @@ def decode_stack(params_layers, dims, *, h, cos, sin, qcos, qsin, plens,
                 glens=glens, elens=elens, prompt_k=prompt_k,
                 prompt_v=prompt_v, gen_k=gen_k, gen_v=gen_v, cross_k=cross_k,
                 cross_v=cross_v, kv_scales=kv_scales, chain=chain)
+    _check_whole(params_layers, dims)
     if h.device.type == "cpu":
         return decode_stack_plain(params_layers, dims, **args)
     if h.device.type != "cuda":
@@ -362,6 +386,250 @@ def decode_stack(params_layers, dims, *, h, cos, sin, qcos, qsin, plens,
 
 
 decode_stack.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# a tensor-parallel rank's layers, in parts
+# ---------------------------------------------------------------------------
+
+PARTS = 7
+# after each part: the buffer the group reduces, and how ("amax": the row
+# or tile absmax, MAX; "isum": the int32 sums, SUM), and whether it is the
+# attention's (a split of the heads) or the MLP's (a split of F)
+PART_REDUCE = {0: ("amax", "attn"), 1: ("isum", "attn"), 2: ("amax", "attn"),
+               3: ("isum", "attn"), 4: ("amax", "mlp"), 5: ("isum", "mlp")}
+
+
+def _in_width(w) -> int:
+    """K of a quantized [L, N, K] leaf (int4: two levels a byte)."""
+    return 2 * w.packed.shape[-1] if isinstance(w, Int4Weight) \
+        else w.values.shape[-1]
+
+
+def _check_whole(params_layers, dims) -> None:
+    """Raise where the leaves are a tensor-parallel rank's block."""
+    _, o, _, _, _, down = _weights(params_layers)
+    if (_in_width(o) != dims.num_heads * dims.head_dim
+            or _in_width(down) != dims.intermediate_size):
+        raise ValueError(
+            "decode_stack: the leaves are a tensor-parallel shard's, which "
+            "runs only inside parallel.tensor.model_parallel(mesh), through "
+            "decode_stack_tp")
+
+
+def _check_rank(params_layers, rank_dims) -> None:
+    """Raise where the parts cannot run a rank's block."""
+    hd, f = rank_dims.head_dim, rank_dims.intermediate_size
+    if f % 16 or (rank_dims.num_heads * hd) % 16:
+        raise ValueError(
+            f"tensor-parallel decode layers need a rank's F ({f}) and heads "
+            f"x head_dim ({rank_dims.num_heads * hd}) to be multiples of 16")
+    if isinstance(params_layers["mlp"]["down"], Int4Weight) and f % 32:
+        raise ValueError(f"int4 down weights split along F in whole 32-level "
+                         f"rows: a rank's F is {f}")
+
+
+class TpLayers:
+    """A tensor-parallel rank's decoder layers as :data:`PARTS` parts a
+    layer (csrc/decode_layer.cu, ``run_part``), with the buffers the model
+    group reduces between parts (:meth:`reduce_view`). ``dims``: the whole
+    model's; ``ldims``: the rank's heads and F (its leaves' widths), its
+    first column of F is ``k0``. On a CPU tensor each part runs its plain
+    version (:func:`decode_layer_part_plain`), on a CUDA tensor its
+    kernels."""
+
+    def __init__(self, params_layers, dims, ldims, *, h, cos, sin, qcos,
+                 qsin, plens, glens, elens, prompt_k, prompt_v, gen_k, gen_v,
+                 cross_k, cross_v, kv_scales=None, k0: int = 0):
+        _check_rank(params_layers, ldims)
+        self.attn_split = ldims.num_heads != dims.num_heads
+        self.mlp_split = ldims.intermediate_size != dims.intermediate_size
+        self.params, self.dims, self.ldims = params_layers, dims, ldims
+        self.tile = ftile_of(dims.intermediate_size)
+        self.nt = dims.intermediate_size // self.tile
+        self.k0 = k0
+        b, d = h.shape
+        dev = h.device
+        ho = ldims.num_heads * ldims.head_dim
+        self.args = dict(cos=cos, sin=sin, qcos=qcos, qsin=qsin, plens=plens,
+                         glens=glens, elens=elens, prompt_k=prompt_k,
+                         prompt_v=prompt_v, gen_k=gen_k, gen_v=gen_v,
+                         cross_k=cross_k, cross_v=cross_v,
+                         kv_scales=kv_scales)
+        nt = max(1, self.nt)
+        self.amax = torch.zeros((b * nt,), dtype=torch.float32, device=dev)
+        self.isum = torch.zeros((b * nt * d,), dtype=torch.int32, device=dev)
+        self.attn = torch.empty((b, ho), dtype=torch.float32, device=dev)
+        self.gbuf = torch.empty((b, ldims.intermediate_size),
+                                dtype=torch.float32, device=dev)
+        self.b, self.d = b, d
+        if dev.type == "cpu":
+            self.h = h.float().clone()
+            self.st = {}
+            shape = (dims.num_layers, b, ldims.num_kv_heads, ldims.head_dim)
+            self.k_new = torch.empty(shape, dtype=torch.float32)
+            self.v_new = torch.empty_like(self.k_new)
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"decode_layer_part: no kernel for {dev}")
+        (self.a, self.h, self.k_new, self.v_new,
+         self._keep) = _decode_args(
+            params_layers, ldims, h=h, chain=1, layers_out=dims.num_layers,
+            ftile=self.tile, tiles=nt, **self.args)
+        self.t = _PartArgs(attn=self.attn.data_ptr(),
+                           amax=self.amax.data_ptr(),
+                           isum=self.isum.data_ptr(),
+                           gbuf=self.gbuf.data_ptr(), k0=k0, tile=self.tile,
+                           NT=nt)
+
+    def run(self, li: int, part: int) -> None:
+        """Part ``part`` of layer ``li``."""
+        if self.h.device.type == "cpu":
+            decode_layer_part_plain(self, li, part)
+            return
+        decode_layer_part(self, li, part)
+
+    def reduce_view(self, part: int):
+        """(the buffer the group reduces after ``part``, "max" or "sum"), or
+        None where the part's sum is this rank's alone."""
+        if part not in PART_REDUCE:
+            return None
+        what, owner = PART_REDUCE[part]
+        if not (self.attn_split if owner == "attn" else self.mlp_split):
+            return None
+        rows = self.b * (self.nt if part == 4 or part == 5 else 1)
+        if what == "amax":
+            return self.amax[:rows], "max"
+        return self.isum[:rows * self.d], "sum"
+
+    def outputs(self):
+        """(h [B, D], k_new [L, B, Hkv, hd], v_new), f32."""
+        return self.h, self.k_new, self.v_new
+
+
+def decode_layer_part(layers: TpLayers, li: int, part: int) -> None:
+    """Part ``part`` of layer ``li`` of a tensor-parallel rank on the card:
+    one call into the CUDA library (``t5g_decode_layer_part``)."""
+    dev = layers.h.device
+    with torch.cuda.device(dev):
+        err = _bind("t5g_decode_layer_part")(
+            ctypes.byref(layers.a), ctypes.byref(layers.t), int(li),
+            int(part), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode layer part {part} failed: CUDA error "
+                           f"{err}")
+    decode_layer_part.launches += 1
+
+
+decode_layer_part.launches = 0
+
+
+def decode_layer_part_plain(layers: TpLayers, li: int, part: int) -> None:
+    """The plain version of ``run_part`` (csrc/decode_layer.cu): the steps
+    of :func:`decode_layer_plain` split at the points where the one-process
+    layer sums over heads or over F, over the same buffers as the card's
+    parts. At tp 1 the seven parts give decode_layer_plain's bits."""
+    p, dims, ld = layers.params, layers.dims, layers.ldims
+    args, st = layers.args, layers.st
+    eps, hd = dims.rms_norm_eps, dims.head_dim
+    b, d = layers.b, layers.d
+    n_heads, hkv = ld.num_heads, ld.num_kv_heads
+    ho, nkv, f = n_heads * hd, hkv * hd, ld.intermediate_size
+    cap = dims.attn_logit_softcap
+    n0, n1, n2, n3, n4, n5 = (p[n][li].float() for n in _NORMS)
+    w_qkv, w_o, w_cq, w_co, w_gu, w_dn = _weights(p)
+    sc = args["kv_scales"] or (None,) * 6
+    h = layers.h
+    tile, nt, k0 = layers.tile, max(1, layers.nt), layers.k0
+
+    def rescale(w, tiles):
+        acc = torch.zeros((b, d))
+        isum = layers.isum[:b * tiles * d].view(b, tiles, d)
+        for j in range(tiles):
+            acc = acc + isum[:, j].float() * st["sx"][:, j:j + 1]
+        return acc * w.scale[li]
+
+    def attention_rows(out):
+        layers.attn.copy_(out)
+        layers.amax[:b] = out.abs().amax(dim=-1)
+
+    def tiles_of_f():
+        """(global tile j, local column slice) of each touched tile."""
+        j0, j1 = k0 // tile, (k0 + f - 1) // tile
+        return [(j, slice(max(j * tile - k0, 0), min((j + 1) * tile - k0, f)))
+                for j in range(j0, j1 + 1)]
+
+    if part == 0:
+        x8, sx = quantize_act_plain(_rms(h, n0, eps))
+        qkv = _w8a8(x8, sx, w_qkv, li)
+        q = _rope(qkv[:, :ho].reshape(b, n_heads, hd), args["cos"],
+                  args["sin"]) * dims.q_scale
+        k_new = _rope(qkv[:, ho:ho + nkv].reshape(b, hkv, hd), args["cos"],
+                      args["sin"])
+        v_new = qkv[:, ho + nkv:ho + 2 * nkv].reshape(b, hkv, hd)
+        layers.k_new[li], layers.v_new[li] = k_new, v_new
+        attention_rows(slab_attention_plain(
+            q, [((args["prompt_k"], args["prompt_v"]), _pair(sc[0], sc[1]),
+                 args["plens"]),
+                ((args["gen_k"], args["gen_v"]), _pair(sc[2], sc[3]),
+                 args["glens"])],
+            cap, li, k_new, v_new))
+    elif part in (1, 3):
+        x8, st["sx"] = quantize_act_amax(layers.attn, layers.amax[:b])
+        layers.isum[:b * d] = int_matmul_exact(
+            x8, _levels(w_o if part == 1 else w_co, li)).reshape(-1)
+    elif part == 2:
+        h += _rms(rescale(w_o, 1), n1, eps)
+        x8, sx = quantize_act_plain(_rms(h, n2, eps))
+        cq = _rope(_w8a8(x8, sx, w_cq, li).reshape(b, n_heads, hd),
+                   args["qcos"], args["qsin"])
+        attention_rows(slab_attention_plain(
+            cq * dims.q_scale,
+            [((args["cross_k"], args["cross_v"]), _pair(sc[4], sc[5]),
+              args["elens"].clamp_min(1))], cap, li))
+    elif part == 4:
+        h += _rms(rescale(w_co, 1), n3, eps)
+        x8, sx = quantize_act_plain(_rms(h, n4, eps))
+        gu = _w8a8(x8, sx, w_gu, li)
+        layers.gbuf.copy_(gelu_tanh(gu[:, :f]) * gu[:, f:])
+        amax = layers.amax[:b * nt].view(b, nt)
+        amax.zero_()
+        for j, cols in tiles_of_f():
+            amax[:, j] = layers.gbuf[:, cols].abs().amax(dim=-1)
+    elif part == 5:
+        amax = layers.amax[:b * nt].view(b, nt)
+        st["sx"] = absmax_scale(amax)
+        isum = layers.isum[:b * nt * d].view(b, nt, d)
+        isum.zero_()
+        dn = _levels(w_dn, li)
+        for j, cols in tiles_of_f():
+            t8 = torch.round(layers.gbuf[:, cols] / st["sx"][:, j:j + 1]
+                             ).clamp(-127, 127).to(torch.int8)
+            isum[:, j] = int_matmul_exact(t8, dn[:, cols])
+    elif part == 6:
+        h += _rms(rescale(w_dn, nt), n5, eps)
+    else:
+        raise ValueError(f"a layer has parts 0-{PARTS - 1}, not {part}")
+
+
+def decode_stack_tp(params_layers, dims, ldims, *, k0: int,
+                    group_max: Callable, group_sum: Callable, **args):
+    """:func:`decode_stack` of a tensor-parallel rank (its widths
+    ``ldims``, its first column of F ``k0``; the other arguments as
+    :func:`decode_stack`'s without ``chain``): every layer in
+    :data:`PARTS` parts, ``group_max`` / ``group_sum`` reducing a part's
+    absmax (MAX) and int32 sums (SUM) over the model group between them ->
+    (h [B, D], k_new [L, B, Hkv, hd], v_new), f32, equal to the
+    one-process stack's."""
+    layers = TpLayers(params_layers, dims, ldims, k0=k0, **args)
+    for li in range(dims.num_layers):
+        for part in range(PARTS):
+            layers.run(li, part)
+            view = layers.reduce_view(part)
+            if view is not None:
+                buf, op = view
+                buf.copy_((group_max if op == "max" else group_sum)(buf))
+    return layers.outputs()
 
 
 # ---------------------------------------------------------------------------
@@ -403,22 +671,39 @@ def attention_plan(dims, prompt_k: torch.Tensor, gen_k: torch.Tensor,
             "cross": split_plan(pairs, cross_k.shape[2], TBLOCK)}
 
 
+class _PartArgs(ctypes.Structure):
+    """Field by field the ``PartArgs`` struct of csrc/decode_layer.cu."""
+
+    _fields_ = ([(n, _vp) for n in ("attn", "amax", "isum", "gbuf")]
+                + [(n, _i32) for n in ("k0", "tile", "NT")])
+
+
 def _bind(name: str):
     from . import cuda_build
 
     fn = getattr(cuda_build.load("decode_layer"), name)
     if fn.argtypes is None:
         args = [ctypes.POINTER(_DecodeArgs)]
-        fn.argtypes = args + ([_i32, _vp] if name == "t5g_decode_layer"
-                              else [_vp])
+        if name == "t5g_decode_layer":
+            args += [_i32, _vp]
+        elif name == "t5g_decode_layer_part":
+            args += [ctypes.POINTER(_PartArgs), _i32, _i32, _vp]
+        else:
+            args += [_vp]
+        fn.argtypes = args
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
-            elens, prompt_k, prompt_v, gen_k, gen_v, cross_k, cross_v,
-            kv_scales, chain
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _decode_args(params_layers, dims, *, h, cos, sin, qcos, qsin, plens,
+                 glens, elens, prompt_k, prompt_v, gen_k, gen_v, cross_k,
+                 cross_v, kv_scales, chain, layers_out: int, ftile: int,
+                 tiles: int = 1):
+    """The ``DecodeArgs`` of a call (``dims``: the heads and F of the
+    leaves), with its outputs and workspaces: (args, h [B, D] f32 updated
+    in place, k_new / v_new [layers_out, B, Hkv, hd] f32, the tensors the
+    args point into). ``tiles``: the activation scales a row of the GeGLU
+    holds (a tensor-parallel rank's: the whole F's)."""
     dev = h.device
     b, d = h.shape
     if chain < 1 or b % chain:
@@ -426,7 +711,6 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
     n_heads, hkv, hd = dims.num_heads, dims.num_kv_heads, dims.head_dim
     f, n_layers = dims.intermediate_size, dims.num_layers
     ho, nkv = n_heads * hd, hkv * hd
-    ft = ftile_of(f)
     shapes = ((ho + 2 * nkv, d), (d, ho), (ho, d), (d, ho), (2 * f, d), (d, f))
     weights = _weights(params_layers)
     w4 = isinstance(weights[0], Int4Weight)
@@ -461,13 +745,14 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
 
     plan = attention_plan(dims, prompt_k, gen_k, cross_k)
     splits = max(plan["self"][1], plan["cross"][1])
-    run = n_layers if li is None else 1
     hout = h.float().clone()
-    k_new = torch.empty((run, b, hkv, hd), dtype=torch.float32, device=dev)
+    k_new = torch.empty((layers_out, b, hkv, hd), dtype=torch.float32,
+                        device=dev)
     v_new = torch.empty_like(k_new)
     ws = dict(
         x8=torch.empty((b, max(d, ho, f)), dtype=torch.int8, device=dev),
-        sx=torch.empty((b, max(1, f // ft)), dtype=torch.float32, device=dev),
+        sx=torch.empty((b, max(1, f // ftile, tiles)), dtype=torch.float32,
+                       device=dev),
         proj=torch.empty((b, max(ho + 2 * nkv, 2 * f)), dtype=torch.float32,
                          device=dev),
         qbuf=torch.empty((b, ho), dtype=torch.float32, device=dev),
@@ -497,13 +782,22 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
                                else (None,) * 6)),
         k_new=k_new.data_ptr(), v_new=v_new.data_ptr(),
         **{k: v.data_ptr() for k, v in ws.items()},
-        B=b, D=d, H=n_heads, Hkv=hkv, hd=hd, F=f, L=n_layers, ftile=ft,
+        B=b, D=d, H=n_heads, Hkv=hkv, hd=hd, F=f, L=n_layers, ftile=ftile,
         Tp=prompt_k.shape[2], Tg=gen_k.shape[2], Tx=cross_k.shape[2],
         kv_quant=int(quant), w4=int(w4), chain=chain,
         chunk_self=plan["self"][0], splits_self=plan["self"][1],
         chunk_cross=plan["cross"][0], splits_cross=plan["cross"][1],
         eps=dims.rms_norm_eps,
         soft_cap=dims.attn_logit_softcap or 0.0, q_scale=dims.q_scale)
+    return a, hout, k_new, v_new, (norms, tabs, lens, ws)
+
+
+def _launch(params_layers, dims, *, li, **args
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dev = args["h"].device
+    a, hout, k_new, v_new, _keep = _decode_args(
+        params_layers, dims, layers_out=dims.num_layers if li is None else 1,
+        ftile=ftile_of(dims.intermediate_size), **args)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if li is None:
@@ -513,4 +807,3 @@ def _launch(params_layers, dims, *, h, cos, sin, qcos, qsin, li, plens, glens,
     if err != 0:
         raise RuntimeError(f"decode layer kernels failed: CUDA error {err}")
     return hout, k_new, v_new
-

@@ -18,8 +18,15 @@ Counterpart of ``t5gemma_tts_tpu/ops/quant.py``:
   per-(K-group, channel) scales, plain PyTorch only, as the JAX package has
   no kernel for it.
 
+A tensor-parallel rank's row-split block of a W8A8 or W4A8 product
+(:func:`rows_matmul`: its K columns of the product) takes
+the group's row absmax before it quantizes and sums its exact int32
+partial products over the group before the one rescale, so its result is
+the one-process product's, bit for bit.
+
 On a CUDA tensor :func:`w8a8_matmul`, :func:`w4a8_matmul`,
-:func:`w8a16_matmul` and :func:`quantize_act` launch the hand-written
+:func:`w8a16_matmul`, :func:`quantize_act` and the row-split products
+launch the hand-written
 kernels of ``csrc/w8a8_matmul.cu`` / ``csrc/w4a8_matmul.cu`` /
 ``csrc/w8a16_matmul.cu`` (built with nvcc at first use, see
 ops/cuda_build.py) or raise; on a CPU tensor they run their plain versions.
@@ -274,6 +281,110 @@ def w8a16_matmul(x: torch.Tensor, w: QuantWeight,
 w8a16_matmul.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# a tensor-parallel rank's row-split block (csrc/w8a8_matmul.cu,
+# csrc/w4a8_matmul.cu)
+# ---------------------------------------------------------------------------
+
+
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """Each row's absmax of ``x [M, K]``, f32 [M]."""
+    if x.device.type == "cpu":
+        return x.float().abs().amax(dim=-1)
+    m, k = x.shape
+    x = x.contiguous()
+    amax = torch.empty((m,), dtype=torch.float32, device=x.device)
+    _run(_bind("w8a8_matmul", "t5g_row_absmax"), "row absmax", x.device,
+         x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, amax.data_ptr())
+    return amax
+
+
+def quantize_act_amax(x: torch.Tensor, amax: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_act_plain` at a given row absmax ``amax`` [M] (the
+    group's) -> (int8 [M, K], f32 [M, 1])."""
+    if x.device.type == "cpu":
+        sx = absmax_scale(amax.float())[:, None]
+        x8 = torch.round(x.float() / sx).clamp(-127, 127).to(torch.int8)
+        return x8, sx
+    m, k = x.shape
+    x = x.contiguous()
+    amax = amax.float().contiguous()
+    x8 = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    _run(_bind("w8a8_matmul", "t5g_quantize_rows_amax"), "quantize rows",
+         x.device, x.data_ptr(), int(x.dtype == torch.bfloat16), m, k,
+         amax.data_ptr(), x8.data_ptr(), sx.data_ptr())
+    return x8, sx
+
+
+def int_product(x8: torch.Tensor, w: Weight) -> torch.Tensor:
+    """The exact int32 sums ``x8 [M, K] @ levels(w)^T`` -> [M, N]: on the
+    card the W8A8 or W4A8 kernel's route for M, without its rescale."""
+    if x8.device.type == "cpu":
+        return int_matmul_exact(x8, weight_levels(w))
+    w4 = isinstance(w, Int4Weight)
+    name = "w4a8" if w4 else "w8a8"
+    wt = w.packed if w4 else w.values
+    m, k = x8.shape
+    n = wt.shape[0]
+    _check("weight", wt, x8.device, torch.int8, (n, k // 2 if w4 else k))
+    if k % 16 or wt.data_ptr() % 16:
+        raise ValueError(f"{name} rows: K={k} must be a multiple of 16 and "
+                         f"the weight 16-byte aligned")
+    x8 = x8.contiguous()
+    if x8.data_ptr() % 16:
+        x8 = x8.clone()
+    splits = _bind(f"{name}_matmul", f"t5g_{name}_plan")(m, n, k, None)
+    if splits < 0:
+        raise ValueError(f"{name}: the tensor-core route refuses M={m}, K={k}")
+    part = (torch.empty((splits, m, n), dtype=torch.int32, device=x8.device)
+            if splits else None)
+    out = torch.empty((m, n), dtype=torch.int32, device=x8.device)
+    _run(_bind(f"{name}_matmul", f"t5g_{name}_int"), f"{name} int product",
+         x8.device, x8.data_ptr(), m, k, wt.data_ptr(), n, out.data_ptr(),
+         None if part is None else part.data_ptr())
+    return out
+
+
+def rescale_rows(acc: torch.Tensor, sx: torch.Tensor, w: Weight,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """``(f32(acc) * sx) * s`` [M, N] in ``out_dtype``: the W8A8 / W4A8
+    rescale, on the group's integer sums ``acc`` [M, N]."""
+    if acc.device.type == "cpu":
+        return (acc.float() * sx * w.scale[None, :]).to(out_dtype)
+    m, n = acc.shape
+    acc, sx = acc.contiguous(), sx.float().contiguous()
+    _check("scale", w.scale, acc.device, torch.float32, (n,))
+    out = torch.empty((m, n), dtype=out_dtype, device=acc.device)
+    _run(_bind("w8a8_matmul", "t5g_rescale_rows"), "rescale", acc.device,
+         acc.data_ptr(), sx.data_ptr(), w.scale.data_ptr(), m, n,
+         out.data_ptr(), int(out_dtype == torch.bfloat16))
+    return out
+
+
+def rows_matmul(x: torch.Tensor, w: Weight, group_max: Callable,
+                group_sum: Callable, out_dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+    """A rank's row-split block of the W8A8 (``QuantWeight``) or W4A8
+    (``Int4Weight``) product: ``x [M, K_r]`` (this rank's columns of the
+    activations) and ``w`` (its K_r rows of the weight) -> the whole
+    product [M, N], :func:`w8a8_matmul` / :func:`w4a8_matmul` of the whole
+    x and w bit for bit. ``group_max`` / ``group_sum`` all-reduce a row
+    absmax [M] (MAX) and the int32 sums [M, N] (SUM) over the group. On the
+    card it adds one launch a call to the counter of the product's kernel
+    (``w8a8_matmul.launches`` or ``w4a8_matmul.launches``; four kernels:
+    absmax, quantize, the int32 product, the rescale)."""
+    amax = group_max(row_absmax(x))
+    x8, sx = quantize_act_amax(x, amax)
+    acc = group_sum(int_product(x8, w))
+    out = rescale_rows(acc, sx, w, out_dtype or x.dtype)
+    if x.device.type == "cuda":
+        (w4a8_matmul if isinstance(w, Int4Weight) else w8a8_matmul
+         ).launches += 1
+    return out
+
+
 def q_matmul(x: torch.Tensor, w) -> torch.Tensor:
     """Drop-in for ``x @ w`` over [..., K] activations: a plain tensor is
     multiplied as is; a :class:`QuantWeight` takes the W8A8 product
@@ -457,6 +568,14 @@ def _bind(lib: str, name: str):
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         if name == "t5g_quantize_rows":
             fn.argtypes = [vp, i32, i32, i32, vp, vp, vp]
+        elif name == "t5g_row_absmax":
+            fn.argtypes = [vp, i32, i32, i32, vp, vp]
+        elif name == "t5g_quantize_rows_amax":
+            fn.argtypes = [vp, i32, i32, i32, vp, vp, vp, vp]
+        elif name.endswith("_int"):
+            fn.argtypes = [vp, i32, i32, vp, i32, vp, vp, vp]
+        elif name == "t5g_rescale_rows":
+            fn.argtypes = [vp, vp, vp, i32, i32, vp, i32, vp]
         elif name == "t5g_w8a16_matmul":
             fn.argtypes = [vp, i32, i32, i32, vp, vp, i32, vp, i32, i32, vp,
                            vp, vp]
@@ -505,6 +624,14 @@ def product_plan(m: int, w: Weight) -> dict:
     out = dict(zip(keys, list(plan)))
     out["route"] = "tensor_cores" if out["ni"] else "gemv"
     return out
+
+
+def _run(fn, what: str, dev: torch.device, *args) -> None:
+    """Call a library entry on ``dev``'s current stream; raise on an error."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def _launch(x: torch.Tensor, w: Weight, out_dtype: torch.dtype, *,

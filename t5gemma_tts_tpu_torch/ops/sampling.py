@@ -52,20 +52,23 @@ def as_int64(v: IntLike, device) -> torch.Tensor:
 
 
 def step_uniform(seed: IntLike, step: IntLike, rows: int, cols: int,
-                 device=None) -> torch.Tensor:
+                 device=None, row0: IntLike = 0) -> torch.Tensor:
     """Uniforms [rows, cols] f32 in (0, 1), a function of (seed, step, row,
     column) alone: a counter-based hash, so the draws of a decode step do
     not depend on which pass makes them, nor on the device. ``seed`` (64
     bits) and ``step`` may be ints or 0-dim device tensors. Each value is
     ``(2 m + 1) / 2**24`` for the hash's top 23 bits ``m``: exact in f32,
-    never 0 or 1."""
+    never 0 or 1. The rows are global rows ``row0 .. row0 + rows - 1`` (an
+    int or a 0-dim device tensor: a data-parallel rank's first row), so a
+    rank draws its rows of the whole batch's draws."""
     if device is None:
         device = next((v.device for v in (seed, step)
                        if isinstance(v, torch.Tensor)), "cpu")
     seed, step = as_int64(seed, device), as_int64(step, device)
     h = _absorb(_fmix32(seed & _M32), (seed >> 32) & _M32)
     h = _absorb(h, step & _M32)
-    r = _absorb(h, torch.arange(rows, dtype=torch.int64, device=device))
+    r = _absorb(h, torch.arange(rows, dtype=torch.int64, device=device)
+                + as_int64(row0, device))
     c = _fmix32(torch.arange(cols, dtype=torch.int64, device=device)
                 + 0x632BE5AB)
     x = _fmix32(r[:, None] ^ c[None, :])

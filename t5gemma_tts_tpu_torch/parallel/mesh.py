@@ -26,8 +26,15 @@ here computes with whole tensors where GSPMD may gather inside a program:
 - the head's ``b1`` is split with ``w1``'s columns (JAX keeps it
   replicated).
 
-The serving half of the JAX module (``shard_slot_state``) is ROADMAP
-Queue 1 item 15 part C and raises here.
+The serving half: :func:`serving_shard` turns the whole one-process
+decode tree into a rank's serving tree (quantized whole first, so a
+row-split block keeps the per-channel scales of the whole K; then cut by
+the same rules, the fused ``qkv`` / ``gate_up`` leaves segment by segment,
+so that a rank's fused leaf is ``[q_r | k_r | v_r]`` / ``[gate_r | up_r]``);
+:func:`serving_dims` gives a rank's head counts for its caches; and
+:func:`shard_slot_state` splits a dense continuous-batching state over the
+data axis (JAX ``shard_slot_state``). The decode paths then run a rank's
+shard inside ``parallel.tensor.model_parallel(mesh)``.
 """
 
 from __future__ import annotations
@@ -47,9 +54,6 @@ PyTree = Any
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 _MOMENT_FIELDS = ("delta", "exp_avg_sq", "mu", "nu")
-SERVING_REFUSAL = ("the mesh's serving half (tensor-parallel decode, "
-                   "dp-sharded continuous segments, shard_slot_state) is "
-                   "ROADMAP Queue 1 item 15 part C")
 
 
 # ---------------------------------------------------------------------------
@@ -105,17 +109,23 @@ def _env_int(name: str, default: int) -> int:
 
 # the process group's timeout, which the mesh's groups take too
 _TIMEOUT: Dict[str, Optional[timedelta]] = {"value": None}
+# this rank's device, as init_distributed chose it
+_DEVICE: Dict[str, Optional[torch.device]] = {"value": None}
 
 
 def init_distributed(device="cuda", init_method: Optional[str] = None,
-                     timeout: Optional[timedelta] = None) -> torch.device:
+                     timeout: Optional[timedelta] = None,
+                     gloo_on_cuda: bool = False) -> torch.device:
     """Join the process group ``torchrun`` describes (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``; rank 0 of 1 without them) and return
     this rank's device: NCCL on ``cuda:LOCAL_RANK``, gloo only when the
-    caller passes ``cpu``. A failing NCCL start raises; there is no
-    fallback to gloo. ``timeout`` bounds every collective of the group
-    and of :func:`make_mesh`'s groups (a rank that never arrives fails the
-    others instead of hanging them)."""
+    caller passes ``cpu``. A failing NCCL start
+    raises; there is no fallback to gloo. ``gloo_on_cuda`` asks for gloo
+    over CUDA tensors instead of NCCL, for ranks that share one card (NCCL
+    refuses two ranks on one device): a harness's choice, never the
+    port's. ``timeout`` bounds every collective of the group and of
+    :func:`make_mesh`'s groups (a rank that never arrives fails the others
+    instead of hanging them)."""
     import torch.distributed as dist
 
     from ..device import resolve_device
@@ -126,9 +136,10 @@ def init_distributed(device="cuda", init_method: Optional[str] = None,
     if dev.type == "cuda":
         dev = torch.device("cuda", _env_int("LOCAL_RANK", rank))
         torch.cuda.set_device(dev)
-        backend = "nccl"
+        backend = "gloo" if gloo_on_cuda else "nccl"
     else:
         backend = "gloo"
+    _DEVICE["value"] = dev
     if not dist.is_initialized():
         _TIMEOUT["value"] = timeout
         kw = {} if timeout is None else {"timeout": timeout}
@@ -159,7 +170,7 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1) -> Mesh:
     if dist.get_backend() == "nccl":
         device = torch.device("cuda", torch.cuda.current_device())
     else:
-        device = torch.device("cpu")
+        device = _DEVICE["value"] or torch.device("cpu")
     return Mesh(dp=dp, tp=tp, rank=rank, device=device,
                 data_group=groups[DATA_AXIS], model_group=groups[MODEL_AXIS])
 
@@ -182,12 +193,13 @@ def _note(t: torch.Tensor) -> None:
     COUNTS["bytes"] += t.numel() * t.element_size()
 
 
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` in place over ``group``."""
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Sum (``op="max"``: the maximum of) ``t`` in place over ``group``."""
     import torch.distributed as dist
 
     _note(t)
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                           "max": dist.ReduceOp.MAX}[op], group=group)
     return t
 
 
@@ -277,24 +289,27 @@ def _kv_heads(cfg, path) -> Optional[int]:
     return stack.num_kv_heads
 
 
+def _leaf_spec(path, shape, cfg, tp: int) -> Spec:
+    """One leaf's :class:`Spec` by :func:`param_specs`' rules (``shape``
+    its [..., K, N] shape)."""
+    shape = tuple(shape)
+    out = _divisible(_stack_axes(path, len(shape)), shape,
+                     {MODEL_AXIS: tp, DATA_AXIS: 1})
+    heads = _kv_heads(cfg, path)
+    if heads is not None and heads % tp:
+        out = replicated(len(shape))
+    if list(path[-2:]) == ["head", "b1"] and len(shape) == 1 \
+            and cfg.backbone.hidden_size % tp == 0:
+        out = Spec((MODEL_AXIS,))
+    return out
+
+
 def param_specs(params: PyTree, cfg, tp: int) -> PyTree:
     """A tree of :class:`Spec` beside ``params`` (leaves with ``.shape``:
     tensors, ``meta`` tensors): JAX's rules at model size ``tp``, plus the
     whole-head rule and ``b1`` split with ``w1`` (module docstring)."""
-    sizes = {MODEL_AXIS: tp, DATA_AXIS: 1}
-
-    def spec(path, leaf):
-        shape = tuple(leaf.shape)
-        out = _divisible(_stack_axes(path, len(shape)), shape, sizes)
-        heads = _kv_heads(cfg, path)
-        if heads is not None and heads % tp:
-            out = replicated(len(shape))
-        if list(path[-2:]) == ["head", "b1"] and len(shape) == 1 \
-                and cfg.backbone.hidden_size % tp == 0:
-            out = Spec((MODEL_AXIS,))
-        return out
-
-    return tree_map_with_path(spec, params)
+    return tree_map_with_path(
+        lambda path, leaf: _leaf_spec(path, leaf.shape, cfg, tp), params)
 
 
 def zero_spec(spec: Spec, shape: Sequence[int], dp: int) -> Spec:
@@ -494,6 +509,189 @@ def shard_batch(batch: PyTree, mesh: Mesh, axis: int = 0) -> PyTree:
 
 
 def shard_slot_state(state, mesh: Mesh):
-    """The continuous-serving state split over the data axis: the serving
-    half of the mesh, not ported yet."""
-    raise NotImplementedError(SERVING_REFUSAL)
+    """This rank's slots of a continuous-batching ``SlotState`` (JAX
+    ``shard_slot_state``): the resident batch's B slots split over the
+    data axis, so each data-parallel rank decodes B / dp of them (its span,
+    :func:`batch_rows`; ``SlotState.slot0`` its first global slot). Dense
+    caches only: the ``DecoderCache`` slabs are [L, B, ...] (slots at dim
+    1), every other leaf carries slots at dim 0. The paged cache's
+    [Hkv, L*B, ...] slabs fold the batch layer-major, so a data-axis split
+    would land on layer boundaries: it raises, and a paged state serves
+    tensor parallelism replicated instead."""
+    import dataclasses as dc
+
+    from ..models import t5gemma
+
+    if not isinstance(state.cache, t5gemma.DecoderCache):
+        raise ValueError(
+            "shard_slot_state supports dense-cache SlotStates only: the "
+            "paged cache's [Hkv, L*B, ...] slabs fold batch layer-major, "
+            "so a data-axis split lands on layer boundaries. Use tensor "
+            "parallelism (serving_shard) with a replicated state instead.")
+    b = state.tokens.shape[0]
+    if b % mesh.dp:
+        raise ValueError(f"slot count {b} not divisible by dp={mesh.dp}")
+    lo, hi = batch_rows(b, mesh)
+
+    def cut(x, dim):
+        return x.narrow(dim, lo, hi - lo).clone()
+
+    cache = dc.replace(state.cache, **{
+        f.name: cut(getattr(state.cache, f.name), 1)
+        for f in dc.fields(state.cache)})
+    rest = {f.name: cut(getattr(state, f.name), 0)
+            for f in dc.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)}
+    return dc.replace(state, cache=cache, slot0=state.slot0 + lo, **rest)
+
+
+# ---------------------------------------------------------------------------
+# serving trees
+# ---------------------------------------------------------------------------
+
+
+def serving_dims(dims, mesh: Optional[Mesh]):
+    """``dims`` with a rank's head counts at ``mesh``'s model size: whole
+    heads, as :func:`param_specs` splits them (all heads where ``tp`` does
+    not divide the kv heads)."""
+    tp = 1 if mesh is None else mesh.tp
+    if tp == 1 or dims.num_kv_heads % tp:
+        return dims
+    return dataclasses.replace(dims, num_heads=dims.num_heads // tp,
+                               num_kv_heads=dims.num_kv_heads // tp)
+
+
+def _logical_shape(leaf) -> Tuple[int, ...]:
+    """A weight leaf's [..., K, N] shape (quantized leaves store [..., N, K]
+    levels, int4 two to a byte)."""
+    from ..ops.quant import Int4Weight, QuantWeight
+
+    if isinstance(leaf, Int4Weight):
+        lead = tuple(leaf.packed.shape[:-2])
+        return lead + (2 * leaf.packed.shape[-1], leaf.n)
+    if isinstance(leaf, QuantWeight):
+        return tuple(leaf.values.shape[:-2]) + (leaf.values.shape[-1],
+                                                leaf.n)
+    return tuple(leaf.shape)
+
+
+def _take_columns(leaf, idx: torch.Tensor):
+    """Output channels ``idx`` of a [..., K, N] weight leaf (a copy)."""
+    from ..ops.quant import Int4Weight, QuantWeight
+
+    if isinstance(leaf, Int4Weight):
+        return leaf._replace(packed=leaf.packed.index_select(-2, idx),
+                             scale=leaf.scale.index_select(-1, idx),
+                             n=int(idx.numel()))
+    if isinstance(leaf, QuantWeight):
+        return leaf._replace(values=leaf.values.index_select(-2, idx),
+                             scale=leaf.scale.index_select(-1, idx),
+                             n=int(idx.numel()))
+    return leaf.index_select(-1, idx)
+
+
+def _take_rows(leaf, lo: int, n: int):
+    """Input rows ``lo .. lo + n`` of a [..., K, N] weight leaf (a copy);
+    int4 levels keep whole packed bytes (8 levels fill 4 of them, so ``lo``
+    and ``n`` must be multiples of 8) in their nibble order."""
+    from ..ops.quant import Int4Weight, QuantWeight
+
+    if isinstance(leaf, Int4Weight):
+        if lo % 8 or n % 8:
+            raise ValueError(f"an int4 weight splits along K in groups of 8 "
+                             f"levels, not at {lo} + {n}")
+        return leaf._replace(
+            packed=leaf.packed.narrow(-1, lo // 2, n // 2).contiguous())
+    if isinstance(leaf, QuantWeight):
+        return leaf._replace(values=leaf.values.narrow(-1, lo, n).contiguous())
+    return leaf.narrow(-2, lo, n).clone()
+
+
+def _fused_segments(path, cfg) -> Optional[Tuple[int, ...]]:
+    """The segment widths along N of a fused decode leaf ([q | k | v],
+    [gate | up]), else None."""
+    name = path[-1]
+    if name not in ("qkv", "gate_up"):
+        return None
+    stack = cfg.backbone.encoder if path[0] == "encoder" else \
+        cfg.backbone.decoder
+    if name == "qkv":
+        q, kv = (stack.num_heads * stack.head_dim,
+                 stack.num_kv_heads * stack.head_dim)
+        return q, kv, kv
+    return (stack.intermediate_size,) * 2
+
+
+def serving_shard(params: PyTree, cfg, mesh: Mesh, *, quantize: bool = False,
+                  act_bits: int = 8, weight_bits: int = 8,
+                  head_bits: Optional[int] = None) -> PyTree:
+    """This rank's serving tree from the whole one-process tree ``params``
+    (fused or not, quantized or not): fused whole
+    (``t5gemma.fuse_for_decode``), with ``quantize`` quantized whole
+    (``quant.quantize_params_for_decode``: a row-split block keeps the
+    per-channel scale computed over the whole K), then cut by
+    :func:`param_specs`' rules at ``mesh.tp``. A fused leaf is cut segment
+    by segment ([q | k | v], [gate | up]), which is fusing the rank's own
+    q/k/v and gate/up: per-channel scales make the two orders equal. W8A16
+    leaves at ``tp > 1`` raise (ROADMAP Queue 1 item 15 part D)."""
+    from ..models import t5gemma
+    from ..ops import quant
+
+    tree = params
+    if "qkv" not in tree["decoder"]["layers"]["self_attn"]:
+        tree = t5gemma.fuse_for_decode(tree)
+    if quantize:
+        tree = quant.quantize_params_for_decode(
+            tree, act_bits=act_bits, weight_bits=weight_bits,
+            head_bits=head_bits)
+    tp, r = mesh.tp, mesh.tp_rank
+
+    def cut(path, leaf):
+        if isinstance(leaf, dict):
+            return {k: cut(path + (k,), v) for k, v in leaf.items()}
+        if tp == 1:
+            return leaf
+        if isinstance(leaf, quant.QuantWeight) and leaf.act_bits == 16:
+            raise ValueError("W8A16 weights under tensor parallelism are "
+                             "ROADMAP Queue 1 item 15 part D")
+        shape = _logical_shape(leaf)
+        widths = _fused_segments(path, cfg)
+        if widths is not None:
+            # the parts' own rule: q/k/v by whole kv heads, gate/up by
+            # divisibility of their columns
+            part = "q" if path[-1] == "qkv" else "gate"
+            spec = _leaf_spec(path[:-1] + (part,),
+                              shape[:-1] + (widths[0],), cfg, tp)
+            if spec.dim(MODEL_AXIS) is None or any(w % tp for w in widths):
+                return leaf
+            starts = np.cumsum((0,) + widths[:-1])
+            dev = _any_tensor(leaf).device
+            idx = torch.cat([torch.arange(int(s0) + r * (w // tp),
+                                          int(s0) + (r + 1) * (w // tp),
+                                          device=dev)
+                             for s0, w in zip(starts, widths)])
+            return _take_columns(leaf, idx)
+        spec = _leaf_spec(path, shape, cfg, tp)
+        d = spec.dim(MODEL_AXIS)
+        if d is None:
+            return leaf
+        n = shape[d] // tp
+        if d == len(shape) - 1 and len(shape) >= 2:
+            dev = _any_tensor(leaf).device
+            return _take_columns(leaf, torch.arange(r * n, (r + 1) * n,
+                                                    device=dev))
+        if d == len(shape) - 2:
+            return _take_rows(leaf, r * n, n)
+        return local_part(leaf, spec, mesh)
+
+    return cut((), tree)
+
+
+def _any_tensor(leaf) -> torch.Tensor:
+    """The tensor holding a weight leaf's levels (the leaf itself if
+    plain)."""
+    from ..ops.quant import Int4Weight, QuantWeight
+
+    if isinstance(leaf, Int4Weight):
+        return leaf.packed
+    return leaf.values if isinstance(leaf, QuantWeight) else leaf

@@ -105,12 +105,14 @@ def _imported(tree):
 def test_no_source_imports_jax_orbax_or_safetensors():
     """Imports inside functions count too: a lazy import of a banned
     package would still fail on a machine without it. The scan takes in
-    ``parallel/`` and the gloo ranks' worker and the card's parallel test,
-    which run with torch and the port alone."""
+    ``parallel/`` and the gloo ranks' workers and the card's parallel
+    tests, which run with torch and the port alone."""
     pkg = os.path.join(ROOT, "t5gemma_tts_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(ROOT, "tests", f) for f in (
-            "torch_parallel_worker.py", "test_torch_parallel_cuda.py")] + [
+            "torch_parallel_worker.py", "test_torch_parallel_cuda.py",
+            "torch_parallel_serve_worker.py",
+            "test_torch_serve_tp_cuda.py")] + [
         os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
         if f.endswith(".py") and "templates" not in d.split(os.sep)]
     assert len(files) > 60

@@ -38,7 +38,7 @@ CE (64-column blocks) against JAX's single-device
 ``train_step.compile_train_step`` on the same weights and batch: loss
 within 1e-4 relative, grad norm within 1e-3, updated leaves within 1e-5
 relative Frobenius (JAX compiles while the ranks run).
-``shard_slot_state`` raises naming ROADMAP Queue 1 item 15 part C.
+The mesh's serving half is tested in ``tests/test_torch_parallel_serve.py``.
 
 Each launch has a 300 s limit that kills its ranks, and every process
 group a 120 s timeout, so a rank that misses a collective fails the test.
@@ -197,12 +197,6 @@ def test_shard_batch_rows_equal_jax_spans():
         np.testing.assert_array_equal(
             tpar.shard_batch(batch, tm, axis=1)["x"],
             batch["x"][:, want[0]:want[1]])
-
-
-def test_shard_slot_state_names_part_c():
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 15 part C"):
-        tpar.shard_slot_state(None, tpar.Mesh(dp=2, tp=1))
 
 
 # ---------------------------------------------------------------------------

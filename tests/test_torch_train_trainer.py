@@ -5,9 +5,10 @@ relative); save, resume and go on equal to an uninterrupted run, exactly
 (full model and LoRA, two micro-batches a step, neighbor prompts); the CLI
 in a subprocess with ``--device cpu`` and ``--resume`` (resumed with
 ``--tp 2 --zero_opt_sharding 1``, which one process ignores, as the JAX
-CLI does at one device); what still refuses of the parallel options (the
-mesh's serving half, ROADMAP Queue 1 item 15 part C) while ZeRO-1 without
-a mesh builds; and the refusal of an orbax bundle, naming the JAX
+CLI does at one device); what still refuses of the parallel options (a
+paged state's data-parallel split, and under tensor parallelism ROADMAP
+Queue 1 item 15 part D) while ZeRO-1 without a mesh builds; and the
+refusal of an orbax bundle, naming the JAX
 package's export. The parallel runs themselves are in
 ``tests/test_torch_parallel*.py``."""
 
@@ -246,10 +247,22 @@ def test_train_cli_runs_and_resumes_on_cpu(setup, tmp_path):
 
 
 def test_parallel_options_raise_naming_item_15(setup, tmp_path):
-    from t5gemma_tts_tpu_torch import parallel
+    from types import SimpleNamespace
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15 part C"):
-        parallel.shard_slot_state(None, parallel.Mesh(dp=1, tp=1))
+    from t5gemma_tts_tpu_torch import parallel
+    from t5gemma_tts_tpu_torch.decode import speculative
+    from t5gemma_tts_tpu_torch.parallel import tensor as tp
+
+    # the serving half is ported: a paged state is refused by its own rule,
+    # and what is left of it (part D) raises under tensor parallelism
+    with pytest.raises(ValueError, match="dense-cache"):
+        parallel.shard_slot_state(SimpleNamespace(cache=None),
+                                  parallel.Mesh(dp=1, tp=1))
+    with tp.model_parallel(parallel.Mesh(dp=1, tp=2)), pytest.raises(
+            ValueError, match="Queue 1 item 15 part D"):
+        speculative.decode_tokens_speculative(
+            None, None, None, None, None, None, None, None, seed=0,
+            draft_fn=None, k=1)
     # ZeRO-1 without a mesh: nothing to split, the one-device trainer
     train_ds, _ = _port_datasets(setup)
     trainer = ttrainer.Trainer(setup["tcfg"], ttrainer.TrainerConfig(
