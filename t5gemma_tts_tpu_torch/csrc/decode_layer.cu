@@ -1051,11 +1051,14 @@ extern "C" int t5g_decode_stack(const DecodeArgs* a, void* stream) {
 }
 
 // Part `part` (0-6) of layer li of a tensor-parallel rank (run_part);
-// k_new / v_new hold all L layers, chain is 1.
+// k_new / v_new hold all L layers. With chain = S > 1 every part runs over
+// the B = Bc * S pseudo-rows as run_layers does (the attention reads each
+// cache row's slabs once for its chain, the merge folds in the chain
+// prefix), and the host reduces over the same pseudo-rows.
 extern "C" int t5g_decode_layer_part(const DecodeArgs* a, const PartArgs* t, int li, int part,
                                      void* stream) {
   const DecodeArgs& d = *a;
-  if (d.hd % 8 || d.hd > 256 || d.H % d.Hkv || d.chain != 1 || d.F % 16 ||
+  if (d.hd % 8 || d.hd > 256 || d.H % d.Hkv || d.chain < 1 || d.B % d.chain || d.F % 16 ||
       (d.H * d.hd) % 16 || t->k0 % 16 || t->tile % 16 || t->tile <= 0 ||
       (t->k0 + d.F + t->tile - 1) / t->tile > t->NT || li < 0 || li >= d.L ||
       d.D * sizeof(float) > 48 * 1024 || d.H * d.hd * sizeof(float) > 48 * 1024 ||

@@ -33,6 +33,15 @@ Caches: the dense cache (an S-token block per row through
 take the one-segment paged kernel and the chain merge; W8A8 or int4
 weights over bf16 or int8 pages take ``megakernel.decode_stack(chain=k+1)``;
 ``paged_i8`` runs only there.
+
+Over a mesh (a rank's shard inside ``parallel.tensor.model_parallel``) a
+data-parallel rank decodes its own rows and draws its rows of the whole
+batch's uniforms (``tensor.first_row``, as ``engine.StepInputs.row0``); a
+tensor-parallel rank runs its own heads and columns, its chain block sized
+with its own kv heads (``tensor.local_dims``). The hidden state after the
+model group's sums is the same on every rank, so every rank drafts the
+same tokens (the MTP heads are whole on every rank) and accepts the same
+prefix.
 """
 
 from __future__ import annotations
@@ -119,14 +128,20 @@ def mtp_draft_fn(heads: List[Dict[str, torch.Tensor]]) -> DraftFn:
 def trace_draft_fn(trace: torch.Tensor, k: int) -> DraftFn:
     """Oracle draft replaying ``trace`` [B, T]: position step + 1 + j
     proposes trace[:, step + 1 + j] (0 past its end). Corrupt the trace
-    beforehand to dial the acceptance rate."""
+    beforehand to dial the acceptance rate. A trace of the whole batch
+    drafts a data-parallel rank's rows from its own rows of it
+    (``tensor.first_row``)."""
     b, t = trace.shape
     padded = F.pad(trace.to(torch.int32), (0, k + 1))
 
     def draft(last_hidden, cur_token, step):
+        rows = padded
+        if cur_token.shape[0] != b:
+            r0 = tp.first_row(cur_token.shape[0])
+            rows = padded[r0:r0 + cur_token.shape[0]]
         idx = (step + 1 + torch.arange(k, device=padded.device)).clamp_max(
             t + k)
-        return padded[:, idx].to(cur_token.device)
+        return rows[:, idx].to(cur_token.device)
 
     return draft
 
@@ -150,9 +165,7 @@ def decode_tokens_speculative(params: PyTree, cfg: VoiceConfig,
                               draft_fn: DraftFn, k: int) -> SpecOutputs:
     """Speculative counterpart of ``engine.decode_tokens`` (same inputs; the
     token stream is the sequential engine's, see the module notes). Over a
-    mesh it serves data parallelism; at ``tp > 1`` it raises (ROADMAP
-    Queue 1 item 15 part D)."""
-    tp.refuse("speculative decoding")
+    mesh: a rank's shard inside ``parallel.tensor.model_parallel``."""
     dev = x.device
     kv_mode = engine.resolve_kv_mode(cfg, dcfg, prompt.shape[1] + 1,
                                      dcfg.max_frames + k, dev)
@@ -165,12 +178,13 @@ def decode_tokens_speculative(params: PyTree, cfg: VoiceConfig,
     max_steps = dcfg.max_frames
     b = x.shape[0]
     x_lens = x_lens.to(torch.int32)
+    row0 = tp.first_row(b)
 
     st = engine.prefill(params, cfg, dcfg, x, x_lens, prompt, prompt_lens,
                         target_totals, cache_slack=k)
     if paged:
-        chain_shape = (dims.num_layers, b, k + 1, dims.num_kv_heads,
-                       dims.head_dim)
+        hkv = tp.local_dims(params["decoder"]["layers"], dims)[0].num_kv_heads
+        chain_shape = (dims.num_layers, b, k + 1, hkv, dims.head_dim)
         pend_k = torch.zeros(chain_shape, dtype=torch.bfloat16, device=dev)
         pend_v = torch.zeros_like(pend_k)
         flush_start = 0
@@ -183,7 +197,7 @@ def decode_tokens_speculative(params: PyTree, cfg: VoiceConfig,
     def guarded_token(logits, step, prev, consec):
         """sample + the engine's force-stop rules at absolute ``step``."""
         token, argmax_tok = engine.sample_step_token(
-            cfg, dcfg, logits, step, prev, consec, seed, silence)
+            cfg, dcfg, logits, step, prev, consec, seed, silence, row0=row0)
         return engine.apply_stop_rules(cfg, token, argmax_tok, step,
                                        text_budget, time_budget, max_steps)
 

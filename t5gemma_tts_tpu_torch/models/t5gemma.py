@@ -37,9 +37,10 @@ head counts and widths from the leaves, so a rank's shard runs its own
 heads and columns, and reduces over the model group after self o, cross o
 and down (``tp.row_product``: bf16 / f32 partials summed in f32 and cast
 once, W8A8 / W4A8 blocks with the group's scales and int32 sums); its
-caches are sized with its kv heads (``tp.local_dims``). Modes 0 and 1,
-float8 pages and the verify pass raise at ``tp > 1`` (ROADMAP Queue 1
-item 15 part D).
+caches are sized with its kv heads (``tp.local_dims``). Every attention
+mode, every page type and the verify pass run at ``tp > 1``: the kernels
+take a rank's heads from their tensors, and a W8A16 row block sums its f32
+partial products over the group (``tp.row_product``).
 """
 
 from __future__ import annotations
@@ -479,8 +480,6 @@ def init_paged_cache(dims: ModuleDims, batch: int, prompt_len: int,
     """Allocate the paged cache (region lengths padded to page multiples)
     with ``dims.num_kv_heads`` heads (a tensor-parallel rank's own:
     ``tp.local_dims``)."""
-    if store_dtype == torch.float8_e4m3fn:
-        tp.refuse("the float8 paged cache")
     total = _pad_to(prompt_len, PAGE_SIZE) + _pad_to(gen_len, PAGE_SIZE)
     if total > dims.sliding_window:
         raise ValueError(
@@ -659,8 +658,6 @@ def _fused_attn_mode(cache: PagedDecoderCache) -> int:
         raise ValueError(f"T5G_FUSED_ATTN must be 0, 1, 2 or 3, got {mode}")
     if cache.gen_k.dtype == torch.int8 and mode != 3:
         return 2
-    if mode in (0, 1):
-        tp.refuse(f"T5G_FUSED_ATTN={mode} (kernels 5 and 7)")
     return mode
 
 
@@ -836,9 +833,14 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     ``paged_gqa_attention``, both at ``chain=S`` over the cache rows'
     lengths and page tables.
 
+    A tensor-parallel rank runs its own heads and F columns: the fused
+    pass through ``tp.decode_stack(chain=S)`` (kernel 2's parts, the model
+    group reducing between them), the unfused one with its o / cross-o /
+    down products summed over the group (``tp.row_product``).
+
     Returns (hidden [B, S, D], cache, chain_k, chain_v) with chain_k/v
-    [L, B, S, Hkv, hd] bf16, the next pass's pending block."""
-    tp.refuse("the speculative verify pass (paged_decode_multi)")
+    [L, B, S, Hkv, hd] bf16 (a rank's Hkv), the next pass's pending
+    block."""
     b, s_len, _ = inputs_embeds.shape
     h = _embed_scale(inputs_embeds, dims)
     cos, sin, q_cos, q_sin = _rope_tables(position_ids, pm_decoder_positions,
@@ -846,8 +848,11 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
     _flush_block(cache.gen_k, pending_k, cache.gen_k_scale, flush_start)
     _flush_block(cache.gen_v, pending_v, cache.gen_v_scale, flush_start)
     quant = cache.gen_k.dtype == torch.int8
+    layers = params["layers"]
+    ldims, attn_split, mlp_split = tp.local_dims(layers, dims)
+    rank_dims = ldims if attn_split or mlp_split else None
     fused = ((_fused_attn_mode(cache) == 3 or quant)
-             and megakernel.supports(params["layers"], dims, cache))
+             and megakernel.supports(layers, dims, cache, rank_dims))
     if quant and not fused:
         raise ValueError(
             "the paged_i8 verify pass runs only through the megakernel path "
@@ -866,8 +871,7 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
             kv_scales = (cache.prompt_k_scale, cache.prompt_v_scale,
                          cache.gen_k_scale, cache.gen_v_scale,
                          cache.cross_k_scale, cache.cross_v_scale)
-        h3, k_new, v_new = megakernel.decode_stack(
-            params["layers"], dims,
+        args = dict(
             h=h.reshape(b * s_len, dims.hidden_size).float(),
             cos=flat(cos), sin=flat(sin), qcos=flat(qc), qsin=flat(qs),
             plens=rep(prompt_lengths),
@@ -877,8 +881,13 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
             prompt_k=cache.prompt_k, prompt_v=cache.prompt_v,
             gen_k=cache.gen_k, gen_v=cache.gen_v, cross_k=cache.cross_k,
             cross_v=cache.cross_v, kv_scales=kv_scales, chain=s_len)
+        if rank_dims is None:
+            h3, k_new, v_new = megakernel.decode_stack(layers, dims, **args)
+        else:
+            h3, k_new, v_new = tp.decode_stack(layers, dims, rank_dims,
+                                               **args)
         h3 = rms_norm(h3, params["final_norm"], eps)
-        chain = (dims.num_layers, b, s_len, dims.num_kv_heads, hd)
+        chain = (dims.num_layers, b, s_len, ldims.num_kv_heads, hd)
         return (h3.reshape(b, s_len, -1).to(h.dtype), cache,
                 k_new.reshape(chain).to(torch.bfloat16),
                 v_new.reshape(chain).to(torch.bfloat16))
@@ -887,7 +896,8 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
         cache)
     tables = cache.page_indices
     cap = dims.attn_logit_softcap
-    n_heads = dims.num_heads
+    n_heads = ldims.num_heads
+    cdims, cross_split = tp.attention_dims(layers["cross_attn"], dims)
     gen_lengths = torch.full((b,), step, dtype=torch.int32, device=h.device)
     k_new, v_new = [], []
     for li in range(dims.num_layers):
@@ -907,23 +917,26 @@ def paged_decode_multi(params: PyTree, dims: ModuleDims, *, inputs_embeds,
                      (gen_kp, gen_vp, gen_lengths, "gen"))]
         attn = paged_attn.merge_attention_parts_chain(
             parts, qv, k_c, v_c, cap, h.dtype, store_dtype=cache.gen_k.dtype)
-        a = _mm(attn.reshape(b, s_len, -1), lp["self_attn"]["o"])
+        a = _out_proj(attn.reshape(b, s_len, -1), lp["self_attn"]["o"],
+                      attn_split)
         h = h + rms_norm(a, lp["post_self_attn_norm"], eps)
 
         hn = rms_norm(h, lp["pre_cross_attn_norm"], eps)
-        cq = _split_heads(_mm(hn, lp["cross_attn"]["q"]), n_heads, hd)
+        cq = _split_heads(_mm(hn, lp["cross_attn"]["q"]), cdims.num_heads,
+                          hd)
         if q_cos is not None:
             cq = rope_ops.apply_rope(cq, q_cos, q_sin)
         cq2 = (cq.float() * dims.q_scale).transpose(1, 2).reshape(
-            b * s_len, n_heads, hd)
+            b * s_len, cdims.num_heads, hd)
         cattn = paged_attn.paged_gqa_attention(
             cq2, cross_kp, cross_vp, enc_lengths,
             page_indices=tables["cross"][li], attn_logits_soft_cap=cap,
             out_dtype=h.dtype, chain=s_len)
-        a = _mm(cattn.reshape(b, s_len, -1), lp["cross_attn"]["o"])
+        a = _out_proj(cattn.reshape(b, s_len, -1), lp["cross_attn"]["o"],
+                      cross_split)
         h = h + rms_norm(a, lp["post_cross_attn_norm"], eps)
 
-        m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps))
+        m = mlp(lp["mlp"], rms_norm(h, lp["pre_ff_norm"], eps), dims)
         h = h + rms_norm(m, lp["post_ff_norm"], eps)
         k_new.append(k_c)
         v_new.append(v_c)

@@ -60,12 +60,15 @@ sums over heads or over F, and the model group reduces between them: the
 attention rows' absmax (MAX) before the o / cross-o quantization, the o /
 cross-o int32 sums (SUM), the GeGLU tiles' absmax (MAX; a tile may span
 ranks) and down's per-tile int32 sums (SUM), whose f32 sum then runs in
-the one-process tile order. So a rank's arithmetic is the one-process
-layer's; on the card only the attention's split plan, made for the rank's
-kv heads, orders its f32 partial sums differently. The caller runs a
-rank's block through :func:`decode_stack_tp` with its rank's widths and the
-group's reductions (``group_max`` / ``group_sum``); this module knows no
-mesh. :func:`decode_stack` stays the one call of the whole model, and
+the one-process tile order. The attention's split-KV plan is the
+one-process call's (:func:`attention_plan` over the whole model's kv
+heads), so each (row, kv head) pair's partial sums are the one-process
+kernel's too: a rank's arithmetic is the one-process layer's, on the card
+as on the CPU. With ``chain = S`` (a verify pass) the parts run over the
+B = Bc * S pseudo-rows as the one call does, and the reductions over
+their rows. The caller runs a rank's block through
+:func:`decode_stack_tp` with its rank's widths and the group's reductions
+(``group_max`` / ``group_sum``); this module knows no mesh. :func:`decode_stack` stays the one call of the whole model, and
 refuses a rank's block.
 """
 
@@ -434,20 +437,21 @@ class TpLayers:
     layer (csrc/decode_layer.cu, ``run_part``), with the buffers the model
     group reduces between parts (:meth:`reduce_view`). ``dims``: the whole
     model's; ``ldims``: the rank's heads and F (its leaves' widths), its
-    first column of F is ``k0``. On a CPU tensor each part runs its plain
-    version (:func:`decode_layer_part_plain`), on a CUDA tensor its
-    kernels."""
+    first column of F is ``k0``; ``chain`` as :func:`decode_layer`'s. On a
+    CPU tensor each part runs its plain version
+    (:func:`decode_layer_part_plain`), on a CUDA tensor its kernels."""
 
     def __init__(self, params_layers, dims, ldims, *, h, cos, sin, qcos,
                  qsin, plens, glens, elens, prompt_k, prompt_v, gen_k, gen_v,
-                 cross_k, cross_v, kv_scales=None, k0: int = 0):
+                 cross_k, cross_v, kv_scales=None, chain: int = 1,
+                 k0: int = 0):
         _check_rank(params_layers, ldims)
         self.attn_split = ldims.num_heads != dims.num_heads
         self.mlp_split = ldims.intermediate_size != dims.intermediate_size
         self.params, self.dims, self.ldims = params_layers, dims, ldims
         self.tile = ftile_of(dims.intermediate_size)
         self.nt = dims.intermediate_size // self.tile
-        self.k0 = k0
+        self.k0, self.chain = k0, chain
         b, d = h.shape
         dev = h.device
         ho = ldims.num_heads * ldims.head_dim
@@ -474,8 +478,9 @@ class TpLayers:
             raise ValueError(f"decode_layer_part: no kernel for {dev}")
         (self.a, self.h, self.k_new, self.v_new,
          self._keep) = _decode_args(
-            params_layers, ldims, h=h, chain=1, layers_out=dims.num_layers,
-            ftile=self.tile, tiles=nt, **self.args)
+            params_layers, ldims, h=h, chain=chain,
+            layers_out=dims.num_layers, ftile=self.tile, tiles=nt,
+            plan_hkv=dims.num_kv_heads, **self.args)
         self.t = _PartArgs(attn=self.attn.data_ptr(),
                            amax=self.amax.data_ptr(),
                            isum=self.isum.data_ptr(),
@@ -530,6 +535,7 @@ def decode_layer_part_plain(layers: TpLayers, li: int, part: int) -> None:
     layer sums over heads or over F, over the same buffers as the card's
     parts. At tp 1 the seven parts give decode_layer_plain's bits."""
     p, dims, ld = layers.params, layers.dims, layers.ldims
+    chain = layers.chain
     args, st = layers.args, layers.st
     eps, hd = dims.rms_norm_eps, dims.head_dim
     b, d = layers.b, layers.d
@@ -573,7 +579,7 @@ def decode_layer_part_plain(layers: TpLayers, li: int, part: int) -> None:
                  args["plens"]),
                 ((args["gen_k"], args["gen_v"]), _pair(sc[2], sc[3]),
                  args["glens"])],
-            cap, li, k_new, v_new))
+            cap, li, k_new, v_new, chain))
     elif part in (1, 3):
         x8, st["sx"] = quantize_act_amax(layers.attn, layers.amax[:b])
         layers.isum[:b * d] = int_matmul_exact(
@@ -586,7 +592,7 @@ def decode_layer_part_plain(layers: TpLayers, li: int, part: int) -> None:
         attention_rows(slab_attention_plain(
             cq * dims.q_scale,
             [((args["cross_k"], args["cross_v"]), _pair(sc[4], sc[5]),
-              args["elens"].clamp_min(1))], cap, li))
+              args["elens"].clamp_min(1))], cap, li, chain=chain))
     elif part == 4:
         h += _rms(rescale(w_co, 1), n3, eps)
         x8, sx = quantize_act_plain(_rms(h, n4, eps))
@@ -615,8 +621,8 @@ def decode_layer_part_plain(layers: TpLayers, li: int, part: int) -> None:
 def decode_stack_tp(params_layers, dims, ldims, *, k0: int,
                     group_max: Callable, group_sum: Callable, **args):
     """:func:`decode_stack` of a tensor-parallel rank (its widths
-    ``ldims``, its first column of F ``k0``; the other arguments as
-    :func:`decode_stack`'s without ``chain``): every layer in
+    ``ldims``, its first column of F ``k0``; the other arguments, ``chain``
+    included, as :func:`decode_stack`'s): every layer in
     :data:`PARTS` parts, ``group_max`` / ``group_sum`` reducing a part's
     absmax (MAX) and int32 sums (SUM) over the model group between them ->
     (h [B, D], k_new [L, B, Hkv, hd], v_new), f32, equal to the
@@ -660,12 +666,15 @@ class _DecodeArgs(ctypes.Structure):
 
 
 def attention_plan(dims, prompt_k: torch.Tensor, gen_k: torch.Tensor,
-                   cross_k: torch.Tensor) -> Dict[str, Tuple[int, int]]:
+                   cross_k: torch.Tensor, plan_hkv: Optional[int] = None
+                   ) -> Dict[str, Tuple[int, int]]:
     """(chunk, splits) of the layer's self and cross attention, from the
     slabs' shapes alone ([Hkv, L*Bc, T, hd]: Bc x Hkv (cache row, kv head)
-    pairs over the prompt + generation capacity, and over the encoder's)."""
+    pairs over the prompt + generation capacity, and over the encoder's);
+    ``plan_hkv`` counts the pairs with that many kv heads (a tensor-parallel
+    rank plans as the whole model does)."""
     hkv, rows = prompt_k.shape[:2]
-    pairs = hkv * (rows // dims.num_layers)
+    pairs = (plan_hkv or hkv) * (rows // dims.num_layers)
     return {"self": split_plan(pairs, prompt_k.shape[2] + gen_k.shape[2],
                                TBLOCK),
             "cross": split_plan(pairs, cross_k.shape[2], TBLOCK)}
@@ -698,12 +707,13 @@ def _bind(name: str):
 def _decode_args(params_layers, dims, *, h, cos, sin, qcos, qsin, plens,
                  glens, elens, prompt_k, prompt_v, gen_k, gen_v, cross_k,
                  cross_v, kv_scales, chain, layers_out: int, ftile: int,
-                 tiles: int = 1):
+                 tiles: int = 1, plan_hkv: Optional[int] = None):
     """The ``DecodeArgs`` of a call (``dims``: the heads and F of the
     leaves), with its outputs and workspaces: (args, h [B, D] f32 updated
     in place, k_new / v_new [layers_out, B, Hkv, hd] f32, the tensors the
     args point into). ``tiles``: the activation scales a row of the GeGLU
-    holds (a tensor-parallel rank's: the whole F's)."""
+    holds (a tensor-parallel rank's: the whole F's); ``plan_hkv``: the kv
+    heads its attention plan counts (:func:`attention_plan`)."""
     dev = h.device
     b, d = h.shape
     if chain < 1 or b % chain:
@@ -743,7 +753,7 @@ def _decode_args(params_layers, dims, *, h, cos, sin, qcos, qsin, plens,
     for x in lens:
         _check("lengths", x, dev, torch.int32, (b,))
 
-    plan = attention_plan(dims, prompt_k, gen_k, cross_k)
+    plan = attention_plan(dims, prompt_k, gen_k, cross_k, plan_hkv)
     splits = max(plan["self"][1], plan["cross"][1])
     hout = h.float().clone()
     k_new = torch.empty((layers_out, b, hkv, hd), dtype=torch.float32,

@@ -22,7 +22,10 @@ A tensor-parallel rank's row-split block of a W8A8 or W4A8 product
 (:func:`rows_matmul`: its K columns of the product) takes
 the group's row absmax before it quantizes and sums its exact int32
 partial products over the group before the one rescale, so its result is
-the one-process product's, bit for bit.
+the one-process product's, bit for bit. A row-split W8A16 block
+(:func:`rows_matmul_a16`) quantizes no activation: its f32 product at the
+rank's K is summed over the group in f32 and cast once, equal to the
+one-process product but for the order of its f32 sums.
 
 On a CUDA tensor :func:`w8a8_matmul`, :func:`w4a8_matmul`,
 :func:`w8a16_matmul`, :func:`quantize_act` and the row-split products
@@ -383,6 +386,21 @@ def rows_matmul(x: torch.Tensor, w: Weight, group_max: Callable,
         (w4a8_matmul if isinstance(w, Int4Weight) else w8a8_matmul
          ).launches += 1
     return out
+
+
+def rows_matmul_a16(x: torch.Tensor, w: QuantWeight, group_sum: Callable,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A rank's row-split block of the W8A16 product: ``x [M, K_r]`` (this
+    rank's columns of the activations) and ``w`` (its K_r rows, the
+    per-channel scales of the whole K) -> the whole product [M, N] in
+    ``out_dtype`` (default ``x.dtype``): :func:`w8a16_matmul` at the rank's
+    K with an f32 result (``(bf16(x_r) @ levels_r) * s``), summed over the
+    group in f32 by ``group_sum``, cast once. Each rank scales its partial
+    sum before the group adds them, so the result is the one-process
+    product's within the order of its f32 sums. On the card one launch of
+    kernel 6 a call (``w8a16_matmul.launches``)."""
+    out = group_sum(w8a16_matmul(x, w, torch.float32))
+    return out.to(out_dtype or x.dtype)
 
 
 def q_matmul(x: torch.Tensor, w) -> torch.Tensor:

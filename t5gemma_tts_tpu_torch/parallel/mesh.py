@@ -633,7 +633,7 @@ def serving_shard(params: PyTree, cfg, mesh: Mesh, *, quantize: bool = False,
     :func:`param_specs`' rules at ``mesh.tp``. A fused leaf is cut segment
     by segment ([q | k | v], [gate | up]), which is fusing the rank's own
     q/k/v and gate/up: per-channel scales make the two orders equal. W8A16
-    leaves at ``tp > 1`` raise (ROADMAP Queue 1 item 15 part D)."""
+    leaves (``act_bits=16``) are cut as W8A8 leaves are."""
     from ..models import t5gemma
     from ..ops import quant
 
@@ -651,9 +651,6 @@ def serving_shard(params: PyTree, cfg, mesh: Mesh, *, quantize: bool = False,
             return {k: cut(path + (k,), v) for k, v in leaf.items()}
         if tp == 1:
             return leaf
-        if isinstance(leaf, quant.QuantWeight) and leaf.act_bits == 16:
-            raise ValueError("W8A16 weights under tensor parallelism are "
-                             "ROADMAP Queue 1 item 15 part D")
         shape = _logical_shape(leaf)
         widths = _fused_segments(path, cfg)
         if widths is not None:

@@ -13,8 +13,8 @@ computation, so the one-device paths are unchanged.
 Serving runs the same forward without autograd, and adds what decoding
 needs: the inference collectives (:func:`model_sum` in f32 or int32,
 :func:`model_max`), :func:`row_product` (a row-split product as the
-one-process product gives it: bf16 partials summed in f32 and cast once,
-W8A8 / W4A8 blocks through ``ops/quant``'s row-split kernels),
+one-process product gives it: bf16 and W8A16 partials summed in f32 and
+cast once, W8A8 / W4A8 blocks through ``ops/quant``'s row-split kernels),
 :func:`decode_stack` (the int8 / int4 decoder stack in parts, the model
 group's reductions handed to ``ops/megakernel``, which knows no mesh) and
 the rank's head counts read from its leaves (:func:`attention_dims`,
@@ -175,18 +175,21 @@ def row_product(x: torch.Tensor, w) -> torch.Tensor:
     Without it (serving): the one-process product's value, W8A8 / W4A8
     blocks through ``quant.rows_matmul`` (the group's scales, int32 sums),
     a bf16 leaf as f32 partial products summed in f32 and cast once (one
-    rounding, as the one-process product has)."""
+    rounding, as the one-process product has), a W8A16 block through
+    ``quant.rows_matmul_a16`` (kernel 6's f32 result at the rank's K, then
+    the group's f32 sum)."""
     mesh = active()
     if mesh is None:
         return quant.q_matmul(x, w)
     if torch.is_grad_enabled():
         return reduce_from_model(quant.q_matmul(x, w))
     if isinstance(w, (QuantWeight, Int4Weight)):
-        if isinstance(w, QuantWeight) and w.act_bits == 16:
-            raise ValueError("W8A16 weights under tensor parallelism are "
-                             "ROADMAP Queue 1 item 15 part D")
         *lead, k = x.shape
-        out = quant.rows_matmul(x.reshape(-1, k), w, model_max, model_sum)
+        if isinstance(w, QuantWeight) and w.act_bits == 16:
+            out = quant.rows_matmul_a16(x.reshape(-1, k), w, model_sum)
+        else:
+            out = quant.rows_matmul(x.reshape(-1, k), w, model_max,
+                                    model_sum)
         return out.reshape(*lead, w.n)
     if isinstance(w, torch.Tensor) and x.dtype != torch.float32:
         return model_sum(_f32_product(x, w)).to(x.dtype)
@@ -207,7 +210,8 @@ def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def decode_stack(layers, dims, ldims, **args):
     """``megakernel.decode_stack_tp`` of this rank's decoder block (its
     widths ``ldims``: :func:`local_dims`) with the model group's reductions
-    between the parts; the arguments as ``megakernel.decode_stack``'s."""
+    between the parts; the arguments, ``chain`` included, as
+    ``megakernel.decode_stack``'s."""
     f = ldims.intermediate_size
     k0 = active().tp_rank * f if f != dims.intermediate_size else 0
     return megakernel.decode_stack_tp(layers, dims, ldims, k0=k0,

@@ -10,8 +10,14 @@ In this process, without a process group:
 - ``megakernel.TpLayers`` for every rank of a group, reduced between the
   parts in this process (``chip_smoke.run_ranks``), gives the one-process
   ``decode_stack_plain``'s h, k and v bit for bit (tp 1, 2, 4; int8 and
-  int4 weights; bf16 and int8 pages; at tp 2 the ``test`` preset's
-  128-wide F is one activation tile that spans both ranks);
+  int4 weights; bf16 and int8 pages; chain 1 and 5; at tp 2 the ``test``
+  preset's 128-wide F is one activation tile that spans both ranks);
+- W8A16 leaves cut as W8A8 ones; every rank's ``quant.rows_matmul_a16``
+  against the whole W8A16 product within the order of its f32 sums;
+- kernels 5 and 7's twins at a rank's heads equal the whole call's block
+  of heads bit for bit;
+- a trace draft reads a data-parallel rank's rows of the whole batch's
+  trace;
 - ``shard_slot_state`` splits a dense ``SlotState`` by JAX's leaf rules
   and refuses a paged one with "dense-cache" (it replaced the refusal
   that named part C);
@@ -27,15 +33,20 @@ port decode the same requests here:
   B = 1 (tp only: one row does not split over dp), token-equal to the
   one-process port and to JAX's single-device ``engine.decode_tokens``
   (int8 and int4 with ``T5G_FUSED_ATTN=3``), every rank of a model group
-  agreeing;
-- sampled (``top_k=8``) streams at dp 2 and dp 2 x tp 2 bit-equal to the
-  one-process port's;
+  agreeing; at tp 2 and 4 W8A16, modes 0 and 1 and ``paged_f8`` B = 4
+  (W8A16 under the near-tie clause);
+- ``decode_tokens_speculative`` (k = 4) at tp 2 and 4 equal to the
+  one-process port with the same draft (and to JAX where speculative
+  equals sequential);
+- sampled (``top_k=8``) streams at dp 2 and dp 2 x tp 2, and speculative
+  ones at dp 2, bit-equal to the one-process port's;
 - continuous batching with JAX's request recipe (dense cache, sampled): dp 2
   over ``shard_slot_state`` and tp 2, every stream equal to the
   one-process port's;
 - the int8 and int4 decode stacks over the real group bit-equal to the
   one-process plain stack;
-- every path of ROADMAP Queue 1 item 15 part D raises at tp 2, naming it.
+- the captured step (ROADMAP Queue 1 item 15 part D) raises at tp 2,
+  naming it.
 
 Each launch has a 300 s limit that kills its ranks, and every process
 group a 120 s timeout, so a rank that misses a collective fails the test.
@@ -64,8 +75,11 @@ from t5gemma_tts_tpu_torch import bridge, parallel
 from t5gemma_tts_tpu_torch import config as tconfig
 from t5gemma_tts_tpu_torch.decode import continuous
 from t5gemma_tts_tpu_torch.decode import engine as teng
+from t5gemma_tts_tpu_torch.decode import speculative as tspec
 from t5gemma_tts_tpu_torch.models import t5gemma as tt5
+from t5gemma_tts_tpu_torch.ops import fused_attn as fa
 from t5gemma_tts_tpu_torch.ops import megakernel as mk
+from t5gemma_tts_tpu_torch.ops import paged_attn as pa
 from t5gemma_tts_tpu_torch.ops import quant as tquant
 from t5gemma_tts_tpu_torch.ops import sampling
 from t5gemma_tts_tpu_torch.parallel import tensor as tp
@@ -76,12 +90,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke  # noqa: E402
 from torch_parallel_serve_worker import (  # noqa: E402
-    FOUR, MAX_FRAMES, REFUSALS, SAMPLED, TWO)
+    DECODES, FOUR, MAX_FRAMES, REFUSALS, SAMPLED, SPEC_K, SPECS, TWO,
+    decode_config, drafted_trace)
 
 torch.set_num_threads(1)
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 LAUNCH_TIMEOUT = 300
+CASCADE_REL = 5e-2   # the most a flipped bf16 rounding's cascade reaches
 
 
 def _cfg(preset, tiny, **kw):
@@ -182,12 +198,39 @@ def _jax_decode(qparams, jcfg, kv, inputs):
     return np.asarray(out.tokens), np.asarray(out.gen_lens)
 
 
-def _port_decode(params, cfg, kv, inputs, sampled=False):
+def _port_decode(params, cfg, kv, inputs, sampled=False, mode="3",
+                 record=False):
+    """The one-process port's eager decode (``record``: with each sampled
+    step's logits and tokens, ``chip_smoke._recorded``)."""
     dcfg = tconfig.DecodeConfig(
         kv_cache=kv, max_frames=MAX_FRAMES,
         **(SAMPLED if sampled else dict(top_k=1)))
-    out = teng.decode_tokens(params, cfg, dcfg,
-                             *(torch.from_numpy(a) for a in inputs), seed=7)
+    logits, tokens = {}, {}
+    os.environ["T5G_FUSED_ATTN"] = mode
+    try:
+        out = chip_smoke._recorded(lambda: teng.decode_tokens(
+            params, cfg, dcfg, *(torch.from_numpy(a) for a in inputs),
+            seed=7), logits, tokens)
+    finally:
+        os.environ.pop("T5G_FUSED_ATTN", None)
+    if record:
+        return out.tokens.numpy(), out.gen_lens.numpy(), logits, tokens
+    return out.tokens.numpy(), out.gen_lens.numpy()
+
+
+def _port_speculative(params, cfg, kind, inputs, base_tokens, mtp):
+    """The one-process port's speculative decode of case ``kind``
+    (``worker.SPECS``), drafted as the worker drafts it: from
+    ``base_tokens`` (its sequential case's tokens) or by ``mtp``."""
+    base, kv, draft = SPECS[kind]
+    draft_fn = (tspec.mtp_draft_fn(mtp) if draft == "mtp" else
+                tspec.trace_draft_fn(drafted_trace(
+                    torch.from_numpy(base_tokens), cfg.audio_vocab_size),
+                    SPEC_K))
+    out = tspec.decode_tokens_speculative(
+        params, cfg, decode_config(base, kv),
+        *(torch.from_numpy(a) for a in inputs), seed=7, draft_fn=draft_fn,
+        k=SPEC_K)
     return out.tokens.numpy(), out.gen_lens.numpy()
 
 
@@ -230,8 +273,10 @@ def served(tmp_path_factory):
     cont = {"cont_dp": _continuous_requests(ccfg, 3, 10, 4, 100),
             "cont_tp": _continuous_requests(ccfg, 2, 10, 4, 300)}
     b1 = tuple(a[1:2] for a in reqs)
+    mtp = tspec.init_mtp_heads(torch.Generator().manual_seed(11), tcfg,
+                               SPEC_K)
     data = dict(cfg=tcfg, cont_cfg=ccfg, p1=tp_whole[1], p3=tp_whole[3],
-                inputs=reqs, inputs1=b1, **cont)
+                inputs=reqs, inputs1=b1, mtp=mtp, **cont)
     for d in out.values():
         torch.save(data, os.path.join(d, "inputs.pt"))
     procs = {d: launch(g, {"two": 2, "four": 4}[g], d)
@@ -245,16 +290,24 @@ def served(tmp_path_factory):
         want["jax"] = {
             "bf16": _jax_decode(jp[3], jcfg, "paged", reqs),
             "int8": _jax_decode(jq[8], jcfg, "paged_i8", reqs),
-            "int4": _jax_decode(jq[4], jcfg, "paged_i8", b1)}
+            "int4": _jax_decode(jq[4], jcfg, "paged_i8", b1),
+            "f8": _jax_decode(jp[3], jcfg, "paged_f8", reqs)}
         quantized = {bits: tquant.quantize_params_for_decode(
                          tt5.fuse_for_decode(tp_whole[3 if bits == 8 else 1]),
                          weight_bits=bits) for bits in (8, 4)}
+        trees = {"f32": tp_whole[3], "int8": quantized[8],
+                 "int4": quantized[4],
+                 "w8a16": tquant.quantize_params_for_decode(
+                     tt5.fuse_for_decode(tp_whole[3]), act_bits=16)}
         want["port"] = {
-            "bf16": _port_decode(tp_whole[3], tcfg, "paged", reqs),
-            "int8": _port_decode(quantized[8], tcfg, "paged_i8", reqs),
-            "int4": _port_decode(quantized[4], tcfg, "paged_i8", b1),
-            "sampled": _port_decode(tp_whole[3], tcfg, "paged", reqs,
-                                    sampled=True)}
+            kind: _port_decode(trees[w], tcfg, kv, b1 if b == 1 else reqs,
+                               sampled, mode, record=kind == "w8a16")
+            for kind, (w, kv, b, sampled, mode) in DECODES.items()}
+        want["spec"] = {
+            kind: _port_speculative(
+                trees[DECODES[SPECS[kind][0]][0]], tcfg, kind,
+                b1 if DECODES[SPECS[kind][0]][2] == 1 else reqs,
+                want["port"][SPECS[kind][0]][0], mtp) for kind in SPECS}
         want["cont_dp2"] = _port_continuous(tp_whole[3], ccfg,
                                             cont["cont_dp"], dp=True)
         want["cont_tp2"] = _port_continuous(tp_whole[3], ccfg,
@@ -293,7 +346,8 @@ def _assembled(case):
 
 GREEDY = [(name, kind) for name, _ in TWO + FOUR
           for kind in ("bf16", "int8", "int4")
-          if name.endswith("_" + kind) and not name.startswith("stack_")]
+          if name.endswith("_" + kind) and not name.startswith("stack_")
+          and "_spec_" not in name]
 
 
 @pytest.mark.parametrize("name,kind", GREEDY)
@@ -307,6 +361,93 @@ def test_greedy_decode_over_the_mesh_equals_one_process_and_jax(
     np.testing.assert_array_equal(tokens, port_tokens)
     np.testing.assert_array_equal(lens, jax_lens)
     np.testing.assert_array_equal(tokens, jax_tokens)
+
+
+MODES = [(name, name.partition("_")[2]) for name, _ in TWO + FOUR
+         if name.partition("_")[2] in ("w8a16", "mode0", "mode1", "f8")]
+
+
+@pytest.mark.parametrize("name,kind", MODES)
+def test_greedy_modes_over_the_mesh_equal_one_process_and_jax(served, name,
+                                                              kind):
+    """W8A16, attention modes 0 and 1 (kernels 5 and 7's twins) and float8
+    pages at tp 2 and tp 4, greedy B = 4: token-equal to the one-process
+    port; modes 0 and 1 also to JAX's bf16 paged decode, float8 pages to
+    JAX's paged_f8 decode. W8A16 rounds each product's f32 input to bf16
+    and a rank sums its row block's f32 partials in another order, so an
+    activation next to a bf16 midpoint may round apart: a row may part
+    from the one-process port only at a near-tie
+    (``chip_smoke.near_tie_parting``, CASCADE_REL before it)."""
+    tokens, lens = _assembled(served["got"][name])
+    if kind == "w8a16":
+        port_tokens, port_lens, port_logits, port_sampled = \
+            served["want"]["port"][kind]
+        rank0 = served["got"][name]["ranks"][0]
+        for r in range(len(lens)):
+            n = max(lens[r], port_lens[r])
+            if (lens[r] != port_lens[r]
+                    or not np.array_equal(tokens[r, :n], port_tokens[r, :n])):
+                chip_smoke.near_tie_parting(r, port_logits, rank0["logits"],
+                                            port_sampled, rank0["sampled"],
+                                            CASCADE_REL)
+        return
+    port_tokens, port_lens = served["want"]["port"][kind]
+    assert lens.max() < MAX_FRAMES
+    np.testing.assert_array_equal(lens, port_lens)
+    np.testing.assert_array_equal(tokens, port_tokens)
+    jax_tokens, jax_lens = served["want"]["jax"][
+        "f8" if kind == "f8" else "bf16"]
+    np.testing.assert_array_equal(lens, jax_lens)
+    np.testing.assert_array_equal(tokens, jax_tokens)
+
+
+SPEC_CASES = [name for name, _ in TWO + FOUR if "_spec_" in name
+              and name.partition("_")[2] != "spec_sampled"]
+# the JAX sequential decode a speculative case equals, where the file makes
+# one: f32 over float8 pages (the unfused verify pass, which rounds as the
+# sequential step does) and int8 over int8 pages. int4 over int8 pages
+# parts from it at a near-tie: the verify pass folds the chain's keys in
+# after the pages, the sequential step inside them, and an f32 difference
+# that moves an int8 activation level shows in the int4 model's logits.
+SPEC_JAX = {"spec_int8_i8": "int8", "spec_f8": "f8"}
+
+
+@pytest.mark.parametrize("name", SPEC_CASES)
+def test_speculative_over_the_mesh_equals_one_process_and_jax(served, name):
+    """``decode_tokens_speculative`` at tp 2 / tp 4 (k = 4; int4 and int8
+    weights over int8 and bf16 pages through kernel 2's parts at chain 5,
+    f32 over float8 pages through kernel 5's twin and the chain merge;
+    drafted from a trace at 90 % acceptance or by MTP heads): token-equal
+    to the one-process port's speculative decode with the same draft, and
+    to JAX's greedy sequential decode where the file makes one; every rank
+    of the group takes the same passes, and a trace's drafts are
+    accepted (fewer passes than steps)."""
+    kind = name.split("_", 1)[1]
+    tokens, lens = _assembled(served["got"][name])
+    port_tokens, port_lens = served["want"]["spec"][kind]
+    np.testing.assert_array_equal(lens, port_lens)
+    np.testing.assert_array_equal(tokens, port_tokens)
+    ranks = served["got"][name]["ranks"]
+    assert len({(r["steps"], r["passes"]) for r in ranks}) == 1
+    if SPECS[kind][2] == "trace":
+        assert ranks[0]["passes"] < ranks[0]["steps"]
+    if kind in SPEC_JAX:
+        jax_tokens, jax_lens = served["want"]["jax"][SPEC_JAX[kind]]
+        np.testing.assert_array_equal(lens, jax_lens)
+        np.testing.assert_array_equal(tokens, jax_tokens)
+
+
+def test_sampled_data_parallel_speculative_streams_are_bit_equal(served):
+    """dp 2, sampled (top-k 8), speculative k = 4 drafted from the whole
+    batch's trace (each rank drafting from its own rows of it): every
+    stream bit-equal to the one-process speculative run, which needs each
+    rank to draw its own rows of ``step_uniform`` (``tensor.first_row``)."""
+    tokens, lens = _assembled(served["got"]["dp2_spec_sampled"])
+    port_tokens, port_lens = served["want"]["spec"]["spec_sampled"]
+    np.testing.assert_array_equal(lens, port_lens)
+    np.testing.assert_array_equal(tokens, port_tokens)
+    assert all(r["passes"] < r["steps"]
+               for r in served["got"]["dp2_spec_sampled"]["ranks"])
 
 
 @pytest.mark.parametrize("name", ["dp2_sampled", "dp2tp2_sampled"])
@@ -343,6 +484,7 @@ def test_decode_stack_over_the_group_equals_the_plain_stack(served, name):
 
 @pytest.mark.parametrize("path", REFUSALS)
 def test_part_d_paths_raise_at_tp2(served, path):
+    """The captured step, the one path that still refuses at tp > 1."""
     for r in served["got"]["refusals"]["ranks"]:
         msg = r["raised"][path]
         assert msg is not None and "Queue 1 item 15 part D" in msg, msg
@@ -363,8 +505,10 @@ def whole_trees():
     p = tt5.fuse_for_decode(bridge.params_from_jax(
         _np(jvoice.init_params(jax.random.PRNGKey(3), _cfg(jpreset, jtiny))),
         "cpu"))
-    return cfg, p, {bits: tquant.quantize_params_for_decode(
-        p, weight_bits=bits) for bits in (8, 4)}
+    q = {bits: tquant.quantize_params_for_decode(p, weight_bits=bits)
+         for bits in (8, 4)}
+    q[16] = tquant.quantize_params_for_decode(p, act_bits=16)
+    return cfg, p, q
 
 
 def _at(tree, path):
@@ -373,15 +517,18 @@ def _at(tree, path):
     return tree
 
 
-@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("bits", [8, 4, 16])
 @pytest.mark.parametrize("t", [2, 4])
 def test_row_split_levels_and_scales_are_the_whole_blocks(whole_trees, bits,
                                                           t):
+    """bits 16: W8A16 leaves (int8 levels, ``act_bits=16``), cut as W8A8
+    leaves are."""
     cfg, p, q = whole_trees
     for r in range(t):
         mesh = parallel.Mesh(dp=1, tp=t, rank=r)
-        shard = parallel.serving_shard(p, cfg, mesh, quantize=True,
-                                       weight_bits=bits)
+        shard = parallel.serving_shard(
+            p, cfg, mesh, quantize=True, weight_bits=4 if bits == 4 else 8,
+            act_bits=16 if bits == 16 else 8)
         for path in ROW_SPLIT:
             w, whole = _at(shard, path), _at(q[bits], path)
             if path[-1] == "o" and cfg.backbone.decoder.num_kv_heads % t:
@@ -394,6 +541,8 @@ def test_row_split_levels_and_scales_are_the_whole_blocks(whole_trees, bits,
                                levels[..., r * k:(r + 1) * k]), path
             assert torch.equal(w.scale, whole.scale), path
             assert type(w) is type(whole)
+            if bits == 16:
+                assert w.act_bits == whole.act_bits == 16
         # a rank's fused leaves are its own columns of each part
         qkv, full = (_at(shard, ("decoder", "layers", "self_attn", "qkv")),
                      _at(q[bits], ("decoder", "layers", "self_attn", "qkv")))
@@ -410,23 +559,31 @@ def test_row_split_levels_and_scales_are_the_whole_blocks(whole_trees, bits,
             assert qkv.n == full.n // t
 
 
-def _layer_case(int4, kv_quant):
+def _layer_case(int4, kv_quant, chain=1):
+    """Tiny decode-layer inputs: B = 4 cache rows (int4: 1), each ``chain``
+    pseudo-rows (a verify pass at k = chain - 1), ``chain`` in the args."""
     cfg = tconfig.tiny_voice_config()
     dims = cfg.backbone.decoder
     layers = chip_smoke.random_quant_layers(dims, dims.num_layers, "cpu", 0,
                                             int4=int4)
     b = 1 if int4 else 4
+
+    def rows(v):
+        return np.repeat(np.asarray(v[:b]), chain).tolist()
+
     args = chip_smoke.decode_layer_inputs(
-        dims, b, kv_quant, 5, [3, 0, 7, 1][:b], [9, 4, 12, 30][:b], 128,
-        "cpu", 1)
-    return cfg, dims, layers, args
+        dims, b * chain, kv_quant, 5, rows([3, 0, 7, 1]),
+        rows([9, 4, 12, 30]), 128, "cpu", 1, chain=chain)
+    return cfg, dims, layers, dict(args, chain=chain)
 
 
+@pytest.mark.parametrize("chain", [1, 5])
 @pytest.mark.parametrize("t", [1, 2, 4])
 @pytest.mark.parametrize("int4", [False, True])
 @pytest.mark.parametrize("kv_quant", [False, True])
-def test_layer_parts_of_every_rank_equal_the_plain_stack(t, int4, kv_quant):
-    cfg, dims, layers, args = _layer_case(int4, kv_quant)
+def test_layer_parts_of_every_rank_equal_the_plain_stack(t, int4, kv_quant,
+                                                         chain):
+    cfg, dims, layers, args = _layer_case(int4, kv_quant, chain)
     want = mk.decode_stack_plain(layers, dims, **args)
     ranks = chip_smoke.tp_layer_ranks(layers, dims, cfg, args, t)
     chip_smoke.run_ranks([r for r, _ in ranks])
@@ -455,6 +612,93 @@ def test_row_split_products_of_every_rank_equal_the_plain_product(t, int4):
     assert torch.equal(amax, x.abs().amax(dim=-1))
     for r in got:
         assert torch.equal(r, want)
+
+
+W8A16_ORDER_TOL = 1e-5   # of the product's largest magnitude: f32 sums
+
+
+@pytest.mark.parametrize("t", [2, 4])
+def test_w8a16_row_blocks_of_every_rank_sum_to_the_whole_product(t):
+    """Every rank's ``rows_matmul_a16`` (kernel 6's twin at its K rows, an
+    f32 result, the group's f32 sum, one cast) against the whole W8A16
+    product: equal but for the order of the f32 sums (each rank scales its
+    partial before the group adds them), within W8A16_ORDER_TOL of the
+    product's largest magnitude; the ranks' results bit-equal."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((3, 256), generator=g)
+    w = tquant.quantize_weight(
+        (torch.randn((256, 40), generator=g) * 0.02).to(torch.bfloat16),
+        act_bits=16)
+    want = tquant.w8a16_matmul_plain(x, w, torch.float32)
+    kr = 256 // t
+    xs = [x[:, r * kr:(r + 1) * kr] for r in range(t)]
+    ws = [_take_rows(w, r * kr, kr) for r in range(t)]
+    assert all(wr.act_bits == 16 for wr in ws)
+    total = sum(tquant.w8a16_matmul(xr, wr, torch.float32)
+                for xr, wr in zip(xs, ws))
+    got = [tquant.rows_matmul_a16(xr, wr, lambda _: total)
+           for xr, wr in zip(xs, ws)]
+    for r in got:
+        assert r.dtype == torch.float32 and torch.equal(r, got[0])
+    err = float((got[0] - want).abs().max())
+    assert err <= W8A16_ORDER_TOL * float(want.abs().max()), err
+    bf = tquant.rows_matmul_a16(xs[0].to(torch.bfloat16), ws[0],
+                                lambda _: total)
+    assert bf.dtype == torch.bfloat16 and torch.equal(
+        bf, total.to(torch.bfloat16))
+
+
+def _kernel5_case(s_len):
+    """Kernel 5's inputs at the ``test``-like heads Hq / Hkv 8 / 4 (two
+    cache rows, bf16 pages, permuted page tables), chain ``s_len``."""
+    return chip_smoke.parts_case(
+        np.random.default_rng(21), rows=2, s_len=s_len, h=8, hkv=4, hd=16,
+        lens=[0, 200], pp=2, dtype=torch.bfloat16, layers=2, li=1,
+        device="cpu", permute=True)
+
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("s_len", [1, 5])
+def test_kernel5_twin_at_a_ranks_heads_is_its_block_of_the_whole(t, s_len):
+    """``paged_flash_parts`` (chain s_len: the verify pass; chain 1: mode
+    0's self segments) and ``paged_gqa_attention`` (cross attention) at a
+    rank's heads equal the whole call's block of heads bit for bit: heads
+    are independent, so a rank's output needs no collective."""
+    args = _kernel5_case(s_len)
+    whole = pa.paged_flash_parts(**args, attn_logits_soft_cap=50.0)
+    cross = pa.paged_gqa_attention(
+        args["q"], args["k_pages"], args["v_pages"], args["lengths"],
+        page_indices=args["page_indices"], attn_logits_soft_cap=50.0,
+        chain=s_len)
+    h = args["q"].shape[1] // t
+    for r in range(t):
+        a = chip_smoke.head_block(args, t, r)
+        part = pa.paged_flash_parts(**a, attn_logits_soft_cap=50.0)
+        for got, want in zip(part, whole):
+            assert torch.equal(got, want[:, r * h:(r + 1) * h])
+        got = pa.paged_gqa_attention(
+            a["q"], a["k_pages"], a["v_pages"], a["lengths"],
+            page_indices=a["page_indices"], attn_logits_soft_cap=50.0,
+            chain=s_len)
+        assert torch.equal(got, cross[:, r * h:(r + 1) * h])
+
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("f8", [False, True])
+def test_kernel7_twin_at_a_ranks_heads_is_its_block_of_the_whole(t, f8):
+    """``fused_decode_attention`` (mode 1) at a rank's heads, bf16 and e4m3
+    pages, equals the whole call's block of heads bit for bit."""
+    base = chip_smoke.attention_case(
+        np.random.default_rng(22), b=4, h=8, hkv=4, hd=16, quant=False,
+        f8=f8, a_lens=[0, 128, 165, 256], b_lens=[7, 0, 129, 320], pp_a=2,
+        pp_b=3, layers=2, li=1, include_current=True, device="cpu")
+    args = chip_smoke.fused_args(base)
+    whole = fa.fused_decode_attention(**args, attn_logits_soft_cap=50.0)
+    h = args["q"].shape[1] // t
+    for r in range(t):
+        got = fa.fused_decode_attention(
+            **chip_smoke.head_block(args, t, r), attn_logits_soft_cap=50.0)
+        assert torch.equal(got, whole[:, r * h:(r + 1) * h])
 
 
 def test_a_shard_outside_model_parallel_raises():
@@ -499,6 +743,22 @@ def test_shard_slot_state_refuses_a_paged_state():
     with pytest.raises(ValueError, match="dense-cache"):
         parallel.shard_slot_state(_slot_state("paged"),
                                   parallel.Mesh(dp=2, tp=1))
+
+
+def test_a_trace_draft_reads_a_data_parallel_ranks_rows():
+    """``trace_draft_fn`` of the whole batch's trace drafts a dp rank's
+    rows from its own rows of it; a trace of the rank's rows alone is read
+    as it is."""
+    trace = torch.arange(4 * 12, dtype=torch.int32).reshape(4, 12)
+    draft = tspec.trace_draft_fn(trace, 3)
+    cur = torch.zeros((2,), dtype=torch.int32)
+    for r in range(2):
+        with tp.model_parallel(parallel.Mesh(dp=2, tp=1, rank=r)):
+            got = draft(None, cur, 5)
+            own = tspec.trace_draft_fn(trace[2 * r:2 * r + 2], 3)(None, cur,
+                                                                  5)
+        assert torch.equal(got, trace[2 * r:2 * r + 2, 6:9])
+        assert torch.equal(own, got)
 
 
 def test_a_data_parallel_ranks_draws_are_its_rows_of_the_batch():

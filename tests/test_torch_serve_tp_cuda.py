@@ -14,16 +14,27 @@ collectives would do them):
   between two ranks): every rank's h, k and v within the card check's
   tolerance for a rank's parts (``chip_smoke.TP_PART_TOL``) of the
   one-process ``decode_stack`` on the card and of the plain
-  ``decode_stack_plain`` (not bit for bit: a rank's attention plans its
-  splits over its own kv heads, so its f32 partial sums are taken in
-  another order than the one-process kernel's; on the CPU, where the
-  plain parts walk the pages as the plain layer does, the ranks equal the
-  one-process stack bit for bit);
+  ``decode_stack_plain`` (a rank's attention takes the one-process
+  call's split plan, so on one H100 its parts read 0 against the
+  one-process stack, and the plain stack's distance from it);
 - kernels 3 and 4 at row-split K blocks through ``quant.rows_matmul`` (the
   group's row absmax, the int32 partial products summed, one rescale;
   ``chip_smoke.rows_over_group``): every rank's result bit-equal to the
   plain product on the same inputs, on the GEMV route (the head, M = 4 /
-  M = 1) and the tensor cores (prefill, M = 260).
+  M = 1) and the tensor cores (prefill, M = 260);
+- kernel 2's parts at chain 5 (a verify pass at k = 4; w8 and w4, 1 and 2
+  cache rows, bf16 and int8 pages) against the one-process chain stack
+  within ``TP_PART_TOL``, and against its plain version within
+  ``TP_PART_TOL`` beyond the one-process chain stack's own distance from
+  it (``chip_smoke.tp_part_limits``);
+- kernel 5 (``paged_flash_parts`` at chain 5 and 1) and kernel 7
+  (``fused_decode_attention``, bf16 and e4m3 pages) at a rank's heads
+  against their plain versions and the whole call's block of heads, their
+  plans filling a wave;
+- kernel 6 (W8A16) at a rank's row block of ``o`` and ``down``: every
+  rank's f32 result summed (``quant.rows_matmul_a16``'s group sum) against
+  the whole plain product, within ``chip_smoke.W8A16_REL_FRO``, and its
+  column blocks against their plain version.
 
 This module imports no JAX; run it on the card with
 
@@ -145,3 +156,110 @@ def test_row_split_products_equal_the_whole_product(int4, m, k, n, t):
     assert torch.equal(amax, quant.row_absmax(x))
     for r in got:
         assert torch.equal(r, plain)
+
+
+@pytest.mark.parametrize("case", chip_smoke.TP_LAYER_CASES[2:])
+@pytest.mark.parametrize("t", [2, 4])
+def test_kernel2_chain_parts_equal_the_one_process_chain(case, t):
+    dev = _card()
+    int4, rows, chain, kv_quant = case
+    cfg = VoiceConfig()
+    dims = dataclasses.replace(cfg.backbone.decoder, num_layers=2,
+                               layer_types=())
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, decoder=dims))
+    layers = chip_smoke.random_quant_layers(dims, 2, dev, seed=5, int4=int4)
+    args = dict(chip_smoke.chain_layer_inputs(dims, rows, chain, kv_quant,
+                                              dev, seed=7), chain=chain)
+    whole = mk.decode_stack(layers, dims, **args)
+    plain = mk.decode_stack_plain(layers, dims, **args)
+    before = mk.decode_layer_part.launches
+    ranks = simulated_ranks(layers, dims, cfg, args, t)
+    assert mk.decode_layer_part.launches - before == t * mk.PARTS * 2
+    assert all(h.shape[0] == rows * chain for h, _, _, _ in ranks)
+    errs = chip_smoke.tp_part_errors(
+        [((h, k, v), lo) for h, k, v, lo in ranks], whole, plain)
+    for got, lim in zip(errs, chip_smoke.tp_part_limits(whole, plain,
+                                                        chain)):
+        assert all(e <= tol for e, tol in zip(got, lim)), (errs, lim)
+
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("chain, dtype", [(5, torch.bfloat16),
+                                          (5, torch.float8_e4m3fn),
+                                          (1, torch.bfloat16)])
+def test_kernel5_at_a_ranks_heads(t, chain, dtype):
+    dev = _card()
+    from t5gemma_tts_tpu_torch.ops import paged_attn as pa
+
+    spec = (dict(rows=1, lens=[300], pp=4) if chain > 1
+            else dict(rows=4, lens=[44, 9, 29, 130], pp=2))
+    args = chip_smoke.parts_case(
+        np.random.default_rng(t), s_len=chain, h=8, hkv=4, hd=256,
+        dtype=dtype, layers=2, li=1, device=dev, permute=True, **spec)
+    whole = pa.paged_flash_parts(**args, attn_logits_soft_cap=50.0)
+    h = 8 // t
+    for r in range(t):
+        a = chip_smoke.head_block(args, t, r)
+        got = pa.paged_flash_parts(**a, attn_logits_soft_cap=50.0)
+        chip_smoke.check_parts(f"kernel 5 tp {t}", got,
+                               pa.paged_flash_parts_plain(
+                                   **a, attn_logits_soft_cap=50.0))
+        chip_smoke.head_outputs_close(f"kernel 5 tp {t} rank {r}", got,
+                                       whole, r * h, h)
+        assert chip_smoke.parts_plan(a)[2] >= fa.WAVE
+
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("f8", [False, True])
+def test_kernel7_at_a_ranks_heads(t, f8):
+    dev = _card()
+    base = chip_smoke.attention_case(
+        np.random.default_rng(t + 10), b=4, h=8, hkv=4, hd=256, quant=False,
+        f8=f8, a_lens=[0, 1, 128, 1], b_lens=[225, 180, 0, 300], pp_a=1,
+        pp_b=4, layers=2, li=1, include_current=True, device=dev)
+    args = chip_smoke.fused_args(base)
+    whole = fa.fused_decode_attention(**args, attn_logits_soft_cap=50.0)
+    h = 8 // t
+    for r in range(t):
+        a = chip_smoke.head_block(args, t, r)
+        got = fa.fused_decode_attention(**a, attn_logits_soft_cap=50.0)
+        chip_smoke.check_close(f"kernel 7 tp {t}", got,
+                               fa.fused_decode_attention_plain(
+                                   **a, attn_logits_soft_cap=50.0))
+        chip_smoke.head_outputs_close(f"kernel 7 tp {t} rank {r}", got,
+                                       whole, r * h, h)
+        assert chip_smoke.attention_plan(
+            chip_smoke.head_block(base, t, r))[2] >= fa.WAVE
+
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("m", [4, 260])
+@pytest.mark.parametrize("name, k, n, axis",
+                         chip_smoke.W8A16_TP_PRODUCTS)
+def test_w8a16_blocks_equal_the_whole_product(t, m, name, k, n, axis):
+    dev = _card()
+    from t5gemma_tts_tpu_torch.parallel.mesh import _take_columns
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    w = quant.quantize_weight((torch.randn((k, n), generator=g, device=dev)
+                               * 0.02).to(torch.bfloat16), act_bits=16)
+    x = (torch.randn((m, k), generator=g, device=dev) * 2.0).to(
+        torch.bfloat16)
+    if axis == "columns":
+        nr = n // t
+        for r in range(t):
+            idx = torch.arange(r * nr, (r + 1) * nr, device=dev)
+            chip_smoke.check_w8a16(f"{name} tp {t}", x,
+                                   _take_columns(w, idx))
+        return
+    kr = k // t
+    parts = [quant.w8a16_matmul(x[:, r * kr:(r + 1) * kr].contiguous(),
+                                _take_rows(w, r * kr, kr), torch.float32)
+             for r in range(t)]
+    total = sum(parts)
+    got = quant.rows_matmul_a16(x[:, :kr].contiguous(), _take_rows(w, 0, kr),
+                                lambda _: total)
+    want = quant.w8a16_matmul_plain(x, w, torch.float32)
+    assert chip_smoke.rel_fro(total, want) <= chip_smoke.W8A16_REL_FRO
+    assert torch.equal(got, total.to(torch.bfloat16))

@@ -250,19 +250,19 @@ def test_parallel_options_raise_naming_item_15(setup, tmp_path):
     from types import SimpleNamespace
 
     from t5gemma_tts_tpu_torch import parallel
-    from t5gemma_tts_tpu_torch.decode import speculative
+    from t5gemma_tts_tpu_torch.decode import engine
     from t5gemma_tts_tpu_torch.parallel import tensor as tp
 
     # the serving half is ported: a paged state is refused by its own rule,
-    # and what is left of it (part D) raises under tensor parallelism
+    # and what is left of it (part D: the captured step) raises under
+    # tensor parallelism
     with pytest.raises(ValueError, match="dense-cache"):
         parallel.shard_slot_state(SimpleNamespace(cache=None),
                                   parallel.Mesh(dp=1, tp=1))
     with tp.model_parallel(parallel.Mesh(dp=1, tp=2)), pytest.raises(
             ValueError, match="Queue 1 item 15 part D"):
-        speculative.decode_tokens_speculative(
-            None, None, None, None, None, None, None, None, seed=0,
-            draft_fn=None, k=1)
+        engine._prefilled_session(None, None, None, None, None, None, None,
+                                  None, seed=0, stream=False)
     # ZeRO-1 without a mesh: nothing to split, the one-device trainer
     train_ds, _ = _port_datasets(setup)
     trainer = ttrainer.Trainer(setup["tcfg"], ttrainer.TrainerConfig(

@@ -16,13 +16,22 @@ whole first) and decodes through the ordinary entry points inside
 ``parallel.tensor.model_parallel(mesh)``:
 
 - ``two`` (world 2): tp 2 greedy bf16 paged B = 4, int8 ``paged_i8``
-  B = 4 and int4 ``paged_i8`` B = 1; dp 2 sampled bf16 B = 4; continuous
-  dp 2 over ``shard_slot_state`` and continuous tp 2 (the JAX tests'
-  recipe, dense cache); the int8 and int4 decode stacks over the real
-  group against the plain one-process stack; every part-D refusal.
+  B = 4 and int4 ``paged_i8`` B = 1, W8A16 paged B = 4, attention modes 0
+  and 1 B = 4 and f32 over ``paged_f8`` B = 4; speculative (k = 4) int4
+  over ``paged_i8`` and ``paged`` B = 1, int8 over ``paged_i8`` B = 4 and
+  f32 over ``paged_f8`` B = 4, each drafted from its sequential case's
+  trace corrupted to 90 % acceptance (:func:`drafted_trace`), and int8
+  over ``paged`` B = 4 drafted by MTP heads; dp 2 sampled bf16 B = 4,
+  sequential and speculative (drafted from the whole batch's sampled
+  trace, which the ranks gather); continuous dp 2 over
+  ``shard_slot_state`` and continuous tp 2 (the JAX tests' recipe, dense
+  cache); the int8 and int4 decode stacks over the real group against the
+  plain one-process stack; the two captured paths' refusals.
 - ``four`` (world 4): tp 4 (the ``test`` preset's 2 kv heads do not
   divide 4: attention stays whole, the MLP and the head split) greedy
-  bf16, int8 and int4; dp 2 x tp 2 greedy bf16 and int8, and sampled.
+  bf16, int8, int4, W8A16, modes 0 and 1 and ``paged_f8``, speculative
+  int4 over ``paged_i8`` and f32 over ``paged_f8``; dp 2 x tp 2 greedy
+  bf16 and int8, and sampled.
 """
 
 import dataclasses
@@ -31,6 +40,7 @@ import sys
 import traceback
 from datetime import timedelta
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,7 +51,6 @@ from t5gemma_tts_tpu_torch import parallel  # noqa: E402
 from t5gemma_tts_tpu_torch.config import DecodeConfig  # noqa: E402
 from t5gemma_tts_tpu_torch.decode import continuous, engine  # noqa: E402
 from t5gemma_tts_tpu_torch.decode import speculative  # noqa: E402
-from t5gemma_tts_tpu_torch.models import t5gemma  # noqa: E402
 from t5gemma_tts_tpu_torch.ops import megakernel as mk  # noqa: E402
 from t5gemma_tts_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from t5gemma_tts_tpu_torch.parallel import tensor as tp  # noqa: E402
@@ -50,30 +59,72 @@ torch.set_num_threads(1)
 TIMEOUT = timedelta(seconds=120)
 MAX_FRAMES = 48
 SAMPLED = dict(top_k=8, top_p=0.9, temperature=0.8)
-# decode cases: (weights, kv cache, batch rows, sampled)
-DECODES = {"bf16": ("f32", "paged", 4, False),
-           "int8": ("int8", "paged_i8", 4, False),
-           "int4": ("int4", "paged_i8", 1, False),
-           "sampled": ("f32", "paged", 4, True)}
+SPEC_K = 4             # drafted tokens a verify pass
+ACCEPT = 0.9           # a drafted trace's per-token acceptance
+# decode cases: (weights, kv cache, batch rows, sampled, T5G_FUSED_ATTN)
+DECODES = {"bf16": ("f32", "paged", 4, False, "3"),
+           "int8": ("int8", "paged_i8", 4, False, "3"),
+           "int4": ("int4", "paged_i8", 1, False, "3"),
+           "sampled": ("f32", "paged", 4, True, "3"),
+           "w8a16": ("w8a16", "paged", 4, False, "3"),
+           "mode0": ("f32", "paged", 4, False, "0"),
+           "mode1": ("f32", "paged", 4, False, "1"),
+           "f8": ("f32", "paged_f8", 4, False, "3")}
+# speculative cases: (the decode case whose weights, cache, rows and
+# sampling they take, its kv cache, the draft: that case's trace or "mtp")
+SPECS = {"spec_int4_i8": ("int4", "paged_i8", "trace"),
+         "spec_int4": ("int4", "paged", "trace"),
+         "spec_int8_i8": ("int8", "paged_i8", "trace"),
+         "spec_f8": ("f8", "paged_f8", "trace"),
+         "spec_mtp": ("int8", "paged", "mtp"),
+         "spec_sampled": ("sampled", "paged", "trace")}
 TWO = [("tp2_bf16", (1, 2)), ("tp2_int8", (1, 2)), ("tp2_int4", (1, 2)),
-       ("dp2_sampled", (2, 1)), ("cont_dp2", (2, 1)), ("cont_tp2", (1, 2)),
+       ("tp2_w8a16", (1, 2)), ("tp2_mode0", (1, 2)), ("tp2_mode1", (1, 2)),
+       ("tp2_f8", (1, 2)), ("tp2_spec_int4_i8", (1, 2)),
+       ("tp2_spec_int4", (1, 2)), ("tp2_spec_int8_i8", (1, 2)),
+       ("tp2_spec_f8", (1, 2)), ("tp2_spec_mtp", (1, 2)),
+       ("dp2_sampled", (2, 1)), ("dp2_spec_sampled", (2, 1)),
+       ("cont_dp2", (2, 1)), ("cont_tp2", (1, 2)),
        ("stack_tp2_int8", (1, 2)), ("stack_tp2_int4", (1, 2)),
        ("refusals", (1, 2))]
 FOUR = [("tp4_bf16", (1, 4)), ("tp4_int8", (1, 4)), ("tp4_int4", (1, 4)),
+        ("tp4_w8a16", (1, 4)), ("tp4_mode0", (1, 4)), ("tp4_mode1", (1, 4)),
+        ("tp4_f8", (1, 4)), ("tp4_spec_int4_i8", (1, 4)),
+        ("tp4_spec_f8", (1, 4)),
         ("dp2tp2_bf16", (2, 2)), ("dp2tp2_int8", (2, 2)),
         ("dp2tp2_sampled", (2, 2))]
-# part-D paths that must raise at tp > 1
-REFUSALS = ("mode0", "mode1", "w8a16", "paged_f8", "speculative",
-            "paged_decode_multi", "graphed_decoder", "continuous_capture")
+# the paths that must raise at tp > 1: the captured step (a captured
+# collective, shown only with more than one card)
+REFUSALS = ("graphed_decoder", "continuous_capture")
 
 
 def shard(data, weights: str, mesh):
-    """This rank's serving tree for ``weights`` ("f32", "int8", "int4")."""
+    """This rank's serving tree for ``weights`` ("f32", "int8", "int4",
+    "w8a16")."""
     whole = data["p1"] if weights == "int4" else data["p3"]
-    bits = {"f32": None, "int8": 8, "int4": 4}[weights]
-    return parallel.serving_shard(whole, data["cfg"], mesh,
-                                  quantize=bits is not None,
-                                  weight_bits=bits or 8)
+    return parallel.serving_shard(
+        whole, data["cfg"], mesh, quantize=weights != "f32",
+        weight_bits=4 if weights == "int4" else 8,
+        act_bits=16 if weights == "w8a16" else 8)
+
+
+def decode_config(kind: str, kv: str = None) -> DecodeConfig:
+    """The DecodeConfig of decode case ``kind`` (``kv``: another cache)."""
+    _, kv0, _, sampled, _ = DECODES[kind]
+    return DecodeConfig(top_k=SAMPLED["top_k"] if sampled else 1,
+                        kv_cache=kv or kv0, max_frames=MAX_FRAMES,
+                        **({k: v for k, v in SAMPLED.items() if k != "top_k"}
+                           if sampled else {}))
+
+
+def drafted_trace(tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """A sequential decode's tokens [B, T] as a draft trace at ACCEPT
+    per-token acceptance: each token replaced by its successor (mod
+    ``vocab``) where a numpy-seeded uniform exceeds ACCEPT."""
+    own = tokens.numpy()
+    corrupt = np.random.default_rng(0).random(own.shape) > ACCEPT
+    return torch.from_numpy(np.where(corrupt, (own + 1) % vocab, own)
+                            .astype(np.int32))
 
 
 def inputs(data, b: int, mesh=None):
@@ -89,22 +140,56 @@ def inputs(data, b: int, mesh=None):
 
 
 def decode(data, mesh, kind: str) -> dict:
-    weights, kv, b, sampled = DECODES[kind]
+    weights, kv, b, sampled, mode = DECODES[kind]
     params = shard(data, weights, mesh)
-    dcfg = DecodeConfig(top_k=SAMPLED["top_k"] if sampled else 1,
-                        kv_cache=kv, max_frames=MAX_FRAMES,
-                        **({k: v for k, v in SAMPLED.items() if k != "top_k"}
-                           if sampled else {}))
+    dcfg = decode_config(kind)
+    logits, sampled_tokens = {}, {}
+    os.environ["T5G_FUSED_ATTN"] = mode
+    try:
+        with tp.model_parallel(mesh):
+            out = chip_smoke._recorded(lambda: engine.decode_tokens(
+                params, data["cfg"], dcfg, *inputs(data, b, mesh), seed=7),
+                logits, sampled_tokens)
+    finally:
+        os.environ.pop("T5G_FUSED_ATTN", None)
+    rows = mesh_mod.batch_rows(b, mesh) if mesh.dp > 1 else (0, b)
+    res = dict(tokens=out.tokens, gen_lens=out.gen_lens, steps=out.steps,
+               rows=rows)
+    if weights == "w8a16":        # for the near-tie clause
+        res.update(logits=logits, sampled=sampled_tokens)
+    return res
+
+
+def speculate(data, mesh, name: str, done: dict) -> dict:
+    """Speculative decode case ``name`` (``<mesh>_<kind>``, the kind one of
+    :data:`SPECS`), greedy but for "spec_sampled", drafted from the tokens
+    of its sequential case on the same mesh (``done``: the cases run so
+    far; under dp the ranks gather the whole batch's trace, whose rows each
+    rank's draft takes) or by ``data["mtp"]``'s heads."""
+    prefix, kind = name.split("_", 1)
+    base, kv, draft = SPECS[kind]
+    weights, _, b, _, _ = DECODES[base]
+    cfg = data["cfg"]
+    params = shard(data, weights, mesh)
+    if draft == "mtp":
+        draft_fn = speculative.mtp_draft_fn(data["mtp"])
+    else:
+        trace = done[f"{prefix}_{base}"]["tokens"]
+        if mesh.dp > 1:
+            trace = mesh_mod.all_gather(trace, 0, mesh.data_group, mesh.dp)
+        draft_fn = speculative.trace_draft_fn(
+            drafted_trace(trace, cfg.audio_vocab_size), SPEC_K)
     os.environ["T5G_FUSED_ATTN"] = "3"
     try:
         with tp.model_parallel(mesh):
-            out = engine.decode_tokens(params, data["cfg"], dcfg,
-                                       *inputs(data, b, mesh), seed=7)
+            out = speculative.decode_tokens_speculative(
+                params, cfg, decode_config(base, kv), *inputs(data, b, mesh),
+                seed=7, draft_fn=draft_fn, k=SPEC_K)
     finally:
         os.environ.pop("T5G_FUSED_ATTN", None)
     rows = mesh_mod.batch_rows(b, mesh) if mesh.dp > 1 else (0, b)
     return dict(tokens=out.tokens, gen_lens=out.gen_lens, steps=out.steps,
-                rows=rows)
+                passes=out.passes, rows=rows)
 
 
 def run_continuous(data, mesh, dp: bool) -> dict:
@@ -170,8 +255,8 @@ def decode_stack_over_group(data, mesh, int4: bool) -> dict:
 
 
 def refusals(data, mesh) -> dict:
-    """Each part-D path at tp > 1: the message it raised (None: it did
-    not raise)."""
+    """Each path that still refuses at tp > 1 (:data:`REFUSALS`): the
+    message it raised (None: it did not raise)."""
     cfg = data["cfg"]
     params = shard(data, "f32", mesh)
     ins = inputs(data, 4)
@@ -185,31 +270,6 @@ def refusals(data, mesh) -> dict:
         except ValueError as e:
             out[name] = str(e)
 
-    def with_mode(mode):
-        def run():
-            os.environ["T5G_FUSED_ATTN"] = mode
-            try:
-                engine.decode_tokens(params, cfg, DecodeConfig(
-                    top_k=1, kv_cache="paged", max_frames=4), *ins, seed=0)
-            finally:
-                os.environ.pop("T5G_FUSED_ATTN", None)
-        return run
-
-    attempt("mode0", with_mode("0"))
-    attempt("mode1", with_mode("1"))
-    attempt("w8a16", lambda: parallel.serving_shard(
-        data["p3"], cfg, mesh, quantize=True, act_bits=16))
-    attempt("paged_f8", lambda: engine.decode_tokens(
-        params, cfg, DecodeConfig(top_k=1, kv_cache="paged_f8",
-                                  max_frames=4), *ins, seed=0))
-    attempt("speculative", lambda: speculative.decode_tokens_speculative(
-        params, cfg, DecodeConfig(top_k=1, kv_cache="paged", max_frames=4),
-        *ins, seed=0, draft_fn=None, k=2))
-    attempt("paged_decode_multi", lambda: t5gemma.paged_decode_multi(
-        params["decoder"], cfg.backbone.decoder, inputs_embeds=None,
-        position_ids=None, pm_decoder_positions=None, cache=None,
-        pending_k=None, pending_v=None, flush_start=0, step=0,
-        prompt_lengths=None, enc_lengths=None))
     attempt("graphed_decoder", lambda: engine._prefilled_session(
         params, cfg, DecodeConfig(top_k=1, kv_cache="paged", max_frames=4),
         *ins, seed=0, stream=False))
@@ -223,7 +283,10 @@ def refusals(data, mesh) -> dict:
     return dict(raised=out)
 
 
-def run_case(data, name, mesh) -> dict:
+def run_case(data, name, mesh, done) -> dict:
+    kind = name.partition("_")[2]
+    if kind in SPECS:
+        return speculate(data, mesh, name, done)
     if name.startswith("cont_"):
         return run_continuous(data, mesh, dp=name == "cont_dp2")
     if name.startswith("stack_"):
@@ -231,7 +294,7 @@ def run_case(data, name, mesh) -> dict:
                                        int4=name.endswith("int4"))
     if name == "refusals":
         return refusals(data, mesh)
-    return decode(data, mesh, name.split("_", 1)[1])
+    return decode(data, mesh, kind)
 
 
 def main():
@@ -239,14 +302,15 @@ def main():
     parallel.init_distributed("cpu", timeout=TIMEOUT)
     data = torch.load(os.path.join(outdir, "inputs.pt"), weights_only=False)
     rank = int(os.environ["RANK"])
-    meshes = {}
+    meshes, done = {}, {}
     for name, (dp, tp_size) in {"two": TWO, "four": FOUR}[group]:
         if (dp, tp_size) not in meshes:
             meshes[dp, tp_size] = parallel.make_mesh(dp=dp, tp=tp_size)
         try:
-            res = run_case(data, name, meshes[dp, tp_size])
+            res = run_case(data, name, meshes[dp, tp_size], done)
         except Exception:
             res = dict(error=traceback.format_exc())
+        done[name] = res
         torch.save(res, os.path.join(outdir, f"{name}.rank{rank}.pt"))
     import torch.distributed as dist
 

@@ -36,23 +36,6 @@ LAYER_SHAPES = (("qkv", 2304, 4096), ("o", 2048, 2304),
 HEAD_SHAPES = (("head w1", 2304, 2304), ("head w2", 2304, 65541))
 
 
-def product(x, w, splits: int) -> torch.Tensor:
-    """The tensor-core route with ``splits`` K splits in place of the
-    plan's count (bf16 x and output)."""
-    m, k = x.shape
-    out = torch.empty((m, w.n), dtype=torch.bfloat16, device=x.device)
-    part = (torch.empty((splits, m, w.n), dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
-    fn = quant._bind("w8a16_matmul", "t5g_w8a16_matmul")
-    err = fn(x.data_ptr(), 1, m, k, w.values.data_ptr(), w.scale.data_ptr(),
-             w.n, out.data_ptr(), 1, splits, None,
-             None if part is None else part.data_ptr(),
-             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"w8a16 splits={splits}: CUDA error {err}")
-    return out
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_w8a16_splits: no CUDA device", file=sys.stderr)
@@ -77,13 +60,14 @@ def main() -> int:
         want = quant.w8a16_matmul_plain(x, ws[0], torch.float32)
         times = {}
         for splits in range(1, plan["ktiles"] // 2 + 1):
-            got = product(x, ws[0], splits).float()
+            got = cs.w8a16_with_splits(x, ws[0], splits).float()
             rel = float((got - want).norm() / want.norm())
             if not rel < 1e-2:      # the bf16 output: 2^-8 relative a value
                 raise AssertionError(f"{nm} M={m} splits={splits}: "
                                      f"relative error {rel:.2e}")
             times[splits] = cs.graph_ms(
-                lambda: [product(x, w, splits) for w in ws], 5) / copies
+                lambda: [cs.w8a16_with_splits(x, w, splits) for w in ws],
+                5) / copies
         best = min(times, key=times.get)
         print("SPLITS " + json.dumps(dict(
             shape=nm, M=m, K=k, N=n, weights=copies,
